@@ -1,0 +1,141 @@
+"""Flash attention forward: build, ctypes binding and kernel-layout wrapper.
+
+The kernel is `csrc/flash_attention.cu` (CUDA C++ for sm_90a), the port's
+replacement for the reference's Pallas kernel `repro/kernels/flash_attention.py`.
+It is compiled with `nvcc` at first use into `build/repro_torch/` of the
+checkout the package runs from, under a name that hashes the source and
+flags, and loaded with ctypes.  The kernel builds only from a checkout: an
+installed copy of the package raises at the build.
+
+`flash_attention` takes a CPU tensor to the plain version (`ref.py`) and a
+CUDA tensor to the kernel; it never falls back from one to the other.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.ref import flash_attention_ref
+
+PACKAGE = Path(__file__).resolve().parents[1]
+SOURCE = PACKAGE / "csrc" / "flash_attention.cu"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+MAX_HEAD_DIM = 256
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = 0   # kernel launches; a run zeroes it to count one path's launches
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    path = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    return str(path)
+
+
+def build_dir() -> Path:
+    """`build/repro_torch/` of the checkout: the root holding `pyproject.toml`
+    and `src/repro_torch/` with the kernel's source."""
+    root = PACKAGE.parents[1]
+    if PACKAGE.parent.name != "src" or not (root / "pyproject.toml").is_file() \
+            or not SOURCE.is_file():
+        raise RuntimeError(f"{PACKAGE} is not src/repro_torch of a checkout with "
+                           f"{SOURCE.name}; the CUDA kernels build only from a checkout")
+    return root / "build" / "repro_torch"
+
+
+def library_path() -> Path:
+    out_dir = build_dir()
+    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return out_dir / f"libflash_attention_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> str:
+    """Compile the kernel if this source has not been built; return ptxas's report."""
+    out = library_path()
+    if out.exists():
+        return ""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+    os.replace(tmp, out)
+    return res.stderr
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    build()
+    lib = ctypes.CDLL(str(library_path()))
+    fn = lib.repro_flash_attention_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                   + [ctypes.c_longlong] * 12
+                   + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(q, k, v):
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q, k, v on different devices: {q.device}, {k.device}, {v.device}")
+    if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"kernel takes float32 or bfloat16 q/k/v of one dtype, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
+        raise ValueError(f"bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    B, H, _, D = q.shape
+    if k.shape[0] != B or k.shape[3] != D or H % k.shape[1]:
+        raise ValueError(f"q {tuple(q.shape)} does not match k/v {tuple(k.shape)}")
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {D} > {MAX_HEAD_DIM}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name} needs a contiguous last dim, strides {t.stride()}")
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0, scale=None):
+    """q [B,H,Sq,D], k/v [B,K,Skv,D] -> [B,H,Sq,D]; any strides with a unit last-dim stride.
+
+    KV head of query head h is h // (H/K); causal masks k > q + q_offset; a
+    window > 0 masks q - k >= window; `scale` defaults to D**-0.5.
+    """
+    global launches
+    _check(q, k, v)
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    window = int(window) if window else 0
+    if q_offset < 0 or window < 0:
+        raise ValueError(f"q_offset {q_offset} and window {window} must be >= 0")
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
+    B, H, Sq, D = q.shape
+    K, Skv = k.shape[1], k.shape[2]
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    if B == 0 or Sq == 0:
+        return out
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().repro_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
+            B, H, K, Sq, Skv, D,
+            *(t.stride(i) for t in (q, k, v, out) for i in (0, 2, 1)),
+            int(bool(causal)), window, int(q_offset), float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention kernel launch failed: cudaError {err}")
+    launches += 1
+    return out

@@ -1,0 +1,28 @@
+"""Plain PyTorch versions of the kernels (the CPU path and the allclose oracle)."""
+from __future__ import annotations
+
+import torch
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, q_offset=0, scale=None):
+    """q [B,H,Sq,D], k/v [B,K,Skv,D] -> [B,H,Sq,D] (fp32 softmax).
+
+    KV head of query head h is h // (H/K).  Masked scores are -1e30.
+    """
+    H, Sq, D = q.shape[1], q.shape[2], q.shape[3]
+    K, Skv = k.shape[1], k.shape[2]
+    G = H // K
+    scale = scale if scale is not None else D ** -0.5
+    kf = k.repeat_interleave(G, dim=1).float()
+    vf = v.repeat_interleave(G, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * scale
+    qi = (torch.arange(Sq, device=q.device) + q_offset)[:, None]
+    ki = torch.arange(Skv, device=q.device)[None, :]
+    ok = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= ki <= qi
+    if window and window > 0:
+        ok &= (qi - ki) < window
+    s = torch.where(ok, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)

@@ -1,0 +1,172 @@
+"""GQA attention: projections, full/blocked softmax paths, KV-cache decode.
+
+Three compute paths, as in the reference `repro.models.attention`:
+  * ``naive``   — materialize [.., S, S] scores (small seqs / decode)
+  * ``blocked`` — online softmax over KV chunks in plain PyTorch
+  * ``flash``   — the CUDA kernel (`repro_torch.kernels.ops`), the
+                  counterpart of the reference's ``pallas``; on a CPU tensor
+                  it runs the kernel's plain version.
+``auto`` never selects ``flash`` (the kernel is forward-only), as in the
+reference.  Keys are cached post-RoPE.
+"""
+from __future__ import annotations
+
+import torch
+from torch.profiler import record_function
+
+from repro_torch.models.layers import apply_rope
+from repro_torch.models.meta import ParamMeta
+
+NEG_INF = -1e30
+
+
+def largest_divisor_leq(n: int, cap: int) -> int:
+    """Largest divisor of n that is <= cap (chunking non-power-of-2 seqs)."""
+    cap = max(1, min(cap, n))
+    for d in range(cap, 0, -1):
+        if n % d == 0:
+            return d
+    return 1
+
+
+def attention_meta(cfg):
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    return {
+        "wq": ParamMeta((d, qd), ("embed", "heads")),
+        "wk": ParamMeta((d, kvd), ("embed", "kv_heads")),
+        "wv": ParamMeta((d, kvd), ("embed", "kv_heads")),
+        "wo": ParamMeta((qd, d), ("heads", "embed")),
+    }
+
+
+def project_qkv(cfg, p, x_q, x_kv, positions_q, positions_kv):
+    """Project and rope. x_q [B,Sq,D], x_kv [B,Skv,D] -> q[B,Sq,H,Dh], k/v[B,Skv,K,Dh]."""
+    dt = x_q.dtype
+    B, Sq, _ = x_q.shape
+    Skv = x_kv.shape[1]
+    H, K, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x_q @ p["wq"].to(dt)).reshape(B, Sq, H, Dh)
+    k = (x_kv @ p["wk"].to(dt)).reshape(B, Skv, K, Dh)
+    v = (x_kv @ p["wv"].to(dt)).reshape(B, Skv, K, Dh)
+    if positions_q is not None:
+        q = apply_rope(cfg, q, positions_q)
+    if positions_kv is not None:
+        k = apply_rope(cfg, k, positions_kv)
+    return q, k, v
+
+
+def _mask_bias(q_idx, k_idx, *, causal: bool, window) -> torch.Tensor:
+    """Additive bias [.., Sq, Skv] from index grids (fp32); window 0 = full."""
+    ok = torch.ones(torch.broadcast_shapes(q_idx.shape, k_idx.shape),
+                    dtype=torch.bool, device=q_idx.device)
+    if causal:
+        ok &= k_idx <= q_idx
+    if window:
+        ok &= (q_idx - k_idx) < window
+    return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+
+
+def attend_naive(cfg, q, k, v, *, causal=True, window=0, q_offset=0,
+                 kv_valid_len=None):
+    """q [B,Sq,H,Dh], k/v [B,Skv,K,Dh] -> [B,Sq,H,Dh].
+
+    Scores are fp32 products of the working-dtype inputs (the reference's
+    `preferred_element_type=float32`); probabilities are cast back to v's dtype.
+    """
+    B, Sq, H, Dh = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, K, H // K, Dh)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
+    scores = scores * (cfg.head_dim ** -0.5)
+    q_idx = (torch.arange(Sq, device=q.device) + q_offset)[:, None]
+    k_idx = torch.arange(Skv, device=q.device)[None, :]
+    bias = _mask_bias(q_idx, k_idx, causal=causal, window=window)
+    if kv_valid_len is not None:
+        bias = bias + torch.where(k_idx < kv_valid_len, 0.0, NEG_INF)
+    probs = torch.softmax(scores + bias, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
+    return out.reshape(B, Sq, H, Dh)
+
+
+def attend_blocked(cfg, q, k, v, *, causal=True, window=0, q_offset=0,
+                   kv_chunk=1024):
+    """Online softmax over KV chunks (plain PyTorch, memory-bounded).
+
+    Computes every (q, kv-chunk) pair with masking; the kernel skips fully
+    masked tiles.
+    """
+    B, Sq, H, Dh = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    G = H // K
+    kv_chunk = largest_divisor_leq(Skv, min(kv_chunk, Skv))
+    qg = q.reshape(B, Sq, K, G, Dh).float()
+    q_idx = (torch.arange(Sq, device=q.device) + q_offset)[:, None]
+    scale = cfg.head_dim ** -0.5
+    m = torch.full((B, K, G, Sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, K, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, K, G, Sq, Dh), dtype=torch.float32, device=q.device)
+    for start in range(0, Skv, kv_chunk):
+        kj = k[:, start:start + kv_chunk]
+        vj = v[:, start:start + kv_chunk]
+        scores = torch.einsum("bskgd,btkd->bkgst", qg, kj.float()) * scale
+        k_idx = (torch.arange(kv_chunk, device=q.device) + start)[None, :]
+        scores = scores + _mask_bias(q_idx, k_idx, causal=causal, window=window)
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(scores - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgst,btkd->bkgsd", p.to(vj.dtype), vj).float()
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dh).to(q.dtype)
+
+
+def attend(cfg, q, k, v, *, causal=True, window=0, q_offset=0, impl="auto",
+           kv_valid_len=None):
+    if impl == "auto":
+        big = q.shape[1] * k.shape[1] > (1 << 22) or k.shape[1] > 2048
+        impl = "blocked" if big and kv_valid_len is None else "naive"
+    if impl == "flash":
+        from repro_torch.kernels import ops as kops
+        return kops.flash_attention(cfg, q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset)
+    if impl == "blocked":
+        return attend_blocked(cfg, q, k, v, causal=causal, window=window,
+                              q_offset=q_offset)
+    if impl != "naive":
+        raise ValueError(f"attn impl {impl!r} not in auto|naive|blocked|flash")
+    return attend_naive(cfg, q, k, v, causal=causal, window=window,
+                        q_offset=q_offset, kv_valid_len=kv_valid_len)
+
+
+# --------------------------------------------------------------------------
+# decode (single new token against a cache)
+# --------------------------------------------------------------------------
+
+def decode_attention(cfg, p, x, cache_k, cache_v, pos: int, *, window=0,
+                     windowed_cache=False, positions=None):
+    """One-token self-attention against a full-length KV cache.
+
+    x [B, 1, D]; pos the current position (int); cache_k/v [B, Sc, K, Dh].
+    Writes the new key and value into the caches IN PLACE at slot `pos`
+    (the reference returns updated copies and donates the old buffers) and
+    returns (out [B,1,D], cache_k, cache_v).
+    """
+    if windowed_cache:
+        raise NotImplementedError("windowed ring cache arrives with the SWA item of "
+                                  "ROADMAP slice 2")
+    with record_function("attn_decode"):
+        dt = x.dtype
+        B = x.shape[0]
+        if positions is None:
+            positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+        q, k_new, v_new = project_qkv(cfg, p, x, x, positions, positions)
+        cache_k[:, pos] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[:, pos] = v_new[:, 0].to(cache_v.dtype)
+        # slot index == absolute position, so causal + window masking with
+        # q_offset=pos covers validity too (k_idx <= pos)
+        out = attend_naive(cfg, q, cache_k.to(dt), cache_v.to(dt),
+                           causal=True, window=window, q_offset=pos)
+        y = out.reshape(B, 1, -1) @ p["wo"].to(dt)
+        return y, cache_k, cache_v

@@ -1,0 +1,63 @@
+"""Import hygiene of the port: no jax and nothing of the reference package.
+
+Also: `chip_smoke.py` exits non-zero and prints no result without a CUDA
+device, and in a directory that holds nothing else of the repo.
+"""
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import repro_torch
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "src" / "repro_torch"
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."))
+
+
+def test_every_module_imports_without_jax_or_repro():
+    code = ("import importlib, sys\n"
+            f"for name in {_modules()!r}:\n"
+            "    importlib.import_module(name)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "print(len([m for m in sys.modules if m.startswith('repro_torch')]), bad)\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=str(REPO / "src")), timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    n, bad = res.stdout.strip().split(" ", 1)
+    assert int(n) >= 15 and bad == "[]", res.stdout
+
+
+def test_sources_have_no_jax_or_repro_import():
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) >= 15
+    offenders = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
+                 for f in files for m in FORBIDDEN.finditer(f.read_text())]
+    assert offenders == []
+    assert FORBIDDEN.search("from repro.models import api")      # the pattern itself bites
+    assert not FORBIDDEN.search("from repro_torch.models import api")
+
+
+def _run_chip_smoke(cwd, script):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, str(script)], cwd=cwd, capture_output=True,
+                          text=True, env=env, timeout=120)
+
+
+def test_chip_smoke_refuses_without_a_card_or_a_checkout(tmp_path):
+    import torch
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((REPO / "chip_smoke.py").read_text())
+    runs = [_run_chip_smoke(tmp_path, lone)]
+    if not torch.cuda.is_available():
+        runs.append(_run_chip_smoke(REPO, REPO / "chip_smoke.py"))
+    for res in runs:
+        assert res.returncode != 0
+        assert '"ok"' not in res.stdout
