@@ -5,27 +5,39 @@
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. device  — the card's name and power limit, as nvidia-smi reports them
-  2. build   — nvcc builds every kernel from src/repro_torch/csrc into build/repro_torch
+  2. build   — nvcc builds every kernel from src/repro_torch/csrc into build/repro_torch,
+               one nvcc per source, all started together
   3. kernels — each kernel against its plain PyTorch version on the card, at the
-               reference's test shapes (the tests' tolerances) and at the serving
-               path's shape (max abs error 1e-2); bf16 outputs element by element
-               within two bf16 rounding steps; kernel, plain, library and bound times
-  4. serving — full-width chatglm3-6b (28 layers, seed-0 random bf16 weights):
-               4 prompts of 1024 tokens through make_prefill_step(attn_impl="flash"),
-               then 16 greedy make_decode_step steps; 28 kernel launches per prefill;
-               prefill logits against attn_impl="naive" and prefill + one decode
-               against forward's last logits, asserted in fp32 compute at full width
-               (relative error < 2e-5) and reported in bf16
-  5. server  — BatchedServer at full width answers 4 requests
-  6. a JSON line of every ported kernel, then the JSON result line.
-Without a CUDA device, or outside a checkout of the repo, it exits non-zero and
-prints no result.
+               reference's test shapes (the tests' tolerances) and at every serving
+               path's shape; kernel, plain, library and bound times
+               K1 flash_attention: path-shape max abs error 1e-2 (chatglm3-6b's, and
+               hymba-1.5b's with windows 1024 and 0), bf16 outputs element by element
+               within two bf16 rounding steps
+               K2 mamba_scan: max abs error 1e-4 for y and the final state, at the
+               reference's cases and falcon-mamba-7b's and hymba-1.5b's shapes
+  4-6. the models at full width with seed-0 random bf16 weights, one table row
+               each (MODELS): prefill through make_prefill_step(attn_impl="flash"),
+               16 greedy make_decode_step steps, each kernel's launches per prefill
+               asserted, a profiler breakdown of one prefill and one decode step,
+               BatchedServer with 4 requests; then prefill + one decode against
+               forward's last logits (and the flash prefill against the naive one,
+               with naive prefill + decode vs forward as the equal-maths control),
+               asserted in fp32 compute (relative error < 2e-5) and reported in bf16
+               4. chatglm3-6b (dense, 28 layers): 4 x 1024, 28 K1 launches per prefill
+               5. falcon-mamba-7b (ssm, 64 layers): 4 x 1024, 64 K2 and no K1
+               6. hymba-1.5b (hybrid, 32 layers, windows of 1024 but in layers
+                  0/15/31): 4 x 2048, 32 K1 and 32 K2
+  7. a JSON line of every ported kernel, then the JSON result line.
+Each model's weights are freed before the next model is built.  Without a CUDA
+device, or outside a checkout of the repo, it exits non-zero and prints no result.
 """
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM data sheet, dense
 PEAK_BYTES = 3.35e12                                  # H100 SXM HBM3, bytes/s
@@ -35,11 +47,15 @@ FP32_TOL = 2e-5       # relative; the port's fp32 parity tolerance against the r
 # value (plus the fp32 difference near zero, ~1e-6 in the fp32 cases); the limit
 # is two such steps
 BF16_STEP, BF16_FLOOR, BF16_MAX_STEPS = 2.0 ** -7, 1e-5, 2.0
-# B, H, K, S, D, causal, window, dtype, tol: the serving path's shape, and the
-# reference's FLASH_CASES (tests/test_kernels.py) with their tolerances.  The path
-# shape's max abs limit is set from its readings: error 0.0039 (one bf16 step at
-# values in [0.5, 1)) against a median |output| of ~0.05
-PATH_SHAPE = (4, 32, 2, 1024, 128, True, 0, "bfloat16", 1e-2)
+# B, H, K, S, D, causal, window, dtype, tol: the serving paths' shapes in the model
+# layout (chatglm3-6b's prefill of 4 x 1024; hymba-1.5b's of 4 x 2048 with its
+# windowed and global layers), and the reference's FLASH_CASES
+# (tests/test_kernels.py) with their tolerances.  The path shapes' max abs limit
+# is set from their readings: error 0.0039 (one bf16 step at values in [0.5, 1))
+# against a median |output| of ~0.05 at chatglm3-6b's
+PATH_SHAPES = [(4, 32, 2, 1024, 128, True, 0, "bfloat16", 1e-2),
+               (4, 25, 5, 2048, 64, True, 1024, "bfloat16", 1e-2),
+               (4, 25, 5, 2048, 64, True, 0, "bfloat16", 1e-2)]
 FLASH_CASES = [
     (1, 2, 2, 256, 128, True, 0, "float32", 2e-5),
     (2, 4, 2, 256, 128, True, 64, "float32", 2e-5),
@@ -48,6 +64,24 @@ FLASH_CASES = [
     (1, 4, 4, 128, 128, True, 0, "bfloat16", 3e-2),
     (1, 2, 2, 384, 128, True, 128, "bfloat16", 3e-2),
 ]
+# K2: B, S, Di, N — the reference's MAMBA_CASES (tests/test_kernels.py:69) and the
+# shapes of the serving paths' prefills (falcon-mamba-7b 4 x 1024, hymba-1.5b
+# 4 x 2048); the reference's tolerance
+SCAN_CASES = [(1, 128, 64, 8), (2, 256, 128, 16), (1, 512, 256, 16), (1, 96, 64, 4)]
+SCAN_PATH_SHAPES = [(4, 1024, 8192, 16), (4, 2048, 3200, 16)]
+SCAN_TOL = 1e-4
+SCAN_NO_LIBRARY = ("no single PyTorch call computes a linear recurrence with a "
+                   "per-step readout (h_t = a_t*h_{t-1} + bx_t, y_t = <h_t, c_t>)")
+# the full-width models, one at a time: arch, prefill batch and length, attention
+# impls (the first serves, the others are compared with it), the consistency
+# checks' batch and length, and each kernel's launches per prefill
+MODELS = [
+    ("chatglm3-6b", 4, 1024, ("flash", "naive"), (4, 1024), {"flash_attention": 28}),
+    ("falcon-mamba-7b", 4, 1024, ("flash",), (2, 512), {"mamba_scan": 64}),
+    ("hymba-1.5b", 4, 2048, ("flash", "naive"), (4, 2048),
+     {"flash_attention": 32, "mamba_scan": 32}),
+]
+N_DECODE = 16
 
 
 def check(ok, msg):
@@ -59,6 +93,20 @@ def nvidia_smi():
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip()
+
+
+def build_all(build, sources):
+    """Run every kernel's build at once (one nvcc each); return {name: (s, report)}.
+
+    A failed build raises here, when its result is read."""
+    def timed(source):
+        t0 = time.perf_counter()
+        report = build.build(source)
+        return time.perf_counter() - t0, report
+
+    with ThreadPoolExecutor(len(sources)) as pool:
+        futures = {name: pool.submit(timed, source) for name, source in sources.items()}
+        return {name: f.result() for name, f in futures.items()}
 
 
 def cuda_ms(torch, fn, iters):
@@ -84,7 +132,8 @@ def device_breakdown(torch, fn):
 
     busy_ms sums kernel durations (one stream: they do not overlap); idle is
     the share of the span from the first kernel's start to the last one's end
-    in which no kernel ran.
+    in which no kernel ran; top_other lists the five kernels of the "other"
+    group with the most time.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -92,8 +141,8 @@ def device_breakdown(torch, fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    groups = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
-    starts, ends = [], []
+    groups = {"flash_attention": 0.0, "mamba_scan": 0.0, "matmul": 0.0, "other": 0.0}
+    starts, ends, other = [], [], {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA or e.is_user_annotation:
             continue
@@ -101,17 +150,22 @@ def device_breakdown(torch, fn):
         name = e.name.lower()
         if "flash_fwd_kernel" in name:
             groups["flash_attention"] += dur
+        elif "mamba_scan_kernel" in name:
+            groups["mamba_scan"] += dur
         elif any(k in name for k in ("gemm", "nvjet", "cutlass", "xmma", "gemv")):
             groups["matmul"] += dur
         else:
             groups["other"] += dur
+            other[e.name[:80]] = other.get(e.name[:80], 0.0) + dur
         starts.append(e.time_range.start)
         ends.append(e.time_range.end)
     check(starts, "profiler saw no device activity")
     busy = sum(groups.values())
     span = (max(ends) - min(starts)) / 1e3
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:5]
     return dict(busy_ms=busy, span_ms=span, idle_share=1 - busy / span,
-                **{f"{k}_ms": v for k, v in groups.items()})
+                **{f"{k}_ms": v for k, v in groups.items()},
+                top_other=[[k, round(v, 3)] for k, v in top])
 
 
 def flash_case(torch, F, fa, ref, case, seed, q_offset=0, layout="bhsd"):
@@ -172,6 +226,209 @@ def flash_case(torch, F, fa, ref, case, seed, q_offset=0, layout="bhsd"):
                 gflop=flops / 1e9, mbytes=nbytes / 1e6)
 
 
+def scan_case(torch, ms, ref, case, seed):
+    """K2 vs its plain version on one shape, with the final state; inputs made as
+    the reference's kernel tests make them (a = exp(-|z|), bx = 0.1 z, c = z)."""
+    B, S, Di, N = case
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn((B, S, Di, N), generator=gen, device="cuda").abs_().neg_().exp_()
+    bx = torch.randn((B, S, Di, N), generator=gen, device="cuda").mul_(0.1)
+    c = torch.randn((B, S, N), generator=gen, device="cuda")
+    y, h = ms.mamba_scan(a, bx, c, return_state=True)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()                                 # the plain loop runs once per case
+    plain_y, plain_h = ref.mamba_scan_ref(a, bx, c, return_state=True)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = float((y - plain_y).abs().max())
+    h_err = float((h - plain_h).abs().max())
+    check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all()),
+          f"non-finite scan output {case}")
+    check(err < SCAN_TOL and h_err < SCAN_TOL,
+          f"scan kernel vs plain {case}: y {err}, h_S {h_err} >= {SCAN_TOL}")
+    iters = 20 if a.numel() < (1 << 26) else 10
+    kernel_ms = cuda_ms(torch, lambda: ms.mamba_scan(a, bx, c, return_state=True), iters)
+    flops = 4 * a.numel()                          # h: mul + add; y: mul + add, per (b,t,d,n)
+    nbytes = sum(t.numel() * 4 for t in (a, bx, c, y, h))
+    t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES
+    return dict(case=list(case), max_abs_err=err, h_max_abs_err=h_err, tol=SCAN_TOL,
+                median_abs_out=float(plain_y.abs().median()), kernel_ms=kernel_ms,
+                plain_ms=plain_ms, library_ms=None, bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                gflop=flops / 1e9, mbytes=nbytes / 1e6)
+
+
+def main_path(rt, cfg, params, B, S, n_decode, attn_impl):
+    """The serving path a user drives: 2 prefills (the first warms up), then n_decode
+    greedy decode steps.  Every launch counter is zeroed just before and read just
+    after.  Returns timings, launches per kernel and what the checks need."""
+    torch = rt.torch
+    cache_len = S + n_decode
+    batch = rt.api.demo_batch(cfg, B, S, seed=0)
+    prefill = rt.make_prefill_step(cfg, rt.StepSettings(attn_impl=attn_impl),
+                                   cache_len=cache_len)
+    decode = rt.make_decode_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in rt.counters.values():
+        mod.launches = 0
+    prefill_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, batch)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+    prefill_logits = logits.clone()
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    generated = [tok]
+    decode_s = []
+    for i in range(n_decode):                      # the first step is timed apart (cold)
+        t0 = time.perf_counter()
+        logits, cache = decode(params, cache, tok, S + i)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        generated.append(tok)
+        if i in (0, n_decode - 1):
+            torch.cuda.synchronize()
+        decode_s.append(time.perf_counter() - t0)
+    launches = {name: mod.launches for name, mod in rt.counters.items()}
+    generated = torch.cat(generated, dim=1)
+    check(bool(torch.isfinite(prefill_logits).all()) and bool(torch.isfinite(logits).all()),
+          f"{cfg.name}: non-finite logits")
+    check(prefill_logits.shape == (B, 1, cfg.vocab_size), f"logits {prefill_logits.shape}")
+    check(bool(((generated >= 0) & (generated < cfg.vocab_size)).all()), "token out of range")
+    warm_s = sum(decode_s[1:])
+    res = dict(arch=cfg.name, B=B, S=S, prefill_ms=prefill_s[1] * 1e3,
+               prefill_tok_s=B * S / prefill_s[1], cold_prefill_ms=prefill_s[0] * 1e3,
+               decode_ms=warm_s * 1e3 / (n_decode - 1),
+               decode_tok_s=B * (n_decode - 1) / warm_s, cold_decode_ms=decode_s[0] * 1e3,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches,
+               tokens0=generated[0].tolist())
+    return res, batch, prefill, decode, prefill_logits, cache
+
+
+def cache_shapes(cfg, B, cache_len):
+    """The decode cache's shapes by family: k/v for attention, conv/ssm for Mamba."""
+    L, shapes = cfg.num_layers, {}
+    if cfg.family != "ssm":
+        shapes["k"] = shapes["v"] = (L, B, cache_len, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.family != "dense":
+        shapes["conv"] = (L, B, cfg.d_conv - 1, cfg.d_inner)
+        shapes["ssm"] = (L, B, cfg.d_inner, cfg.ssm_state)
+    return shapes
+
+
+def run_server(rt, cfg, params):
+    """BatchedServer at full width, 4 requests x (8 prompt + 8 new) tokens; it prefills
+    through decode steps, as the reference's does, so it launches neither kernel."""
+    for mod in rt.counters.values():
+        mod.launches = 0
+    srv = rt.BatchedServer(cfg, params, max_batch=4, cache_len=64)
+    rng = rt.np.random.default_rng(0)
+    reqs = [rt.Request(i, rng.integers(0, cfg.vocab_size, 8), 8) for i in range(4)]
+    t0 = time.perf_counter()
+    srv.run(reqs)
+    rt.torch.cuda.synchronize()
+    srv_s = time.perf_counter() - t0
+    check(all(r.done and len(r.generated) == 8 for r in reqs), "server left requests unfinished")
+    launches = {name: mod.launches for name, mod in rt.counters.items()}
+    print(f"[server] {cfg.name}: 4 requests x 8 new tokens in {srv_s:.2f}s "
+          f"({32 / srv_s:.1f} tok/s), launches {launches}; req 0 -> {reqs[0].generated}")
+
+
+def consistency(rt, cfg, params, B, S, impls):
+    """Relative errors on tokens of seed 1, launches not counted: for each attention
+    impl, prefill of S tokens + one decode step against forward's last logits on the
+    S + 1 tokens; the first impl's prefill against forward at S and against each other
+    impl's prefill.  Forward runs the naive attention, so naive prefill + decode
+    against it is the control with equal maths.  Where the cache holds k/v, layer 0's
+    (which precede any attention) must be equal bits for every impl."""
+    torch = rt.torch
+    toks = rt.api.demo_batch(cfg, B, S + 1, seed=1)["tokens"]
+    lg, dec, kv0 = {}, {}, {}
+    for impl in impls:
+        step = rt.make_prefill_step(cfg, rt.StepSettings(attn_impl=impl), cache_len=S + 1)
+        lg[impl], cache = step(params, {"tokens": toks[:, :S]})
+        if "k" in cache:
+            kv0[impl] = (cache["k"][0].clone(), cache["v"][0].clone())
+        dec[impl], _ = rt.make_decode_step(cfg)(params, cache, toks[:, S:], S)
+        del cache
+    with torch.no_grad():
+        full, _ = rt.api.forward(cfg, params, {"tokens": toks}, attn_impl="naive")
+    first = impls[0]
+    out = {f"{first}_vs_{impl}_prefill": rel(torch, lg[first], lg[impl])
+           for impl in impls[1:]}
+    for impl in impls:
+        out[f"{impl}_prefill_decode_vs_forward"] = rel(torch, dec[impl][:, 0], full[:, -1])
+    out[f"{first}_prefill_vs_forward"] = rel(torch, lg[first][:, 0], full[:, -2])
+    if kv0:
+        out["layer0_kv_equal"] = all(torch.equal(a, b) for kv in kv0.values()
+                                     for a, b in zip(kv, kv0[first]))
+    return out
+
+
+def report_path(res, per_prefill):
+    print(f"[serve] {res['arch']} prefill {res['B']}x{res['S']}: {res['prefill_ms']:.1f} ms "
+          f"({res['prefill_tok_s']:.0f} tok/s; cold {res['cold_prefill_ms']:.1f} ms), "
+          f"launches per prefill {per_prefill}")
+    print(f"[serve] {res['arch']} decode x {res['B']}: {res['decode_ms']:.2f} ms/step after "
+          f"the first ({res['decode_tok_s']:.1f} tok/s; cold first step "
+          f"{res['cold_decode_ms']:.1f} ms); peak memory {res['peak_gb']:.2f} GB")
+    print(f"[serve] {res['arch']} main path " + json.dumps(res))
+
+
+def serve_model(rt, arch, B, S, impls, check_shape, per_prefill):
+    """One model at full width with seed-0 random bf16 weights: the main path and its
+    launch counts, a profile of one prefill and one decode step, BatchedServer, then
+    the consistency checks, reported in bf16 and held in fp32 compute.  Each set of
+    weights is freed before the next is built.  Returns the main path's launches."""
+    torch, api = rt.torch, rt.api
+    cfg = rt.get_config(arch)
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, 0)
+    torch.cuda.synchronize()
+    print(f"[serve] {cfg.name}: {api.param_count(cfg) / 1e9:.3f}B params in bf16, "
+          f"init {time.perf_counter() - t0:.1f}s, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    res, batch, prefill, decode, prefill_logits, cache = main_path(
+        rt, cfg, params, B, S, N_DECODE, impls[0])
+    want = {name: 2 * per_prefill.get(name, 0) for name in rt.counters}
+    check(res["launches"] == want, f"{res['launches']} launches on the {cfg.name} main "
+                                   f"path, want {want}")
+    shapes = {name: tuple(a.shape) for name, a in cache.items()}
+    check(shapes == cache_shapes(cfg, B, S + N_DECODE), f"cache {shapes}")
+    report_path(res, per_prefill)
+    check(torch.equal(prefill(params, batch)[0], prefill_logits), "prefill is not deterministic")
+    nxt = prefill_logits[:, -1].argmax(-1, keepdim=True)
+    for label, fn in (("prefill", lambda: prefill(params, batch)),
+                      ("decode", lambda: decode(params, cache, nxt, S))):
+        print(f"[profile] {cfg.name} {label} " + json.dumps(device_breakdown(torch, fn)))
+    del cache, prefill, decode, prefill_logits
+    torch.cuda.empty_cache()
+    run_server(rt, cfg, params)
+
+    # in bf16 at full width the equal-maths control already differs by about the
+    # tests' 0.02, so the limits are held in fp32 compute, where the same
+    # comparisons must agree to rounding
+    bf16 = consistency(rt, cfg, params, *check_shape, impls)
+    print(f"[check] {cfg.name} bf16 B={check_shape[0]} S={check_shape[1]}, reported "
+          + json.dumps(bf16))
+    check(bf16.get("layer0_kv_equal", True), f"{cfg.name}: layer-0 k/v differ between impls")
+    del params
+    torch.cuda.empty_cache()
+    cfg32 = cfg.replace(compute_dtype="float32")
+    params32 = api.init_params(cfg32, 0)
+    fp32 = consistency(rt, cfg32, params32, *check_shape, impls)
+    del params32
+    torch.cuda.empty_cache()
+    print(f"[check] {cfg.name} fp32, limit {FP32_TOL} " + json.dumps(fp32))
+    for key, val in fp32.items():
+        check(val is True if isinstance(val, bool) else val < FP32_TOL,
+              f"{cfg.name} fp32 {key}: {val}")
+    return res["launches"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -186,7 +443,9 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.configs import get_config
+    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import ref
     from repro_torch.launch.presets import StepSettings
     from repro_torch.launch.serve import BatchedServer, Request
@@ -196,6 +455,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    counters = {"flash_attention": fa, "mamba_scan": ms}
+    rt = SimpleNamespace(torch=torch, np=np, api=api, get_config=get_config,
+                         make_prefill_step=make_prefill_step,
+                         make_decode_step=make_decode_step, StepSettings=StepSettings,
+                         BatchedServer=BatchedServer, Request=Request, counters=counters)
 
     # 1. device
     smi = nvidia_smi()
@@ -204,145 +468,60 @@ def main() -> int:
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"devices {torch.cuda.device_count()} python {sys.version.split()[0]}")
 
-    # 2. build (one source today; each source would get its own nvcc, started together)
+    # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
-    report = fa.build()
-    print(f"[build] flash_attention.cu in {time.perf_counter() - t0:.1f}s -> {fa.library_path()}")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build]   {line.strip()}")
+    built = build_all(build, {kname: mod.SOURCE for kname, mod in counters.items()})
+    print(f"[build] {len(built)} kernels in {time.perf_counter() - t0:.1f}s")
+    for kname, (secs, report) in built.items():
+        print(f"[build] {kname}: {secs:.1f}s -> {build.library_path(counters[kname].SOURCE)}")
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build]   {line.strip()}")
 
-    # 3. kernel vs plain version
+    # 3. kernels vs plain versions
     results = [flash_case(torch, F, fa, ref, case, seed=i) for i, case in enumerate(FLASH_CASES)]
     results.append(flash_case(torch, F, fa, ref, (1, 2, 2, 256, 128, True, 0, "float32", 2e-5),
                               seed=100, q_offset=128))
     results.append(flash_case(torch, F, fa, ref, (1, 4, 2, 128, 120, True, 0, "float32", 2e-5),
                               seed=101, layout="bshd"))
-    results.append(flash_case(torch, F, fa, ref, PATH_SHAPE, seed=102, layout="bshd"))
+    results += [flash_case(torch, F, fa, ref, case, seed=102 + i, layout="bshd")
+                for i, case in enumerate(PATH_SHAPES)]
+    print(f"[kernel] bounds use H100 SXM data-sheet rates: {PEAK_BYTES / 1e12} TB/s, "
+          f"{PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s bf16, "
+          f"{PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s fp32 (dense, 700 W)")
     for r in results:
         print("[kernel] " + json.dumps(r))
-    path = results[-1]
-
-    # 4. full-width serving through the step factories
-    cfg = get_config("chatglm3-6b")
-    t0 = time.perf_counter()
-    params = api.init_params(cfg, 0)
-    torch.cuda.synchronize()
-    print(f"[serve] {cfg.name}: {api.param_count(cfg) / 1e9:.3f}B params in bf16, "
-          f"init {time.perf_counter() - t0:.1f}s, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
-    B, S, cache_len, n_decode = 4, 1024, 1040, 16
-    batch = api.demo_batch(cfg, B, S, seed=0)
-    prefill = make_prefill_step(cfg, StepSettings(attn_impl="flash"), cache_len=cache_len)
-    decode = make_decode_step(cfg)
-
-    torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0                                # counts the main path only
-    prefill_s = []
-    for rep in range(2):                           # the first call warms up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, cache = prefill(params, batch)
-        torch.cuda.synchronize()
-        prefill_s.append(time.perf_counter() - t0)
-        check(fa.launches == cfg.num_layers * (rep + 1),
-              f"{fa.launches} flash launches after {rep + 1} prefills")
-    prefill_logits = logits.clone()
-    tok = logits[:, -1].argmax(-1, keepdim=True)
-    generated = [tok]
-    decode_s = []
-    for i in range(n_decode):                      # the first step is timed apart (cold)
-        t0 = time.perf_counter()
-        logits, cache = decode(params, cache, tok, S + i)
-        tok = logits[:, -1].argmax(-1, keepdim=True)
-        generated.append(tok)
-        if i in (0, n_decode - 1):
-            torch.cuda.synchronize()
-        decode_s.append(time.perf_counter() - t0)
-    main_launches = fa.launches
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    generated = torch.cat(generated, dim=1)
-    check(main_launches == 2 * cfg.num_layers, f"{main_launches} launches on the main path")
-    check(bool(torch.isfinite(prefill_logits).all()) and bool(torch.isfinite(logits).all()),
-          "non-finite logits")
-    check(prefill_logits.shape == (B, 1, cfg.vocab_size), f"logits {prefill_logits.shape}")
-    check(cache["k"].shape == (cfg.num_layers, B, cache_len, cfg.num_kv_heads, cfg.head_dim),
-          f"cache {tuple(cache['k'].shape)}")
-    check(bool(((generated >= 0) & (generated < cfg.vocab_size)).all()), "token out of range")
-    print(f"[serve] prefill {B}x{S}: {prefill_s[1] * 1e3:.1f} ms "
-          f"({B * S / prefill_s[1]:.0f} tok/s; cold {prefill_s[0] * 1e3:.1f} ms), "
-          f"28 flash launches per prefill")
-    warm_s = sum(decode_s[1:])
-    print(f"[serve] decode {n_decode} steps x {B}: {warm_s * 1e3 / (n_decode - 1):.2f} ms/step "
-          f"after the first ({B * (n_decode - 1) / warm_s:.1f} tok/s; cold first step "
-          f"{decode_s[0] * 1e3:.1f} ms); peak memory {peak_gb:.2f} GB")
-    print(f"[serve] greedy tokens of prompt 0: {generated[0].tolist()}")
-
-    # checks of the main path's results (launches here are not counted)
-    def consistency(cfg, params):
-        """Relative errors of flash vs naive prefill and of prefill + one decode
-        vs forward's last logits, for the flash and (as a control) naive prefill."""
-        out = {}
-        lg, caches = {}, {}
-        for impl in ("flash", "naive"):
-            lg[impl], caches[impl] = make_prefill_step(
-                cfg, StepSettings(attn_impl=impl), cache_len=cache_len)(params, batch)
-        out["flash_vs_naive_prefill"] = rel(torch, lg["flash"], lg["naive"])
-        # layer 0's keys and values precede any attention: equal bits
-        out["layer0_cache_equal"] = all(torch.equal(caches["flash"][n][0], caches["naive"][n][0])
-                                        for n in ("k", "v"))
-        nxt = lg["flash"][:, -1].argmax(-1, keepdim=True)
-        with torch.no_grad():
-            full, _ = api.forward(cfg, params, {"tokens": torch.cat([batch["tokens"], nxt], 1)})
-        for impl in ("flash", "naive"):
-            dec, _ = make_decode_step(cfg)(params, caches[impl], nxt, S)
-            out[f"{impl}_prefill_decode_vs_forward"] = rel(torch, dec[:, 0], full[:, -1])
-        return out
-
-    check(torch.equal(prefill(params, batch)[0], prefill_logits), "prefill is not deterministic")
-    bf16 = consistency(cfg, params)
-    check(bf16["layer0_cache_equal"], "layer-0 cache differs between flash and naive prefill")
-    print("[check] bf16, reported " + json.dumps(bf16))
-    # In bf16 at full width the two mathematically equal naive paths (the control)
-    # already differ by about the 0.02 limit, so the limits are held in fp32 compute,
-    # where the same comparisons must agree to rounding.
-    cfg32 = cfg.replace(compute_dtype="float32")
-    params32 = api.init_params(cfg32, 0)
-    fp32 = consistency(cfg32, params32)
-    del params32
-    print(f"[check] fp32, limit {FP32_TOL} " + json.dumps(fp32))
-    for key in ("flash_vs_naive_prefill", "flash_prefill_decode_vs_forward"):
-        check(fp32[key] < FP32_TOL, f"fp32 {key} rel {fp32[key]} >= {FP32_TOL}")
-    check(fp32["layer0_cache_equal"], "fp32 layer-0 cache differs")
+    path = results[-len(PATH_SHAPES)]
+    scans = [scan_case(torch, ms, ref, case, seed=200 + i)
+             for i, case in enumerate(SCAN_CASES + SCAN_PATH_SHAPES)]
+    for r in scans:
+        print("[kernel] mamba_scan " + json.dumps(r))
+    scan_path = scans[len(SCAN_CASES)]
+    print(f"[kernel] mamba_scan library_ms null: {SCAN_NO_LIBRARY}")
     torch.cuda.empty_cache()
 
-    nxt = prefill_logits[:, -1].argmax(-1, keepdim=True)
-    for label, fn in (("prefill", lambda: prefill(params, batch)),
-                      ("decode", lambda: decode(params, cache, nxt, S))):
-        print(f"[profile] {label} " + json.dumps(device_breakdown(torch, fn)))
-    del cache
+    # 4-6. the models at full width, one at a time
+    main_launches = {kname: 0 for kname in counters}
+    for model in MODELS:
+        for kname, n in serve_model(rt, *model).items():
+            main_launches[kname] += n
 
-    # 5. the batched server at full width (prefills through decode steps, as in the
-    #    reference: no flash launches on this path)
-    fa.launches = 0
-    srv = BatchedServer(cfg, params, max_batch=4, cache_len=64)
-    rng = np.random.default_rng(0)
-    reqs = [Request(i, rng.integers(0, cfg.vocab_size, 8), 8) for i in range(4)]
-    t0 = time.perf_counter()
-    srv.run(reqs)
-    torch.cuda.synchronize()
-    srv_s = time.perf_counter() - t0
-    check(all(r.done and len(r.generated) == 8 for r in reqs), "server left requests unfinished")
-    print(f"[server] 4 requests x 8 new tokens in {srv_s:.2f}s "
-          f"({32 / srv_s:.1f} tok/s), flash launches {fa.launches}; "
-          f"req 0 -> {reqs[0].generated}")
-
-    # 6. results
+    # 7. results: launches are the main paths' (chatglm3-6b, falcon-mamba-7b, hymba-1.5b)
+    print(f"[done] main-path launches {main_launches}")
     kernels = [dict(name="flash_attention", route="cuda",
                     source="src/repro_torch/csrc/flash_attention.cu",
                     replaces="src/repro/kernels/flash_attention.py:30",
-                    launches=main_launches, max_abs_err=path["max_abs_err"], ms=path["kernel_ms"],
-                    plain_ms=path["plain_ms"], bound_ms=path["bound_ms"],
-                    bound_by=path["bound_by"], library_ms=path["library_ms"])]
+                    launches=main_launches["flash_attention"], max_abs_err=path["max_abs_err"],
+                    ms=path["kernel_ms"], plain_ms=path["plain_ms"], bound_ms=path["bound_ms"],
+                    bound_by=path["bound_by"], library_ms=path["library_ms"]),
+               dict(name="mamba_scan", route="cuda",
+                    source="src/repro_torch/csrc/mamba_scan.cu",
+                    replaces="src/repro/kernels/mamba_scan.py:24",
+                    launches=main_launches["mamba_scan"],
+                    max_abs_err=max(scan_path["max_abs_err"], scan_path["h_max_abs_err"]),
+                    ms=scan_path["kernel_ms"], plain_ms=scan_path["plain_ms"],
+                    bound_ms=scan_path["bound_ms"], bound_by=scan_path["bound_by"],
+                    library_ms=None)]
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -10,7 +10,9 @@ Layouts:
 
 The reference keeps fp32 params and casts each to the compute dtype with
 `.astype(dt)` where it is used; the port casts once here (default: the
-compute dtype), which gives the same bits at every use.
+compute dtype), which gives the same bits at every use; leaves the reference
+reads in fp32 (`ParamMeta.dtype`: the SSM's dt_bias, a_log, d_skip) stay
+fp32.
 """
 from __future__ import annotations
 
@@ -42,7 +44,8 @@ def params_from_jax(np_tree, cfg, device=None, dtype=None):
         if tuple(arr.shape) != m.shape:
             raise ValueError(f"{'/'.join(path)}: reference shape {arr.shape}, "
                              f"port expects {m.shape}")
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(device=device, dtype=dtype)
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(
+            device=device, dtype=meta_mod.leaf_dtype(m, dtype))
 
     return meta_mod.tree_map_meta(one, transformer.model_meta(cfg))
 

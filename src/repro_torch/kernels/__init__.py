@@ -1,8 +1,11 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their plain versions.
 
-flash_attention.py  — build, ctypes binding and kernel-layout wrapper of
+build.py            — nvcc into build/repro_torch/ and ctypes loading, shared
+flash_attention.py  — binding and kernel-layout wrapper of
                       csrc/flash_attention.cu (replaces the reference's
                       Pallas `repro/kernels/flash_attention.py`)
-ops.py              — model-layout wrapper ([B, S, H, Dh])
+mamba_scan.py       — binding and wrapper of csrc/mamba_scan.cu (replaces
+                      the reference's Pallas `repro/kernels/mamba_scan.py`)
+ops.py              — model-layout wrappers
 ref.py              — plain PyTorch versions (the CPU path and the oracle)
 """

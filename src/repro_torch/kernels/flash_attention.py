@@ -3,9 +3,7 @@
 The kernel is `csrc/flash_attention.cu` (CUDA C++ for sm_90a), the port's
 replacement for the reference's Pallas kernel `repro/kernels/flash_attention.py`.
 It is compiled with `nvcc` at first use into `build/repro_torch/` of the
-checkout the package runs from, under a name that hashes the source and
-flags, and loaded with ctypes.  The kernel builds only from a checkout: an
-installed copy of the package raises at the build.
+checkout the package runs from and loaded with ctypes (`build.py`).
 
 `flash_attention` takes a CPU tensor to the plain version (`ref.py`) and a
 CUDA tensor to the kernel; it never falls back from one to the other.
@@ -14,72 +12,22 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import build as _build
 from repro_torch.kernels.ref import flash_attention_ref
 
-PACKAGE = Path(__file__).resolve().parents[1]
-SOURCE = PACKAGE / "csrc" / "flash_attention.cu"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = _build.PACKAGE / "csrc" / "flash_attention.cu"
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0   # kernel launches; a run zeroes it to count one path's launches
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    path = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
-    return str(path)
-
-
-def build_dir() -> Path:
-    """`build/repro_torch/` of the checkout: the root holding `pyproject.toml`
-    and `src/repro_torch/` with the kernel's source."""
-    root = PACKAGE.parents[1]
-    if PACKAGE.parent.name != "src" or not (root / "pyproject.toml").is_file() \
-            or not SOURCE.is_file():
-        raise RuntimeError(f"{PACKAGE} is not src/repro_torch of a checkout with "
-                           f"{SOURCE.name}; the CUDA kernels build only from a checkout")
-    return root / "build" / "repro_torch"
-
-
-def library_path() -> Path:
-    out_dir = build_dir()
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return out_dir / f"libflash_attention_{digest.hexdigest()[:16]}.so"
-
-
-def build() -> str:
-    """Compile the kernel if this source has not been built; return ptxas's report."""
-    out = library_path()
-    if out.exists():
-        return ""
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
-    os.replace(tmp, out)
-    return res.stderr
-
-
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    build()
-    lib = ctypes.CDLL(str(library_path()))
+    lib = _build.load(SOURCE)
     fn = lib.repro_flash_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 12

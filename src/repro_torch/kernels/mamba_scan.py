@@ -1,0 +1,78 @@
+"""Mamba-1 selective scan: build, ctypes binding and wrapper.
+
+The kernel is `csrc/mamba_scan.cu` (CUDA C++ for sm_90a), the port's
+replacement for the reference's Pallas kernel `repro/kernels/mamba_scan.py`.
+It is compiled with `nvcc` at first use into `build/repro_torch/` of the
+checkout the package runs from and loaded with ctypes (`build.py`).
+
+`mamba_scan` takes a CPU tensor to the plain version (`ref.py`) and a CUDA
+tensor to the kernel; it never falls back from one to the other.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build as _build
+from repro_torch.kernels.ref import mamba_scan_ref
+
+SOURCE = _build.PACKAGE / "csrc" / "mamba_scan.cu"
+MAX_STATE = 32
+
+launches = 0   # kernel launches; a run zeroes it to count one path's launches
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(SOURCE)
+    fn = lib.repro_mamba_scan_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(a_bar, bx, c):
+    if not (a_bar.device == bx.device == c.device):
+        raise ValueError(f"a_bar, bx, c on different devices: "
+                         f"{a_bar.device}, {bx.device}, {c.device}")
+    if not (a_bar.dtype == bx.dtype == c.dtype == torch.float32):
+        raise TypeError(f"kernel takes float32 a_bar/bx/c, got "
+                        f"{a_bar.dtype}, {bx.dtype}, {c.dtype}")
+    if a_bar.ndim != 4 or bx.shape != a_bar.shape or c.shape != (*a_bar.shape[:2],
+                                                                  a_bar.shape[3]):
+        raise ValueError(f"bad shapes a_bar {tuple(a_bar.shape)}, bx {tuple(bx.shape)}, "
+                         f"c {tuple(c.shape)}")
+    if not 1 <= a_bar.shape[3] <= MAX_STATE:
+        raise ValueError(f"state size N={a_bar.shape[3]} not in 1..{MAX_STATE}")
+
+
+def mamba_scan(a_bar, bx, c, *, return_state=False):
+    """a_bar/bx [B,S,Di,N], c [B,S,N] fp32 -> y [B,S,Di] fp32 (and h_S [B,Di,N]).
+
+    h_t = a_t * h_{t-1} + bx_t from h_0 = 0;  y_t[d] = sum_n h_t[d,n] * c_t[n].
+    Non-contiguous inputs are copied to contiguous ones first.
+    """
+    global launches
+    _check(a_bar, bx, c)
+    if a_bar.device.type == "cpu":
+        return mamba_scan_ref(a_bar, bx, c, return_state=return_state)
+    if a_bar.device.type != "cuda":
+        raise ValueError(f"mamba_scan runs on cpu or cuda, not {a_bar.device}")
+    B, S, Di, N = a_bar.shape
+    a_bar, bx, c = a_bar.contiguous(), bx.contiguous(), c.contiguous()
+    y = torch.empty((B, S, Di), dtype=torch.float32, device=a_bar.device)
+    h = torch.empty((B, Di, N), dtype=torch.float32, device=a_bar.device) \
+        if return_state else None
+    if B == 0 or Di == 0:
+        return (y, h) if return_state else y
+    with torch.cuda.device(a_bar.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().repro_mamba_scan_fwd(
+            a_bar.data_ptr(), bx.data_ptr(), c.data_ptr(), y.data_ptr(),
+            h.data_ptr() if return_state else None, B, S, Di, N, stream)
+    if err != 0:
+        raise RuntimeError(f"mamba scan kernel launch failed: cudaError {err}")
+    launches += 1
+    return (y, h) if return_state else y

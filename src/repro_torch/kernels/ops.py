@@ -1,14 +1,22 @@
-"""Model-layout wrapper around the flash attention kernel.
+"""Model-layout wrappers around the kernels.
 
-The reference wrapper (`repro/kernels/ops.py`) transposes [B, S, H, Dh] to
-[B, H, S, Dh] and pads Dh to a multiple of 128 for the TPU's lanes.  The CUDA
-kernel reads strides and takes any Dh up to 256, so here the transpose is a
-view and nothing is padded.  The launch counter is `flash_attention.launches`,
-incremented where the kernel launches.
+`flash_attention`: the reference wrapper (`repro/kernels/ops.py`) transposes
+[B, S, H, Dh] to [B, H, S, Dh] and pads Dh to a multiple of 128 for the TPU's
+lanes.  The CUDA kernel reads strides and takes any Dh up to 256, so here the
+transpose is a view and nothing is padded.
+
+`mamba_scan`: the reference wrapper casts to fp32 and passes the TPU's tiling
+knobs (`chunk`, `di_block`); the CUDA kernel has none, so this one only casts.
+
+Each launch counter (`flash_attention.launches`, `mamba_scan.launches`) is
+incremented where its kernel launches.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mamba_scan as ms
 
 
 def flash_attention(cfg, q, k, v, *, causal=True, window=0, q_offset=0):
@@ -18,3 +26,9 @@ def flash_attention(cfg, q, k, v, *, causal=True, window=0, q_offset=0):
                              causal=causal, window=window, q_offset=q_offset,
                              scale=scale)
     return out.transpose(1, 2)
+
+
+def mamba_scan(a_bar, bx, c, *, return_state=False):
+    """a_bar/bx [B,S,Di,N], c [B,S,N] -> y [B,S,Di] fp32 (and h_S [B,Di,N] fp32)."""
+    f32 = torch.float32
+    return ms.mamba_scan(a_bar.to(f32), bx.to(f32), c.to(f32), return_state=return_state)

@@ -26,3 +26,18 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, q_offset=0, scale=Non
     s = torch.where(ok, s, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+def mamba_scan_ref(a_bar, bx, c, *, return_state=False):
+    """Sequential scan: h_t = a_t * h_{t-1} + bx_t from h_0 = 0; y_t[d] = <h_t[d], c_t>.
+
+    a_bar/bx [B,S,Di,N] fp32, c [B,S,N] fp32 -> y [B,S,Di] fp32, and with
+    `return_state` also h_S [B,Di,N].
+    """
+    B, S, Di, N = a_bar.shape
+    h = torch.zeros((B, Di, N), dtype=torch.float32, device=a_bar.device)
+    y = torch.empty((B, S, Di), dtype=torch.float32, device=a_bar.device)
+    for t in range(S):
+        h = a_bar[:, t] * h + bx[:, t]
+        y[:, t] = torch.einsum("bdn,bn->bd", h, c[:, t])
+    return (y, h) if return_state else y

@@ -7,13 +7,16 @@ Finished sequences free their slot for waiting requests.
 This mirrors the reference `repro.launch.serve` as it is, lite semantics
 included: a prompt is fed one token at a time through the decode step, with
 the other slots stepped on token 0; `decode_round` decodes every active slot
-at the largest active position.  The flash kernel is not on this path (as in
-the reference); the prefill step factory is.
+at the largest active position.  For the ssm and hybrid families those
+token-0 steps also advance the other slots' SSM state (the reference's
+behaviour; its recurrent state has no position to mask by).  Neither kernel
+is on this path (as in the reference): decode attention is naive and the SSM
+decode step is one recurrence update.  The prefill step factory launches them.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
         --requests 4 --max-new 8            # full width, on the card
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \
-        --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
+        --smoke --device cpu                # archs: chatglm3-6b, falcon-mamba-7b, hymba-1.5b
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ class Request:
 
 
 class BatchedServer:
-    """Slot-based batched decoder over one static-length KV cache."""
+    """Slot-based batched decoder over one static-length decode cache."""
 
     def __init__(self, cfg, params, *, max_batch=8, cache_len=512):
         self.cfg = cfg

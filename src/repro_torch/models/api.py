@@ -14,7 +14,8 @@ from repro_torch.models import transformer
 
 
 def init_params(cfg, seed: int = 0, *, device=None, dtype=None):
-    """Random params from `seed`, stored in `dtype` (default: the compute dtype).
+    """Random params from `seed`, stored in `dtype` (default: the compute dtype;
+    leaves the reference reads in fp32 stay fp32, see `ParamMeta.dtype`).
 
     The reference keeps fp32 params and casts them to the compute dtype at
     each use; casting once here gives the same bits at every use.

@@ -18,9 +18,11 @@ import torch
 class ParamMeta:
     shape: Tuple[int, ...]
     logical: Tuple[Optional[str], ...]   # logical axis name per dim (None = replicated)
-    init: str = "normal"                 # normal | zeros | ones
-    scale: Optional[float] = None        # stddev override (default: fan-in)
-    dtype: str = "float32"
+    init: str = "normal"                 # normal | zeros | ones | constant | a_log
+    scale: Optional[float] = None        # stddev override (default: fan-in); constant's value
+    # storage dtype; None means the params' dtype.  A leaf that the reference
+    # reads as fp32 at every use (`.astype(float32)`) says "float32"
+    dtype: Optional[str] = None
 
     def __post_init__(self):
         if len(self.shape) != len(self.logical):
@@ -66,26 +68,38 @@ def materialize(tree, seed: int, device: torch.device, dtype: torch.dtype):
     """Initialize a params tree from a meta tree.
 
     Each normal leaf is drawn in fp32 from its own `torch.Generator` on
-    `device`, seeded by `_fold_path(seed, path)`, then cast to `dtype`.  The
-    numbers differ from the reference's `jax.random` draws (and between CPU
+    `device`, seeded by `_fold_path(seed, path)`, then cast to `dtype` (or
+    to the leaf's own `ParamMeta.dtype`).  The numbers differ from the reference's `jax.random` draws (and between CPU
     and CUDA generators); parity tests load reference weights through
     `repro_torch.bridge` instead.
     """
 
     def init_one(path, m: ParamMeta):
+        dt = leaf_dtype(m, dtype)
         if m.init == "zeros":
-            return torch.zeros(m.shape, dtype=dtype, device=device)
+            return torch.zeros(m.shape, dtype=dt, device=device)
         if m.init == "ones":
-            return torch.ones(m.shape, dtype=dtype, device=device)
+            return torch.ones(m.shape, dtype=dt, device=device)
+        if m.init == "constant":
+            return torch.full(m.shape, m.scale or 0.0, dtype=dt, device=device)
+        if m.init == "a_log":
+            # S4D-real init: A = -(1..N) per state channel
+            a = torch.arange(1, m.shape[-1] + 1, dtype=torch.float32, device=device)
+            return torch.log(a).expand(m.shape).contiguous().to(dt)
         if m.init != "normal":
-            raise NotImplementedError(f"init {m.init!r} arrives with its family's slice")
+            raise ValueError(f"unknown init {m.init!r}")
         fan_in = m.shape[-2] if len(m.shape) >= 2 else m.shape[-1]
         scale = m.scale if m.scale is not None else fan_in ** -0.5
         gen = torch.Generator(device=device).manual_seed(_fold_path(seed, path))
         w = torch.randn(m.shape, generator=gen, dtype=torch.float32, device=device)
-        return (w * scale).to(dtype)
+        return (w * scale).to(dt)
 
     return tree_map_meta(init_one, tree)
+
+
+def leaf_dtype(m: ParamMeta, dtype: torch.dtype) -> torch.dtype:
+    """The dtype a leaf is stored in when the params take `dtype`."""
+    return getattr(torch, m.dtype) if m.dtype else dtype
 
 
 def param_count(tree) -> int:

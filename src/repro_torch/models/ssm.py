@@ -1,0 +1,129 @@
+"""Mamba-1 selective SSM block (falcon-mamba / hymba mamba heads).
+
+The port of the reference's `repro.models.ssm`.  The reference runs the
+recurrence as an XLA chunked `associative_scan` and leaves its Pallas kernel
+to direct calls; here the full-sequence path (`apply_ssm`) launches the scan
+kernel once per call on the whole sequence (`kernels.ops.mamba_scan`: the
+CUDA kernel on the card, its plain version on the CPU), and takes the final
+state for the decode cache from that same launch.
+
+Decode carries (conv_state [B, d_conv-1, d_inner] fp32, ssm_state
+[B, d_inner, N] fp32).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch.profiler import record_function
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models.meta import ParamMeta
+
+
+def dt_rank(cfg) -> int:
+    return max(1, math.ceil(cfg.d_model / 16))
+
+
+def ssm_meta(cfg):
+    d, di, n, r = cfg.d_model, cfg.d_inner, cfg.ssm_state, dt_rank(cfg)
+    return {
+        "in_proj": ParamMeta((d, 2 * di), ("embed", "inner")),
+        "conv_w": ParamMeta((cfg.d_conv, di), (None, "inner"), scale=0.5),
+        "conv_b": ParamMeta((di,), ("inner",), init="zeros"),
+        "x_proj": ParamMeta((di, r + 2 * n), ("inner", None)),
+        "dt_w": ParamMeta((r, di), (None, "inner")),
+        "dt_bias": ParamMeta((di,), ("inner",), init="constant", scale=-4.6,
+                             dtype="float32"),
+        "a_log": ParamMeta((di, n), ("inner", None), init="a_log", dtype="float32"),
+        "d_skip": ParamMeta((di,), ("inner",), init="ones", dtype="float32"),
+        "out_proj": ParamMeta((di, d), ("inner", "embed")),
+    }
+
+
+def _ssm_inputs(cfg, p, xc):
+    """Common pre-scan computation. xc [B, S, di] (post-conv, post-silu).
+
+    Returns (a_bar, bx, c) in fp32 with
+      a_bar [B,S,di,N] = exp(delta * A), bx [B,S,di,N], c [B,S,N].
+    """
+    r, n = dt_rank(cfg), cfg.ssm_state
+    proj = xc @ p["x_proj"].to(xc.dtype)
+    dt_raw, b_ssm, c_ssm = proj.split([r, n, n], dim=-1)
+    delta = F.softplus((dt_raw @ p["dt_w"].to(xc.dtype)).float()
+                       + p["dt_bias"].float())                   # [B,S,di]
+    a = -torch.exp(p["a_log"].float())                           # [di,N]
+    a_bar = (delta[..., None] * a).exp_()                        # [B,S,di,N]
+    bx = (delta * xc.float())[..., None] * b_ssm.float()[..., None, :]
+    return a_bar, bx, c_ssm.float()
+
+
+def _conv1d_causal(cfg, p, x, conv_state=None):
+    """Depthwise causal conv over S. x [B,S,di] -> [B,S,di].
+
+    conv_state [B, d_conv-1, di] prepends history (decode).
+    """
+    dc = cfg.d_conv
+    if conv_state is None:
+        pad = torch.zeros((x.shape[0], dc - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    else:
+        pad = conv_state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    w = p["conv_w"].to(x.dtype)                                  # [dc, di]
+    out = sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(dc))
+    return out + p["conv_b"].to(x.dtype)
+
+
+def apply_ssm(cfg, p, x, *, return_state=False):
+    """Full-sequence selective SSM. x [B,S,D] -> [B,S,D].
+
+    With `return_state`, returns (out, {"conv", "ssm"}): the last d_conv-1
+    inputs of the conv in fp32 (zeros before the sequence's start) and the
+    scan's final state, from the same kernel launch as `out`.
+    """
+    if cfg.ssm_inloop:
+        raise NotImplementedError("ssm_inloop needs an initial-state input to the scan "
+                                  "kernel (ROADMAP queue 2, K2 follow-ups)")
+    with record_function("ssm"):
+        dt = x.dtype
+        x_in, z = (x @ p["in_proj"].to(dt)).chunk(2, dim=-1)
+        xc = F.silu(_conv1d_causal(cfg, p, x_in))
+        a_bar, bx, c = _ssm_inputs(cfg, p, xc)
+        scan = kops.mamba_scan(a_bar, bx, c, return_state=return_state)
+        del a_bar, bx                      # 2 x [B,S,di,N] fp32: free before the rest
+        y, h_last = scan if return_state else (scan, None)
+        y = y + xc.float() * p["d_skip"].float()
+        out = (y.to(dt) * F.silu(z)) @ p["out_proj"].to(dt)
+    if not return_state:
+        return out
+    keep, S = cfg.d_conv - 1, x.shape[1]
+    conv = F.pad(x_in[:, max(0, S - keep):].float(), (0, 0, max(0, keep - S), 0))
+    return out, {"conv": conv, "ssm": h_last}
+
+
+def init_ssm_state(cfg, batch, *, device=None):
+    di = cfg.d_inner
+    return {
+        "conv": torch.zeros((batch, cfg.d_conv - 1, di), dtype=torch.float32, device=device),
+        "ssm": torch.zeros((batch, di, cfg.ssm_state), dtype=torch.float32, device=device),
+    }
+
+
+def decode_ssm(cfg, p, x, state):
+    """Single-token SSM step. x [B,1,D] -> ([B,1,D], new_state).
+
+    `state` ({"conv", "ssm"}) is not modified; the caller writes the new state
+    where it keeps it.
+    """
+    with record_function("ssm_decode"):
+        dt = x.dtype
+        x_in, z = (x @ p["in_proj"].to(dt)).chunk(2, dim=-1)     # [B,1,di]
+        xc = F.silu(_conv1d_causal(cfg, p, x_in, conv_state=state["conv"]))
+        new_conv = torch.cat([state["conv"][:, 1:], x_in.to(state["conv"].dtype)], dim=1)
+        a_bar, bx, c = _ssm_inputs(cfg, p, xc)                   # [B,1,di,N]
+        h = a_bar[:, 0] * state["ssm"] + bx[:, 0]                # [B,di,N]
+        y = torch.einsum("bdn,bn->bd", h, c[:, 0])[:, None, :]   # [B,1,di]
+        y = y + xc.float() * p["d_skip"].float()
+        out = (y.to(dt) * F.silu(z)) @ p["out_proj"].to(dt)
+        return out, {"conv": new_conv, "ssm": h}

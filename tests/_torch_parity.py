@@ -47,3 +47,23 @@ def qkv(seed, B, H, K, Sq, Skv, D, dtype):
 
 def max_abs_err(a, b) -> float:
     return float(np.abs(np.asarray(a, np.float32) - np.asarray(b, np.float32)).max())
+
+
+# the reference's MAMBA_CASES (tests/test_kernels.py:69): B, S, Di, N and the
+# Pallas kernel's chunk and di_block (the CUDA kernel has no tiling knobs)
+MAMBA_CASES = [
+    (1, 128, 64, 8, 64, 64),
+    (2, 256, 128, 16, 64, 64),
+    (1, 512, 256, 16, 128, 128),
+    (1, 96, 64, 4, 32, 64),      # non-pow2 seq
+]
+
+
+def scan_inputs(seed, B, S, Di, N):
+    """a_bar = exp(-|z|), bx = 0.1 z, c = z as fp32 numpy arrays, made as the
+    reference's kernel tests make them."""
+    rng = np.random.default_rng(seed)
+    a = np.exp(-np.abs(rng.standard_normal((B, S, Di, N)))).astype(np.float32)
+    bx = (rng.standard_normal((B, S, Di, N)) * 0.1).astype(np.float32)
+    c = rng.standard_normal((B, S, N)).astype(np.float32)
+    return a, bx, c

@@ -7,11 +7,12 @@ Each test skips where torch.cuda.is_available() is false.
 import pytest
 import torch
 
-from _torch_parity import FLASH_CASES, max_abs_err, qkv, to_np
+from _torch_parity import FLASH_CASES, MAMBA_CASES, max_abs_err, qkv, scan_inputs, to_np
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import flash_attention_ref, mamba_scan_ref
 from repro_torch.models import api
 from repro_torch.models.attention import attend_naive
 
@@ -50,6 +51,20 @@ def test_kernel_model_layout_offsets_and_ragged_tiles(q_offset, Dh, Sq, Skv):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 48])
+def test_kernel_bf16_head_dim_64_model_layout(window):
+    """The bf16 build for head dim 64 that hybrid models run, 5:1 GQA, in the model
+    layout; each output within two bf16 rounding steps of the plain version's."""
+    _need_card()
+    (q, _), (k, _), (v, _) = qkv(64 + window, 2, 5, 1, 200, 200, 64, "bfloat16")
+    q, k, v = (t.cuda().transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    out = fa.flash_attention(q, k, v, causal=True, window=window).float()
+    ref = flash_attention_ref(q, k, v, causal=True, window=window).float()
+    assert bool(((out - ref).abs() <= 2 * (2.0 ** -7 * ref.abs() + 1e-5)).all())
+    assert max_abs_err(to_np(out), to_np(ref)) < 3e-2
+
+
+@pytest.mark.cuda
 def test_model_flash_prefill_matches_naive_on_card():
     _need_card()
     cfg = smoke_config(get_config("chatglm3-6b"))
@@ -65,3 +80,42 @@ def test_model_flash_prefill_matches_naive_on_card():
     k = torch.randn(1, 16, 2, 16, device="cuda")
     out = ops.flash_attention(cfg, q, k, k, causal=True)
     assert max_abs_err(to_np(out), to_np(attend_naive(cfg, q, k, k))) < 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Di,N", [c[:4] for c in MAMBA_CASES]
+                         + [(2, 37, 24, 5), (1, 7, 40, 32), (3, 0, 8, 16)])
+def test_scan_kernel_matches_plain_version(B, S, Di, N):
+    """The reference's cases (abs 1e-4), plus N that is not a power of two, N = 32,
+    a ragged Di and an empty sequence (final state 0)."""
+    _need_card()
+    a, bx, c = (torch.from_numpy(t).cuda() for t in scan_inputs(S + Di + N, B, S, Di, N))
+    before = ms.launches
+    y, h = ms.mamba_scan(a, bx, c, return_state=True)
+    y_only = ms.mamba_scan(a, bx, c)
+    torch.cuda.synchronize()
+    assert ms.launches == before + 2
+    ref_y, ref_h = mamba_scan_ref(a, bx, c, return_state=True)
+    assert y.shape == (B, S, Di) and h.shape == (B, Di, N)
+    if S:
+        assert max_abs_err(to_np(y), to_np(ref_y)) < 1e-4
+    assert max_abs_err(to_np(h), to_np(ref_h)) < 1e-4
+    assert torch.equal(y, y_only)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b"])
+def test_model_prefill_launches_the_scan_once_per_layer_on_card(arch):
+    _need_card()
+    cfg = smoke_config(get_config(arch)).replace(compute_dtype="float32")
+    p = api.init_params(cfg, 0)
+    batch = api.demo_batch(cfg, 2, 40)
+    before = ms.launches, fa.launches
+    lg, cache = api.prefill(cfg, p, {"tokens": batch["tokens"][:, :-1]}, attn_impl="flash",
+                            cache_len=48)
+    n_attn = cfg.num_layers if cfg.family == "hybrid" else 0
+    assert (ms.launches, fa.launches) == (before[0] + cfg.num_layers, before[1] + n_attn)
+    full, _ = api.forward(cfg, p, batch, attn_impl="naive")
+    dec, _ = api.decode_step(cfg, p, cache, batch["tokens"][:, -1:], 39)
+    scale = float(full[:, -1].abs().max())
+    assert float((dec[:, 0] - full[:, -1]).abs().max()) / scale < 2e-5

@@ -18,6 +18,7 @@ from repro.kernels import ops as jops
 from repro.kernels.flash_attention import flash_attention as fa_kernel
 from repro.kernels.ref import flash_attention_ref as jax_ref
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import flash_attention_ref
@@ -112,10 +113,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 def test_kernel_builds_into_the_checkout_and_nowhere_else(tmp_path, monkeypatch):
     root = Path(__file__).resolve().parents[1]
-    assert fa.build_dir() == root / "build" / "repro_torch"
-    assert fa.library_path().parent == fa.build_dir()
+    assert build.build_dir(fa.SOURCE) == root / "build" / "repro_torch"
+    assert build.library_path(fa.SOURCE).parent == build.build_dir(fa.SOURCE)
     installed = tmp_path / "site-packages" / "repro_torch"    # no src/, no pyproject.toml
-    monkeypatch.setattr(fa, "PACKAGE", installed)
-    monkeypatch.setattr(fa, "SOURCE", installed / "csrc" / "flash_attention.cu")
+    monkeypatch.setattr(build, "PACKAGE", installed)
     with pytest.raises(RuntimeError, match="only from a checkout"):
-        fa.library_path()
+        build.library_path(installed / "csrc" / "flash_attention.cu")

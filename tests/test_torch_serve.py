@@ -38,9 +38,9 @@ TOL = {"float32": 2e-5, "bfloat16": 0.02}
 DTYPES = ["float32", "bfloat16"]
 
 
-def _setup(dtype):
-    cfg = smoke_config(get_config("chatglm3-6b")).replace(compute_dtype=dtype)
-    jcfg = jax_smoke(ARCHS["chatglm3-6b"]).replace(compute_dtype=dtype)
+def _setup(dtype, arch="chatglm3-6b"):
+    cfg = smoke_config(get_config(arch)).replace(compute_dtype=dtype)
+    jcfg = jax_smoke(ARCHS[arch]).replace(compute_dtype=dtype)
     jp = jax_api.init_params(jcfg, 0)
     return cfg, jcfg, jp, params_from_jax(jax.tree.map(np.array, jp), cfg, device="cpu")
 
@@ -142,6 +142,17 @@ def _drive(srv, reqs, decisions=None, calls=None):
 
 
 def test_batched_server_greedy_tokens_match_reference():
+    _server_greedy_tokens_match_reference("chatglm3-6b")
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b"])
+def test_batched_server_greedy_tokens_match_reference_ssm_families(arch):
+    """The same check for the families with Mamba layers, whose slots' SSM
+    state also advances on the other slots' prompt steps."""
+    _server_greedy_tokens_match_reference(arch)
+
+
+def _server_greedy_tokens_match_reference(arch):
     """3 requests through 2 slots, fp32: the same greedy tokens as the reference.
 
     The logits must agree within LOGIT_TOL at every call, and at every
@@ -154,7 +165,7 @@ def test_batched_server_greedy_tokens_match_reference():
     `test_flash_prefill_and_decode_match_reference`).
     """
     LOGIT_TOL = 1e-4
-    cfg, jcfg, jp, p = _setup("float32")
+    cfg, jcfg, jp, p = _setup("float32", arch)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, 4) for _ in range(3)]
 
