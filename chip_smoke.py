@@ -12,13 +12,16 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                path's shape; kernel, plain, library and bound times
                K1 flash_attention: path-shape max abs error 1e-2 (chatglm3-6b's, and
                hymba-1.5b's with windows 1024 and 0), bf16 outputs element by element
-               within two bf16 rounding steps
+               within two bf16 rounding steps; each case names the kernel that ran
+               (tensor_core: bf16 with head dim <= 128; cuda_core: the rest) and its
+               achieved TFLOP/s
                K2 mamba_scan: max abs error 1e-4 for y and the final state, at the
                reference's cases and falcon-mamba-7b's and hymba-1.5b's shapes
   4-6. the models at full width with seed-0 random bf16 weights, one table row
                each (MODELS): prefill through make_prefill_step(attn_impl="flash"),
                16 greedy make_decode_step steps, each kernel's launches per prefill
-               asserted, a profiler breakdown of one prefill and one decode step,
+               asserted (K1's by kernel too: the bf16 prefills run only tensor_core),
+               a profiler breakdown of one prefill and one decode step,
                BatchedServer with 4 requests; then prefill + one decode against
                forward's last logits (and the flash prefill against the naive one,
                with naive prefill + decode vs forward as the equal-maths control),
@@ -32,6 +35,7 @@ Each model's weights are freed before the next model is built.  Without a CUDA
 device, or outside a checkout of the repo, it exits non-zero and prints no result.
 """
 import json
+import re
 import subprocess
 import sys
 import time
@@ -64,6 +68,8 @@ FLASH_CASES = [
     (1, 4, 4, 128, 128, True, 0, "bfloat16", 3e-2),
     (1, 2, 2, 384, 128, True, 128, "bfloat16", 3e-2),
 ]
+# bf16 with a head dim above 128 runs the CUDA-core kernel; no path reaches it yet
+BF16_WIDE_CASE = (1, 4, 2, 256, 256, True, 0, "bfloat16", 3e-2)
 # K2: B, S, Di, N — the reference's MAMBA_CASES (tests/test_kernels.py:69) and the
 # shapes of the serving paths' prefills (falcon-mamba-7b 4 x 1024, hymba-1.5b
 # 4 x 2048); the reference's tolerance
@@ -74,12 +80,14 @@ SCAN_NO_LIBRARY = ("no single PyTorch call computes a linear recurrence with a "
                    "per-step readout (h_t = a_t*h_{t-1} + bx_t, y_t = <h_t, c_t>)")
 # the full-width models, one at a time: arch, prefill batch and length, attention
 # impls (the first serves, the others are compared with it), the consistency
-# checks' batch and length, and each kernel's launches per prefill
+# checks' batch and length, and each kernel's launches per prefill (K1's also by
+# the kernel that ran; a count not named must stay 0)
 MODELS = [
-    ("chatglm3-6b", 4, 1024, ("flash", "naive"), (4, 1024), {"flash_attention": 28}),
+    ("chatglm3-6b", 4, 1024, ("flash", "naive"), (4, 1024),
+     {"flash_attention": 28, "flash_attention/tensor_core": 28}),
     ("falcon-mamba-7b", 4, 1024, ("flash",), (2, 512), {"mamba_scan": 64}),
     ("hymba-1.5b", 4, 2048, ("flash", "naive"), (4, 2048),
-     {"flash_attention": 32, "mamba_scan": 32}),
+     {"flash_attention": 32, "flash_attention/tensor_core": 32, "mamba_scan": 32}),
 ]
 N_DECODE = 16
 
@@ -87,6 +95,24 @@ N_DECODE = 16
 def check(ok, msg):
     if not ok:
         raise RuntimeError(f"check failed: {msg}")
+
+
+def zero_counts(counters):
+    """Set every launch count to 0: each kernel module's total and its per-kernel counts."""
+    for mod in counters.values():
+        mod.launches = 0
+        for key in getattr(mod, "kernel_launches", {}):
+            mod.kernel_launches[key] = 0
+
+
+def read_counts(counters):
+    """{module: launches} and {module/kernel: launches} for modules with several kernels."""
+    out = {}
+    for name, mod in counters.items():
+        out[name] = mod.launches
+        for key, n in getattr(mod, "kernel_launches", {}).items():
+            out[f"{name}/{key}"] = n
+    return out
 
 
 def nvidia_smi():
@@ -107,6 +133,18 @@ def build_all(build, sources):
     with ThreadPoolExecutor(len(sources)) as pool:
         futures = {name: pool.submit(timed, source) for name, source in sources.items()}
         return {name: f.result() for name, f in futures.items()}
+
+
+def spilling(report):
+    """The kernels whose ptxas report (-Xptxas -v) shows spill stores or loads."""
+    out, entry = [], None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill" in line and not re.search(r"\b0 bytes spill stores, 0 bytes spill loads",
+                                                line):
+            out.append(entry)
+    return out
 
 
 def cuda_ms(torch, fn, iters):
@@ -148,7 +186,7 @@ def device_breakdown(torch, fn):
             continue
         dur = e.time_range.elapsed_us() / 1e3
         name = e.name.lower()
-        if "flash_fwd_kernel" in name:
+        if "flash_fwd" in name:             # flash_fwd_wgmma_kernel and flash_fwd_kernel
             groups["flash_attention"] += dur
         elif "mamba_scan_kernel" in name:
             groups["mamba_scan"] += dur
@@ -182,8 +220,12 @@ def flash_case(torch, F, fa, ref, case, seed, q_offset=0, layout="bhsd"):
         q, k, v = (torch.randn(s, generator=gen, device="cuda", dtype=torch.float32).to(dt)
                    for s in shapes)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
+    variant = fa.kernel_for(dt, D)
+    before = dict(fa.kernel_launches)
     out = fa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
+    check(fa.kernel_launches[variant] == before[variant] + 1,
+          f"{case}: the {variant} kernel did not count the launch")
     plain = ref.flash_attention_ref(q, k, v, **kw)
     diff = (out.float() - plain.float()).abs()
     err = float(diff.max())
@@ -218,7 +260,8 @@ def flash_case(torch, F, fa, ref, case, seed, q_offset=0, layout="bhsd"):
     flops = 4 * D * B * H * int(mask.sum())                 # QK^T and PV on unmasked pairs
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
-    return dict(case=list(case[:8]), q_offset=q_offset, layout=layout, max_abs_err=err,
+    return dict(case=list(case[:8]), q_offset=q_offset, layout=layout, variant=variant,
+                tflops=flops / kernel_ms / 1e9, max_abs_err=err,
                 tol=tol, bf16_steps=steps, median_abs_out=float(plain.float().abs().median()),
                 library_err=lib_err, kernel_ms=kernel_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=1e3 * max(t_ops, t_bytes),
@@ -272,8 +315,7 @@ def main_path(rt, cfg, params, B, S, n_decode, attn_impl):
     decode = rt.make_decode_step(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for mod in rt.counters.values():
-        mod.launches = 0
+    zero_counts(rt.counters)
     prefill_s = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -293,7 +335,7 @@ def main_path(rt, cfg, params, B, S, n_decode, attn_impl):
         if i in (0, n_decode - 1):
             torch.cuda.synchronize()
         decode_s.append(time.perf_counter() - t0)
-    launches = {name: mod.launches for name, mod in rt.counters.items()}
+    launches = read_counts(rt.counters)
     generated = torch.cat(generated, dim=1)
     check(bool(torch.isfinite(prefill_logits).all()) and bool(torch.isfinite(logits).all()),
           f"{cfg.name}: non-finite logits")
@@ -323,8 +365,7 @@ def cache_shapes(cfg, B, cache_len):
 def run_server(rt, cfg, params):
     """BatchedServer at full width, 4 requests x (8 prompt + 8 new) tokens; it prefills
     through decode steps, as the reference's does, so it launches neither kernel."""
-    for mod in rt.counters.values():
-        mod.launches = 0
+    zero_counts(rt.counters)
     srv = rt.BatchedServer(cfg, params, max_batch=4, cache_len=64)
     rng = rt.np.random.default_rng(0)
     reqs = [rt.Request(i, rng.integers(0, cfg.vocab_size, 8), 8) for i in range(4)]
@@ -333,7 +374,7 @@ def run_server(rt, cfg, params):
     rt.torch.cuda.synchronize()
     srv_s = time.perf_counter() - t0
     check(all(r.done and len(r.generated) == 8 for r in reqs), "server left requests unfinished")
-    launches = {name: mod.launches for name, mod in rt.counters.items()}
+    launches = read_counts(rt.counters)
     print(f"[server] {cfg.name}: 4 requests x 8 new tokens in {srv_s:.2f}s "
           f"({32 / srv_s:.1f} tok/s), launches {launches}; req 0 -> {reqs[0].generated}")
 
@@ -393,7 +434,7 @@ def serve_model(rt, arch, B, S, impls, check_shape, per_prefill):
           f"init {time.perf_counter() - t0:.1f}s, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
     res, batch, prefill, decode, prefill_logits, cache = main_path(
         rt, cfg, params, B, S, N_DECODE, impls[0])
-    want = {name: 2 * per_prefill.get(name, 0) for name in rt.counters}
+    want = {name: 2 * per_prefill.get(name, 0) for name in read_counts(rt.counters)}
     check(res["launches"] == want, f"{res['launches']} launches on the {cfg.name} main "
                                    f"path, want {want}")
     shapes = {name: tuple(a.shape) for name, a in cache.items()}
@@ -475,8 +516,11 @@ def main() -> int:
     for kname, (secs, report) in built.items():
         print(f"[build] {kname}: {secs:.1f}s -> {build.library_path(counters[kname].SOURCE)}")
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build]   {line.strip()}")
+            if any(word in line for word in ("entry function", "registers", "spill",
+                                             "arning")):
+                print(f"[build]   {line.strip()[:160]}")
+        for entry in spilling(report):
+            check("wgmma" not in entry, f"ptxas reports spills in {entry}")
 
     # 3. kernels vs plain versions
     results = [flash_case(torch, F, fa, ref, case, seed=i) for i, case in enumerate(FLASH_CASES)]
@@ -484,6 +528,7 @@ def main() -> int:
                               seed=100, q_offset=128))
     results.append(flash_case(torch, F, fa, ref, (1, 4, 2, 128, 120, True, 0, "float32", 2e-5),
                               seed=101, layout="bshd"))
+    results.append(flash_case(torch, F, fa, ref, BF16_WIDE_CASE, seed=105))
     results += [flash_case(torch, F, fa, ref, case, seed=102 + i, layout="bshd")
                 for i, case in enumerate(PATH_SHAPES)]
     print(f"[kernel] bounds use H100 SXM data-sheet rates: {PEAK_BYTES / 1e12} TB/s, "
@@ -501,14 +546,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 4-6. the models at full width, one at a time
-    main_launches = {kname: 0 for kname in counters}
+    main_launches = {kname: 0 for kname in read_counts(counters)}
     for model in MODELS:
         for kname, n in serve_model(rt, *model).items():
             main_launches[kname] += n
 
     # 7. results: launches are the main paths' (chatglm3-6b, falcon-mamba-7b, hymba-1.5b)
     print(f"[done] main-path launches {main_launches}")
-    kernels = [dict(name="flash_attention", route="cuda",
+    kernels = [dict(name="flash_attention", route="cuda", variant=path["variant"],
                     source="src/repro_torch/csrc/flash_attention.cu",
                     replaces="src/repro/kernels/flash_attention.py:30",
                     launches=main_launches["flash_attention"], max_abs_err=path["max_abs_err"],

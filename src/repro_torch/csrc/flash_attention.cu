@@ -1,4 +1,4 @@
-// Flash attention forward for Hopper (sm_90a): fp32 online softmax on the CUDA cores.
+// Flash attention forward for Hopper (sm_90a): two kernels behind one C entry point.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py::_kernel
 // (launched by ::flash_attention).  Same function: O = softmax(scale*Q K^T + mask) V per
@@ -8,11 +8,44 @@
 // at 1e-30; output in the input dtype; (q-tile, kv-tile) pairs that are fully masked are
 // skipped.
 //
+// Dispatch (repro_flash_attention_fwd, mirrored by kernels/flash_attention.py::kernel_for):
+//   * bfloat16 with head dim d <= 128  -> flash_fwd_wgmma_kernel, on the tensor cores;
+//   * float32 at any d <= 256, and bfloat16 with 128 < d <= 256 -> flash_fwd_kernel, fp32
+//     FFMA on the CUDA cores (the fp32 cases must meet 2e-5, which TF32 cannot).
+// Neither stands in for the other: a bf16 call whose base or strides TMA cannot take
+// returns an error.
+//
 // What bounds it on this card.  At the serving shape (B=4, H=32, K=2, S=1024, D=128, bf16,
 // causal) one call does ~34 GFLOP on ~71 MB: ~480 FLOP per byte, so the card's bound is its
-// bf16 tensor-core rate, not memory.  This first version computes in fp32 FFMA on the CUDA
-// cores instead (the fp32 cases must meet 2e-5, which TF32 cannot), so it is bound by the
-// SIMT fp32 rate and by shared-memory bandwidth under that.  What the design does about it:
+// bf16 tensor-core rate, not memory.
+//
+// flash_fwd_wgmma_kernel (bf16, d <= 128), what its design does about that:
+//   * one block of 3 warpgroups per (128-row q tile, head, batch), the heaviest causal q
+//     tiles first; warpgroup 2 is the producer: after setmaxnreg gives its registers to the
+//     consumers, one thread starts TMA loads of Q once and of K/V tiles of 128 keys into a
+//     ring of 3 stages (d = 128) or 4 (d = 64) guarded by mbarriers (full: bytes landed;
+//     empty: the 8 consumer warps are done);
+//   * tensor maps are 4-d over [B, S, heads, d] with the caller's strides, so the model
+//     layout [B, S, H, D] is read in place; 64-column boxes with 128-byte swizzle, and TMA's
+//     zero fill pads d to 64 or 128 and rows past S, in shared memory only;
+//   * warpgroups 0 and 1 own 64 q rows each: S = Q K^T on wgmma m64n128k16 from shared
+//     memory, bf16 x bf16 -> fp32 (products of bf16 values are exact in fp32); scale, mask
+//     and online softmax in fp32 registers, in base 2, the row sum from the fp32 P; the
+//     mask runs only on tiles that cross the diagonal, the window's edge or Skv, as one
+//     key range per row;
+//   * O += P V on register-A wgmma with P split in two, P_hi = P rounded to bf16 and
+//     P_lo = the rest truncated to bf16 (integer operations), two series into the same
+//     fp32 O: P keeps < 2^-15 of relative error instead of bf16's 2^-9, which the check of
+//     two bf16 steps per element at outputs near zero needs; it costs half again the
+//     tensor work of Q K^T + P V.  The S accumulator's fragments are the A operand's once
+//     pairs are packed to bf16x2; V is the MN-major B operand through the transpose bit,
+//     so nothing is transposed in memory;
+//   * tile i's Q K^T is started together with tile i-1's P V, and tile i's softmax runs
+//     while that P V does, so the tensor cores and the softmax overlap inside a warpgroup;
+//   * 224 KB of shared memory at d = 128 (144 KB at 64): one block per SM.
+
+// flash_fwd_kernel (fp32, and bf16 with d > 128), on the CUDA cores, bound by the SIMT fp32
+// rate and by shared-memory bandwidth under that:
 //   * one block of 256 threads per (64-row q tile, head, batch); the KV loop runs inside the
 //     block and stops at the causal/window limit (the Pallas kernel's pl.when), so fully
 //     masked tiles cost nothing and no state crosses blocks;
@@ -25,11 +58,13 @@
 //     shared memory and two blocks per SM;
 //   * strides are arguments, so the model layout [B, S, H, D] is read in place, and any head
 //     dim up to 256 works (zero-padded in shared memory only).
-// The tensor-core version (bf16 wgmma tiles fed by TMA) is later work.
 
+#include <cuda.h>          // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -250,9 +285,550 @@ cudaError_t dispatch_dim(const Args& a, int B, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------------------
+// The tensor-core kernel: bf16, head dim <= 128.
+
+constexpr int TC_BM = 128;        // query rows per block: 64 per consumer warpgroup
+constexpr int TC_BN = 128;        // keys per KV tile
+// K/V tiles in flight: as many as shared memory holds beside Q
+template <int D> __host__ __device__ constexpr int tc_stages() { return D <= 64 ? 4 : 3; }
+constexpr int TC_THREADS = 384;   // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int TC_HALF = 128 * 128;  // bytes of one 64-column half of a 128-row bf16 tile
+constexpr float LOG2E = 1.4426950408889634f;
+
+struct TcArgs {
+  void* o;
+  long long o_sb, o_ss, o_sh;
+  int Sq, Skv, G, d, causal, window, q_offset, nq;
+  float scale_log2;              // scale * log2(e): the softmax runs in base 2
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Returns once the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  }
+}
+
+// TMA: the box {64 columns, 128 rows, 1, 1} at coordinates {c0, c1, c2, c3} into `dst`;
+// its bytes count against the barrier's expected transactions.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor for a 128-byte-swizzled operand (layout type 1 in bits
+// 62-63); offsets in bytes, stored in 16-byte units.  K-major (Q, K): rows of 128 bytes,
+// 8-row groups 1024 bytes apart (SBO), LBO unused.  MN-major (V): SBO is the stride of
+// 8-key groups (1024 bytes) and LBO that of the 64-column halves.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N of this warpgroup's committed wgmma groups are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// Keeps the compiler from moving reads or writes of a wgmma operand register across the
+// wait that ends the asynchronous product.
+__device__ __forceinline__ void reg_fence(float& r) { asm volatile("" : "+f"(r) :: "memory"); }
+__device__ __forceinline__ void reg_fence(uint32_t& r) { asm volatile("" : "+r"(r) :: "memory"); }
+
+// 2^x in one MUFU operation (relative error ~2^-22; 2^-1e30 is 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// x rounded to bf16 (to nearest, ties away; x >= 0 and finite), as fp32 bits: the bf16
+// value in the upper half, zeros below.  Integer operations, no conversion unit.
+__device__ __forceinline__ uint32_t bf16_hi_bits(float x) {
+  return (__float_as_uint(x) + 0x8000u) & 0xFFFF0000u;
+}
+
+// d[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B from shared memory (K-major).
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 64] += A[64 x 16] B[16 x 64], A from registers (bf16x2 fragments), B from
+// shared memory MN-major (the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 128] += A[64 x 16] B[16 x 128], A from registers (bf16x2 fragments), B from
+// shared memory MN-major (the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4],
+                                         uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)[4],
+                                             uint64_t db) { wgmma_rs_n64(o, a, db); }
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4],
+                                              uint64_t db) { wgmma_rs_n128(o, a, db); }
+
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) reg_fence(r[j]);
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) reg_fence(r[kk][e]);
+}
+
+// S = Q K^T for this warpgroup's 64 rows and 128 keys: D/16 steps of 16 columns; within
+// a 64-column half a step is +32 bytes.
+template <int D>
+__device__ __forceinline__ void mma_qk(float (&sc)[64], uint32_t q_addr, uint32_t k_addr) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * TC_HALF + (kk % 4) * 32;
+    wgmma_ss_n128(sc, sw128_desc(q_addr + off, 16, 1024), sw128_desc(k_addr + off, 16, 1024),
+                  kk > 0);
+  }
+}
+
+// O += P_hi V + P_lo V: 16 keys a step, 2048 bytes of V.
+template <int D>
+__device__ __forceinline__ void mma_pv(float (&o)[D / 2], const uint32_t (&p_hi)[8][4],
+                                         const uint32_t (&p_lo)[8][4], uint32_t v_addr) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_pv<D>(o, p_hi[kk], sw128_desc(v_addr + kk * 2048, TC_HALF, 1024));
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_pv<D>(o, p_lo[kk], sw128_desc(v_addr + kk * 2048, TC_HALF, 1024));
+}
+
+// Whether the KV tile at k0 needs the element mask: it crosses the diagonal, the
+// window's edge or Skv (for any row of the block's 128).
+__device__ __forceinline__ bool edge_tile(const TcArgs& a, int k0, int qa0) {
+  return k0 + TC_BN > a.Skv || (a.causal && k0 + TC_BN - 1 > qa0) ||
+         (a.window > 0 && qa0 + TC_BM - 1 - k0 >= a.window);
+}
+
+// Lane 0 of each warp tells the producer that the warp is done with a stage.
+__device__ __forceinline__ void release(uint64_t* empty, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty);
+}
+
+// Online softmax of one thread's two rows (S accumulator fragments: element j is row
+// r0 + 8 * ((j >> 1) & 1), column (j >> 2) * 8 + col0 + (j & 1)), in base 2.
+struct Softmax {
+  int qa_r0, col0;
+  float scale_log2;
+  float m[2];          // running max of the scaled scores
+  float l[2];          // this thread's partial row sums
+
+  // Scores -> P in place (fp32), m and l updated; alpha: how much O must shrink.
+  __device__ __forceinline__ void step(float (&sc)[64], float (&alpha)[2], bool edge, int k0,
+                                       const TcArgs& a) {
+    float mx[2] = {NEG_INF, NEG_INF};
+    if (edge) {
+      // row r keeps keys k0 + col0 + c with lo[r] <= c <= hi[r]; c is (j >> 2) * 8 + (j & 1)
+      int lo[2], hi[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qi = qa_r0 + r * 8, base = k0 + col0;
+        hi[r] = (a.causal ? min(qi, a.Skv - 1) : a.Skv - 1) - base;
+        lo[r] = a.window > 0 ? qi - a.window + 1 - base : -TC_BN;
+      }
+#pragma unroll
+      for (int j = 0; j < 64; ++j) {
+        const int c = (j >> 2) * 8 + (j & 1), r = (j >> 1) & 1;
+        const float x = (c >= lo[r] && c <= hi[r]) ? sc[j] * scale_log2 : NEG_INF;
+        sc[j] = x;
+        mx[r] = fmaxf(mx[r], x);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 64; ++j) {
+        sc[j] *= scale_log2;
+        mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sc[j]);
+      }
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = ex2(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 64; ++j) {
+      sc[j] = ex2(sc[j] - m[(j >> 1) & 1]);
+      sum[(j >> 1) & 1] += sc[j];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+  }
+};
+
+template <int D>
+__device__ __forceinline__ void rescale(float (&o)[D / 2], const float (&alpha)[2]) {
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
+}
+
+// P = P_hi + P_lo as bf16x2 A fragments (fragment e of 16-key step kk holds elements
+// 8 kk + 2 e and + 1): P_hi rounded to nearest, P_lo the rest truncated, so P keeps
+// < 2^-15 of relative error instead of bf16's 2^-9.
+__device__ __forceinline__ void split_p(const float (&p)[64], uint32_t (&p_hi)[8][4],
+                                        uint32_t (&p_lo)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x0 = p[kk * 8 + e * 2], x1 = p[kk * 8 + e * 2 + 1];
+      const uint32_t h0 = bf16_hi_bits(x0), h1 = bf16_hi_bits(x1);
+      p_hi[kk][e] = __byte_perm(h0, h1, 0x7632);      // the upper halves: bf16 pairs
+      p_lo[kk][e] = __byte_perm(__float_as_uint(x0 - __uint_as_float(h0)),
+                                __float_as_uint(x1 - __uint_as_float(h1)), 0x7632);
+    }
+}
+
+// One block per (128-row q tile, head, batch); the heaviest causal tiles launch first.
+// Shared memory (1024-byte aligned): Q [D/64][128 rows][128 B], then STAGES x (K, V) of
+// the same shape, then the barriers (q_full, k_full[], v_full[], empty[]).  Every tile
+// is stored as TMA's 128-byte swizzle lays it out, which is what the wgmma descriptors
+// read.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, const TcArgs a) {
+  constexpr int NH = D / 64;                   // 64-column halves of a row
+  constexpr int TILE = NH * TC_HALF;           // bytes of one Q, K or V tile
+  constexpr int STAGES = tc_stages<D>();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sQ = smem;
+  uint8_t* sK = sQ + TILE;                     // stage s at sK + s * 2 * TILE
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sQ + (1 + 2 * STAGES) * TILE);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* empty = v_full + STAGES;
+
+  const int qt = a.nq - 1 - blockIdx.z;        // reversed: the longest causal rows first
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = qt * TC_BM;
+  const int qa0 = q0 + a.q_offset;             // absolute position of the tile's row 0
+  const int nk = (a.Skv + TC_BN - 1) / TC_BN;
+  int kt_end = nk;
+  if (a.causal) kt_end = min(nk, (qa0 + TC_BM - 1) / TC_BN + 1);
+  int kt_begin = 0;
+  if (a.window > 0) kt_begin = max(0, qa0 - a.window + 1) / TC_BN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], 8);                 // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // producer warpgroup: one thread starts every TMA load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      const int kvh = h / a.G;
+      mbar_expect_tx(q_full, TILE);
+#pragma unroll
+      for (int c = 0; c < NH; ++c) tma_load_4d(sQ + c * TC_HALF, &tq, q_full, 64 * c, q0, h, b);
+      for (int kt = kt_begin, i = 0; kt < kt_end; ++kt, ++i) {
+        const int s = i % STAGES;
+        const uint32_t lap = i / STAGES;
+        mbar_wait(&empty[s], (lap & 1) ^ 1);  // round 0 passes: the stage starts empty
+        uint8_t* k_s = sK + s * 2 * TILE;
+        uint8_t* v_s = k_s + TILE;
+        mbar_expect_tx(&k_full[s], TILE);
+#pragma unroll
+        for (int c = 0; c < NH; ++c)
+          tma_load_4d(k_s + c * TC_HALF, &tk, &k_full[s], 64 * c, kt * TC_BN, kvh, b);
+        mbar_expect_tx(&v_full[s], TILE);
+#pragma unroll
+        for (int c = 0; c < NH; ++c)
+          tma_load_4d(v_s + c * TC_HALF, &tv, &v_full[s], 64 * c, kt * TC_BN, kvh, b);
+      }
+    }
+  } else {
+    // consumer warpgroups: S = Q K^T and O += P V on wgmma, softmax in fp32 registers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = threadIdx.x / 128;
+    const int lane = threadIdx.x % 32;
+    const int r0 = wg * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;  // rows r0, r0 + 8
+    Softmax sm{qa0 + r0, (lane % 4) * 2, a.scale_log2, {NEG_INF, NEG_INF}, {0.f, 0.f}};
+
+    float o[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
+    float sc[64];
+#pragma unroll
+    for (int j = 0; j < 64; ++j) sc[j] = 0.f;
+    uint32_t p_hi[8][4], p_lo[8][4];                 // P of a tile as bf16x2 A fragments
+    float alpha[2];
+
+    const uint32_t q_addr = smem_u32(sQ) + wg * 64 * 128;
+    const uint32_t kv_base = smem_u32(sK);
+    const int n = kt_end - kt_begin;
+    mbar_wait(q_full, 0);
+
+    // tile i's S = Q K^T is started with tile i-1's O += P V; tile i's softmax runs while
+    // the P V product does
+    if (n > 0) {
+      mbar_wait(&k_full[0], 0);
+      wgmma_fence();
+      mma_qk<D>(sc, q_addr, kv_base);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      sm.step(sc, alpha, edge_tile(a, kt_begin * TC_BN, qa0), kt_begin * TC_BN, a);
+      split_p(sc, p_hi, p_lo);
+    }
+    for (int i = 1; i < n; ++i) {
+      const int s = i % STAGES, sp = (i - 1) % STAGES;
+      const uint32_t k_addr = kv_base + s * 2 * TILE;
+      const uint32_t v_addr = kv_base + sp * 2 * TILE + TILE;
+      mbar_wait(&k_full[s], (i / STAGES) & 1);
+      mbar_wait(&v_full[sp], ((i - 1) / STAGES) & 1);
+      wgmma_fence();
+      mma_qk<D>(sc, q_addr, k_addr);
+      wgmma_commit();
+      mma_pv<D>(o, p_hi, p_lo, v_addr);
+      wgmma_commit();
+      wgmma_wait<1>();                             // S of tile i
+      fence_regs(sc);
+      const int k0 = (kt_begin + i) * TC_BN;
+      sm.step(sc, alpha, edge_tile(a, k0, qa0), k0, a);
+      wgmma_wait<0>();                             // O of tile i-1
+      fence_regs(o);
+      fence_regs(p_hi);
+      fence_regs(p_lo);
+      release(&empty[sp], lane);
+      rescale<D>(o, alpha);
+      split_p(sc, p_hi, p_lo);
+    }
+    if (n > 0) {
+      const int sp = (n - 1) % STAGES;
+      mbar_wait(&v_full[sp], ((n - 1) / STAGES) & 1);
+      wgmma_fence();
+      mma_pv<D>(o, p_hi, p_lo, kv_base + sp * 2 * TILE + TILE);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(p_hi);
+      fence_regs(p_lo);
+      release(&empty[sp], lane);
+    }
+
+    float* l = sm.l;
+    const int col0 = sm.col0;
+
+    // the row sums over the 4 lanes that share a row, then O / l into the output
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb + h * a.o_sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      l[r] = fmaxf(l[r], 1e-30f);
+    }
+#pragma unroll
+    for (int j = 0; j < D / 2; j += 2) {
+      const int r = (j >> 1) & 1;
+      const int row = q0 + r0 + r * 8;
+      const int col = (j >> 2) * 8 + col0;
+      if (row >= a.Sq || col >= a.d) continue;
+      __nv_bfloat16* dst = out + (long long)row * a.o_ss + col;
+      const float x0 = o[j] / l[r], x1 = o[j + 1] / l[r];
+      if ((a.d & 1) == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x0, x1);
+      } else {
+        dst[0] = __float2bfloat16(x0);
+        if (col + 1 < a.d) dst[1] = __float2bfloat16(x1);
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so the library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-d map over [B, S, heads, d] read through its strides (elements), boxes of 64
+// columns x 128 rows of one head, 128-byte swizzle; rows and columns past the tensor read
+// as zero.  A dim of size 1 takes a stride of 16 bytes, which TMA accepts and never uses.
+bool make_map(EncodeTiled enc, CUtensorMap* map, const void* base, int d, int S, int heads,
+              int B, long long ss, long long sh, long long sb) {
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)std::max(S, 1), (cuuint64_t)heads,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {S > 1 ? (cuuint64_t)ss * 2 : 16,
+                                 heads > 1 ? (cuuint64_t)sh * 2 : 16,
+                                 B > 1 ? (cuuint64_t)sb * 2 : 16};
+  const cuuint32_t box[4] = {64, (cuuint32_t)TC_BM, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_tc(const Args& a, int B, int K, cudaStream_t stream) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(enc, &tq, a.q, a.d, a.Sq, a.H, B, a.q_ss, a.q_sh, a.q_sb) ||
+      !make_map(enc, &tk, a.k, a.d, a.Skv, K, B, a.k_ss, a.k_sh, a.k_sb) ||
+      !make_map(enc, &tv, a.v, a.d, a.Skv, K, B, a.v_ss, a.v_sh, a.v_sb))
+    return cudaErrorInvalidValue;
+  const int nq = (a.Sq + TC_BM - 1) / TC_BM;
+  const TcArgs t{a.o, a.o_sb, a.o_ss, a.o_sh, a.Sq, a.Skv, a.G, a.d,
+                 a.causal, a.window, a.q_offset, nq, a.scale * LOG2E};
+  constexpr int stages = tc_stages<D>();
+  const int smem = 1024 + (1 + 2 * stages) * (D / 64) * TC_HALF + 8 * (1 + 3 * stages);
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.H, B, nq);
+  flash_fwd_wgmma_kernel<D><<<grid, TC_THREADS, smem, stream>>>(tq, tk, tv, t);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the last dim is contiguous.
+// bf16 with d <= 128 runs the tensor-core kernel and needs 16-byte aligned bases and strides
+// (a multiple of 8 elements) for TMA; everything else runs the CUDA-core kernel.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype,
@@ -268,6 +844,8 @@ extern "C" int repro_flash_attention_fwd(
          causal, window, q_offset, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)dispatch_dim<float>(a, B, st);
+  if (dtype == 1 && d <= 64) return (int)launch_tc<64>(a, B, K, st);
+  if (dtype == 1 && d <= 128) return (int)launch_tc<128>(a, B, K, st);
   if (dtype == 1) return (int)dispatch_dim<__nv_bfloat16>(a, B, st);
   return (int)cudaErrorInvalidValue;
 }

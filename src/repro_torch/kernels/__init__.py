@@ -3,7 +3,9 @@
 build.py            — nvcc into build/repro_torch/ and ctypes loading, shared
 flash_attention.py  — binding and kernel-layout wrapper of
                       csrc/flash_attention.cu (replaces the reference's
-                      Pallas `repro/kernels/flash_attention.py`)
+                      Pallas `repro/kernels/flash_attention.py`): bf16 with
+                      head dim <= 128 runs the tensor-core kernel (wgmma
+                      fed by TMA), fp32 and wider bf16 heads the CUDA-core one
 mamba_scan.py       — binding and wrapper of csrc/mamba_scan.cu (replaces
                       the reference's Pallas `repro/kernels/mamba_scan.py`)
 ops.py              — model-layout wrappers

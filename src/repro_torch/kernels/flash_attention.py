@@ -1,9 +1,15 @@
 """Flash attention forward: build, ctypes binding and kernel-layout wrapper.
 
-The kernel is `csrc/flash_attention.cu` (CUDA C++ for sm_90a), the port's
+The kernels are `csrc/flash_attention.cu` (CUDA C++ for sm_90a), the port's
 replacement for the reference's Pallas kernel `repro/kernels/flash_attention.py`.
 It is compiled with `nvcc` at first use into `build/repro_torch/` of the
 checkout the package runs from and loaded with ctypes (`build.py`).
+
+One C entry point runs one of two kernels, by the rule `kernel_for` states:
+bf16 with head dim <= 128 runs on the tensor cores (wgmma fed by TMA), and
+float32, or bf16 with a head dim of 129-256, on the CUDA cores.  TMA needs
+16-byte aligned bases and strides, so a bf16 call that breaks that raises
+here, with the reason, rather than run the other kernel.
 
 `flash_attention` takes a CPU tensor to the plain version (`ref.py`) and a
 CUDA tensor to the kernel; it never falls back from one to the other.
@@ -20,9 +26,30 @@ from repro_torch.kernels.ref import flash_attention_ref
 
 SOURCE = _build.PACKAGE / "csrc" / "flash_attention.cu"
 MAX_HEAD_DIM = 256
+TENSOR_CORE_MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0   # kernel launches; a run zeroes it to count one path's launches
+kernel_launches = {"tensor_core": 0, "cuda_core": 0}   # the same launches, by kernel
+
+
+def kernel_for(dtype, head_dim) -> str:
+    """Which kernel a CUDA call runs, as `repro_flash_attention_fwd` dispatches."""
+    if dtype == torch.bfloat16 and head_dim <= TENSOR_CORE_MAX_HEAD_DIM:
+        return "tensor_core"
+    return "cuda_core"
+
+
+def tma_problem(name, t):
+    """Why TMA cannot load `t` [B, heads, S, D] (bf16), or None: its base and every
+    stride of a dim longer than 1 must be multiples of 16 bytes."""
+    if t.data_ptr() % 16:
+        return f"{name} starts at an address that is not 16-byte aligned ({t.data_ptr():#x})"
+    for dim in range(3):
+        if t.shape[dim] > 1 and (t.stride(dim) * t.element_size()) % 16:
+            return (f"{name} has a stride of {t.stride(dim)} elements in dim {dim}, "
+                    f"not a multiple of 16 bytes (strides {t.stride()})")
+    return None
 
 
 @functools.cache
@@ -73,6 +100,12 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0, scale=None):
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
     B, H, Sq, D = q.shape
     K, Skv = k.shape[1], k.shape[2]
+    kernel = kernel_for(q.dtype, D)
+    if kernel == "tensor_core":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            problem = tma_problem(name, t)
+            if problem:
+                raise ValueError(f"the tensor-core kernel loads by TMA: {problem}")
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     if B == 0 or Sq == 0:
         return out
@@ -84,6 +117,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0, scale=None):
             *(t.stride(i) for t in (q, k, v, out) for i in (0, 2, 1)),
             int(bool(causal)), window, int(q_offset), float(scale), stream)
     if err != 0:
-        raise RuntimeError(f"flash attention kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"flash attention {kernel} kernel launch failed: cudaError {err}")
     launches += 1
+    kernel_launches[kernel] += 1
     return out

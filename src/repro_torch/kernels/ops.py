@@ -2,14 +2,16 @@
 
 `flash_attention`: the reference wrapper (`repro/kernels/ops.py`) transposes
 [B, S, H, Dh] to [B, H, S, Dh] and pads Dh to a multiple of 128 for the TPU's
-lanes.  The CUDA kernel reads strides and takes any Dh up to 256, so here the
-transpose is a view and nothing is padded.
+lanes.  The CUDA kernels read strides and take any Dh up to 256 (the
+tensor-core one pads Dh in shared memory, by TMA's zero fill), so here the
+transpose is a view and nothing is padded in device memory.
 
 `mamba_scan`: the reference wrapper casts to fp32 and passes the TPU's tiling
 knobs (`chunk`, `di_block`); the CUDA kernel has none, so this one only casts.
 
 Each launch counter (`flash_attention.launches`, `mamba_scan.launches`) is
-incremented where its kernel launches.
+incremented where its kernel launches; `flash_attention.kernel_launches`
+splits K1's by the kernel that ran.
 """
 from __future__ import annotations
 

@@ -64,6 +64,70 @@ def test_kernel_bf16_head_dim_64_model_layout(window):
     assert max_abs_err(to_np(out), to_np(ref)) < 3e-2
 
 
+# the tensor-core kernel (bf16, head dim <= 128) in the model layout: B, H, K, Sq, Skv,
+# D, window, q_offset.  S not a multiple of 128, q_offset > 0, window edges inside a
+# tile, D in {64, 120, 128}, G = H / K in {1, 5, 16}
+TENSOR_CORE_CASES = [
+    (1, 4, 4, 100, 100, 128, 0, 0),
+    (2, 5, 1, 1000, 1000, 64, 300, 0),
+    (1, 16, 1, 1000, 1000, 128, 0, 0),
+    (1, 4, 2, 122, 250, 120, 0, 128),
+    (1, 5, 5, 256, 256, 64, 77, 0),
+    (1, 16, 1, 40, 300, 64, 50, 260),
+    (2, 10, 2, 333, 333, 120, 200, 0),
+]
+
+
+def _bf16_within_two_steps(out, ref):
+    out, ref = out.float(), ref.float()
+    return bool(((out - ref).abs() <= 2 * (2.0 ** -7 * ref.abs() + 1e-5)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,K,Sq,Skv,D,window,q_offset", TENSOR_CORE_CASES)
+def test_tensor_core_kernel_matches_plain_version(B, H, K, Sq, Skv, D, window, q_offset):
+    _need_card()
+    (q, _), (k, _), (v, _) = qkv(Sq + D + window, B, H, K, Sq, Skv, D, "bfloat16")
+    q, k, v = (t.cuda().transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    before = dict(fa.kernel_launches)
+    out = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.kernel_launches == dict(before, tensor_core=before["tensor_core"] + 1)
+    ref = flash_attention_ref(q, k, v, **kw)
+    assert _bf16_within_two_steps(out, ref)
+    assert max_abs_err(to_np(out), to_np(ref)) < 3e-2
+
+
+@pytest.mark.cuda
+def test_bf16_wide_heads_run_on_the_cuda_cores():
+    _need_card()
+    (q, _), (k, _), (v, _) = qkv(7, 1, 4, 2, 256, 256, 256, "bfloat16")
+    q, k, v = q.cuda(), k.cuda(), v.cuda()
+    before = dict(fa.kernel_launches)
+    out = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.kernel_launches == dict(before, cuda_core=before["cuda_core"] + 1)
+    assert _bf16_within_two_steps(out, flash_attention_ref(q, k, v, causal=True))
+
+
+@pytest.mark.cuda
+def test_views_tma_cannot_load_raise_and_launch_nothing():
+    """A bf16 call the tensor-core kernel cannot take raises with the reason; it never
+    runs the CUDA-core kernel instead."""
+    _need_card()
+    base = torch.randn(1, 64, 4, 136, device="cuda").bfloat16()
+    shifted = base[..., 1:129].transpose(1, 2)               # base 2 bytes past alignment
+    narrow = torch.empty(1, 64, 4, 124, device="cuda").bfloat16()[..., :120].transpose(1, 2)
+    good = base[..., :128].contiguous().transpose(1, 2)
+    before = fa.launches, dict(fa.kernel_launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention(shifted, good, good)
+    with pytest.raises(ValueError, match="not a multiple of 16 bytes"):
+        fa.flash_attention(narrow, narrow, narrow)
+    assert (fa.launches, fa.kernel_launches) == before
+
+
 @pytest.mark.cuda
 def test_model_flash_prefill_matches_naive_on_card():
     _need_card()

@@ -119,3 +119,127 @@ def test_kernel_builds_into_the_checkout_and_nowhere_else(tmp_path, monkeypatch)
     monkeypatch.setattr(build, "PACKAGE", installed)
     with pytest.raises(RuntimeError, match="only from a checkout"):
         build.library_path(installed / "csrc" / "flash_attention.cu")
+
+
+# ---- the tensor-core kernel's dispatch rule and arithmetic ------------------------------
+
+@pytest.mark.parametrize("dtype,head_dim,kernel", [
+    (torch.bfloat16, 16, "tensor_core"), (torch.bfloat16, 64, "tensor_core"),
+    (torch.bfloat16, 120, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
+    (torch.bfloat16, 129, "cuda_core"), (torch.bfloat16, 256, "cuda_core"),
+    (torch.float32, 64, "cuda_core"), (torch.float32, 128, "cuda_core"),
+    (torch.float32, 256, "cuda_core"),
+])
+def test_dispatch_rule(dtype, head_dim, kernel):
+    """bf16 with head dim <= 128 runs on the tensor cores; fp32 (2e-5, which TF32
+    cannot meet) and wider bf16 heads on the CUDA cores."""
+    assert fa.kernel_for(dtype, head_dim) == kernel
+
+
+def test_tma_preconditions_name_the_reason():
+    """TMA needs a 16-byte aligned base and strides of 16-byte multiples in every dim
+    longer than 1; a model-layout view of a contiguous [B, S, H, D] tensor has them."""
+    base = torch.zeros(2, 64, 4, 128, dtype=torch.bfloat16)
+    assert fa.tma_problem("q", base.transpose(1, 2)) is None
+    assert fa.tma_problem("q", torch.zeros(1, 1, 1, 8, dtype=torch.bfloat16)) is None
+    shifted = base.view(-1)[1:1 + 2 * 64 * 4 * 120].view(2, 64, 4, 120).transpose(1, 2)
+    assert "16-byte aligned" in fa.tma_problem("k", shifted)
+    narrow = torch.zeros(2, 64, 4, 124, dtype=torch.bfloat16)[..., :120].transpose(1, 2)
+    assert "stride of 124 elements in dim 1" in fa.tma_problem("v", narrow)
+    one_head = torch.zeros(2, 64, 1, 124, dtype=torch.bfloat16)[..., :120].transpose(1, 2)
+    assert "in dim 2" in fa.tma_problem("v", one_head)   # S's stride, 124 elements
+
+
+LOG2E = 1.4426950408889634
+
+
+def emulate_tensor_core_kernel(q, k, v, *, causal, window, q_offset, split_p=True,
+                               bm=128, bn=128):
+    """The arithmetic of `flash_fwd_wgmma_kernel`, in PyTorch on the CPU.
+
+    q [B,H,Sq,D], k/v [B,K,Skv,D] bf16.  Per 128-row q tile, the KV tiles of 128 keys
+    that the kernel visits; scores in fp32 from the bf16 inputs, scaled to base 2;
+    running max and sum in fp32, the sum taken from the fp32 P; P split into bf16
+    P_hi (rounded to nearest) + P_lo (the rest, truncated), or with split_p=False
+    rounded once to bf16, before the fp32 P V; O / max(l, 1e-30) rounded once to bf16.
+    """
+    B, H, Sq, D = q.shape
+    K, Skv = k.shape[1], k.shape[2]
+    c = torch.tensor(D ** -0.5 * LOG2E, dtype=torch.float32)
+    kf = k.float().repeat_interleave(H // K, dim=1)
+    vf = v.float().repeat_interleave(H // K, dim=1)
+    out = torch.empty(B, H, Sq, D)
+    nk = -(-Skv // bn)
+    for q0 in range(0, Sq, bm):
+        rows = slice(q0, min(q0 + bm, Sq))
+        qa0 = q0 + q_offset
+        qi = torch.arange(rows.start, rows.stop)[:, None] + q_offset
+        kt_end = min(nk, (qa0 + bm - 1) // bn + 1) if causal else nk
+        kt_begin = max(0, qa0 - window + 1) // bn if window > 0 else 0
+        n = rows.stop - rows.start
+        m = torch.full((B, H, n, 1), -1e30)
+        l = torch.zeros(B, H, n, 1)
+        o = torch.zeros(B, H, n, D)
+        for kt in range(kt_begin, kt_end):
+            keys = slice(kt * bn, min(kt * bn + bn, Skv))
+            s = (q[:, :, rows].float() @ kf[:, :, keys].transpose(-1, -2)) * c
+            ki = torch.arange(keys.start, keys.stop)[None, :]
+            ok = torch.ones(n, keys.stop - keys.start, dtype=torch.bool)
+            if causal:
+                ok &= ki <= qi
+            if window > 0:
+                ok &= (qi - ki) < window
+            s = torch.where(ok, s, torch.tensor(-1e30))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new)
+            m = m_new
+            l = l * alpha + p.sum(-1, keepdim=True)
+            if split_p:
+                hi = ((p.view(torch.int32) + 0x8000) & -0x10000).view(torch.float32)
+                lo = ((p - hi).view(torch.int32) & -0x10000).view(torch.float32)
+                pv = hi @ vf[:, :, keys] + lo @ vf[:, :, keys]
+            else:
+                pv = p.bfloat16().float() @ vf[:, :, keys]
+            o = o * alpha + pv
+        out[:, :, rows] = o / l.clamp_min(1e-30)
+    return out.bfloat16()
+
+
+def _bf16_steps(out, ref):
+    """Largest |out - ref| in bf16 rounding steps of ref (2^-7 |ref| + 1e-5)."""
+    out, ref = np.asarray(out, np.float32), np.asarray(ref, np.float32)
+    return float((np.abs(out - ref) / (2.0 ** -7 * np.abs(ref) + 1e-5)).max())
+
+
+# reduced path shapes: chatglm3-6b's D=128 with 16:1 GQA, hymba-1.5b's D=64 with 5:1
+# GQA and a window, h2o-danube's D=120 with a q_offset (the Pallas kernel takes
+# D % 128 == 0, so D is zero-padded for it, as the reference's wrapper pads it)
+EMULATED_CASES = [
+    (1, 16, 1, 384, 128, True, 0, 0),
+    (1, 5, 1, 384, 64, True, 160, 0),
+    (1, 4, 2, 256, 120, True, 0, 128),
+]
+
+
+@pytest.mark.parametrize("B,H,K,S,D,causal,window,q_offset", EMULATED_CASES)
+def test_tensor_core_arithmetic_meets_the_path_limits(B, H, K, S, D, causal, window, q_offset):
+    """The kernel's arithmetic (P split into bf16 hi + lo) against the reference's Pallas
+    kernel in interpret mode: max abs error < 1e-2 and every element within two bf16
+    steps, the limits chip_smoke.py holds the kernel to.  A single bf16 P is printed
+    beside it; it must not be the better of the two."""
+    (q, qn), (k, kn), (v, vn) = _qkv(S + D + window, B, H, K, S, S, D, "bfloat16")
+    q, qn = q[:, :, q_offset:], qn[:, :, q_offset:]
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    pad = [(0, 0)] * 3 + [(0, (-D) % 128)]
+    jq, jk, jv = (jnp.asarray(np.pad(x, pad), jnp.bfloat16) for x in (qn, kn, vn))
+    pallas = np.asarray(fa_kernel(jq, jk, jv, interpret=True, bq=128, bk=128, scale=D ** -0.5,
+                                  **kw), np.float32)[..., :D]
+    split = to_np(emulate_tensor_core_kernel(q, k, v, **kw))
+    single = to_np(emulate_tensor_core_kernel(q, k, v, split_p=False, **kw))
+    errs = {name: (_err(x, pallas), _bf16_steps(x, pallas))
+            for name, x in (("split", split), ("single", single))}
+    print(f"tensor-core arithmetic vs Pallas (max abs, bf16 steps): {errs}")
+    assert errs["split"][0] < 1e-2 and errs["split"][1] <= 2.0
+    assert errs["split"][1] <= errs["single"][1]
+    assert _err(split, to_np(flash_attention_ref(q, k, v, **kw))) < 1e-2
