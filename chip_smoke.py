@@ -10,27 +10,44 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   3. kernels — each kernel against its plain PyTorch version on the card, at the
                reference's test shapes (the tests' tolerances) and at every serving
                path's shape; kernel, plain, library and bound times
-               K1 flash_attention: path-shape max abs error 1e-2 (chatglm3-6b's, and
-               hymba-1.5b's with windows 1024 and 0), bf16 outputs element by element
-               within two bf16 rounding steps; each case names the kernel that ran
-               (tensor_core: bf16 with head dim <= 128; cuda_core: the rest) and its
-               achieved TFLOP/s
+               K1 flash_attention: path-shape max abs error 1e-2 (chatglm3-6b's;
+               hymba-1.5b's with windows 1024 and 0; h2o-danube-3-4b's at head dim
+               120 and mixtral-8x22b's, both with window 4096; gemma3-4b's at head
+               dim 256, on the CUDA-core kernel, with windows 1024 and 0;
+               qwen2-vl-2b's), bf16 outputs element by element within two bf16
+               rounding steps; each case names the kernel that ran (tensor_core:
+               bf16 with head dim <= 128; cuda_core: the rest) and its achieved
+               TFLOP/s; the plain version of the largest shapes runs one (batch, KV
+               head) slice at a time
                K2 mamba_scan: max abs error 1e-4 for y and the final state, at the
                reference's cases and falcon-mamba-7b's and hymba-1.5b's shapes
-  4-6. the models at full width with seed-0 random bf16 weights, one table row
+  4-10. the models at full width with seed-0 random bf16 weights, one table row
                each (MODELS): prefill through make_prefill_step(attn_impl="flash"),
-               16 greedy make_decode_step steps, each kernel's launches per prefill
-               asserted (K1's by kernel too: the bf16 prefills run only tensor_core),
-               a profiler breakdown of one prefill and one decode step,
-               BatchedServer with 4 requests; then prefill + one decode against
-               forward's last logits (and the flash prefill against the naive one,
-               with naive prefill + decode vs forward as the equal-maths control),
-               asserted in fp32 compute (relative error < 2e-5) and reported in bf16
+               16 greedy make_decode_step steps (qwen2-vl-2b's with [3, B, 1] m-rope
+               ids), each kernel's launches per prefill asserted (K1's by kernel
+               too), the cache's shapes and dtypes against api.cache_specs, a
+               profiler breakdown of one prefill and one decode step, BatchedServer
+               with 4 requests; then prefill + one decode against forward's last
+               logits (and the flash prefill against the naive one, with naive
+               prefill + decode vs forward as the equal-maths control), asserted in
+               fp32 compute (relative error < 2e-5) and reported in bf16, at a length
+               past the model's window; MoE at the no-drop capacity
                4. chatglm3-6b (dense, 28 layers): 4 x 1024, 28 K1 launches per prefill
                5. falcon-mamba-7b (ssm, 64 layers): 4 x 1024, 64 K2 and no K1
                6. hymba-1.5b (hybrid, 32 layers, windows of 1024 but in layers
                   0/15/31): 4 x 2048, 32 K1 and 32 K2
-  7. a JSON line of every ported kernel, then the JSON result line.
+               7. h2o-danube-3-4b (dense, 24 layers, window 4096, head dim 120):
+                  2 x 8192, 24 tensor-core K1; checks at 1 x 4352
+               8. gemma3-4b (dense, 34 layers, sandwich norm, GeGLU, windows of 1024
+                  with every sixth layer global, head dim 256): 4 x 2048, 34 CUDA-core
+                  K1 and no tensor-core K1; checks at 2 x 2048
+               9. qwen2-vl-2b (vlm, 28 layers, m-rope): 4 x 2048 of which 512 patch
+                  embeddings, 28 tensor-core K1
+               10. mixtral-8x22b (moe, 8 of its 56 layers, 8 experts top-2, window
+                  4096): 2 x 8192, 8 tensor-core K1; checks at 1 x 4352, fp32 at 2 layers
+  11. ring    — h2o-danube-3-4b at full width, window cut to 64, 2 layers: ring-cache
+               decode against full-cache decode for 80 steps, fp32 (< 2e-5 once wrapped)
+  12. a JSON line of every ported kernel (K1 also by kernel), then the JSON result line.
 Each model's weights are freed before the next model is built.  Without a CUDA
 device, or outside a checkout of the repo, it exits non-zero and prints no result.
 """
@@ -39,6 +56,7 @@ import re
 import subprocess
 import sys
 import time
+from collections import namedtuple
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from types import SimpleNamespace
@@ -53,13 +71,24 @@ FP32_TOL = 2e-5       # relative; the port's fp32 parity tolerance against the r
 BF16_STEP, BF16_FLOOR, BF16_MAX_STEPS = 2.0 ** -7, 1e-5, 2.0
 # B, H, K, S, D, causal, window, dtype, tol: the serving paths' shapes in the model
 # layout (chatglm3-6b's prefill of 4 x 1024; hymba-1.5b's of 4 x 2048 with its
-# windowed and global layers), and the reference's FLASH_CASES
-# (tests/test_kernels.py) with their tolerances.  The path shapes' max abs limit
-# is set from their readings: error 0.0039 (one bf16 step at values in [0.5, 1))
-# against a median |output| of ~0.05 at chatglm3-6b's
+# windowed and global layers; h2o-danube-3-4b's 2 x 8192 at head dim 120 and
+# mixtral-8x22b's, both with a window of 4096; gemma3-4b's 4 x 2048 at head dim
+# 256, on the CUDA-core kernel, with its local and global layers; qwen2-vl-2b's
+# 4 x 2048), and the reference's FLASH_CASES (tests/test_kernels.py) with their
+# tolerances.  The path shapes' max abs limit is set from their readings: error
+# 0.0039 (one bf16 step at values in [0.5, 1)) against a median |output| of
+# ~0.05 at chatglm3-6b's
 PATH_SHAPES = [(4, 32, 2, 1024, 128, True, 0, "bfloat16", 1e-2),
                (4, 25, 5, 2048, 64, True, 1024, "bfloat16", 1e-2),
-               (4, 25, 5, 2048, 64, True, 0, "bfloat16", 1e-2)]
+               (4, 25, 5, 2048, 64, True, 0, "bfloat16", 1e-2),
+               (2, 32, 8, 8192, 120, True, 4096, "bfloat16", 1e-2),
+               (2, 48, 8, 8192, 128, True, 4096, "bfloat16", 1e-2),
+               (4, 8, 4, 2048, 256, True, 1024, "bfloat16", 1e-2),
+               (4, 8, 4, 2048, 256, True, 0, "bfloat16", 1e-2),
+               (4, 12, 2, 2048, 128, True, 0, "bfloat16", 1e-2)]
+# the plain version materialises [B, H, Sq, Skv] fp32 scores; above this many
+# bytes it runs one (batch, KV head) slice at a time
+PLAIN_SLICE_BYTES = 2 << 30
 FLASH_CASES = [
     (1, 2, 2, 256, 128, True, 0, "float32", 2e-5),
     (2, 4, 2, 256, 128, True, 64, "float32", 2e-5),
@@ -68,7 +97,8 @@ FLASH_CASES = [
     (1, 4, 4, 128, 128, True, 0, "bfloat16", 3e-2),
     (1, 2, 2, 384, 128, True, 128, "bfloat16", 3e-2),
 ]
-# bf16 with a head dim above 128 runs the CUDA-core kernel; no path reaches it yet
+# bf16 with a head dim above 128 runs the CUDA-core kernel (gemma3-4b's path shapes
+# above), here at the reference's small size
 BF16_WIDE_CASE = (1, 4, 2, 256, 256, True, 0, "bfloat16", 3e-2)
 # K2: B, S, Di, N — the reference's MAMBA_CASES (tests/test_kernels.py:69) and the
 # shapes of the serving paths' prefills (falcon-mamba-7b 4 x 1024, hymba-1.5b
@@ -81,14 +111,30 @@ SCAN_NO_LIBRARY = ("no single PyTorch call computes a linear recurrence with a "
 # the full-width models, one at a time: arch, prefill batch and length, attention
 # impls (the first serves, the others are compared with it), the consistency
 # checks' batch and length, and each kernel's launches per prefill (K1's also by
-# the kernel that ran; a count not named must stay 0)
+# the kernel that ran; a count not named must stay 0); then, where cut, the
+# depth of the whole row and of its fp32 check.  Each consistency length passes
+# the model's window, so that the window masks in both the flash and naive paths
+Model = namedtuple("Model", "arch B S impls check_shape per_prefill depth fp32_depth",
+                   defaults=(None, None))
 MODELS = [
-    ("chatglm3-6b", 4, 1024, ("flash", "naive"), (4, 1024),
-     {"flash_attention": 28, "flash_attention/tensor_core": 28}),
-    ("falcon-mamba-7b", 4, 1024, ("flash",), (2, 512), {"mamba_scan": 64}),
-    ("hymba-1.5b", 4, 2048, ("flash", "naive"), (4, 2048),
-     {"flash_attention": 32, "flash_attention/tensor_core": 32, "mamba_scan": 32}),
+    Model("chatglm3-6b", 4, 1024, ("flash", "naive"), (4, 1024),
+          {"flash_attention": 28, "flash_attention/tensor_core": 28}),
+    Model("falcon-mamba-7b", 4, 1024, ("flash",), (2, 512), {"mamba_scan": 64}),
+    Model("hymba-1.5b", 4, 2048, ("flash", "naive"), (4, 2048),
+          {"flash_attention": 32, "flash_attention/tensor_core": 32, "mamba_scan": 32}),
+    Model("h2o-danube-3-4b", 2, 8192, ("flash", "naive"), (1, 4352),
+          {"flash_attention": 24, "flash_attention/tensor_core": 24}),
+    Model("gemma3-4b", 4, 2048, ("flash", "naive"), (2, 2048),
+          {"flash_attention": 34, "flash_attention/cuda_core": 34}),
+    Model("qwen2-vl-2b", 4, 2048, ("flash", "naive"), (4, 2048),
+          {"flash_attention": 28, "flash_attention/tensor_core": 28}),
+    # 8 of 56 layers: the full depth's ~282 GB of bf16 weights need the sharding slice
+    Model("mixtral-8x22b", 2, 8192, ("flash", "naive"), (1, 4352),
+          {"flash_attention": 8, "flash_attention/tensor_core": 8}, depth=8, fp32_depth=2),
 ]
+# h2o-danube-3-4b at full width with its window cut to 64 and 2 layers: ring-cache
+# decode against full-cache decode over 80 steps, fp32 compute
+RING = dict(arch="h2o-danube-3-4b", window=64, layers=2, B=2, steps=80)
 N_DECODE = 16
 
 
@@ -206,6 +252,23 @@ def device_breakdown(torch, fn):
                 top_other=[[k, round(v, 3)] for k, v in top])
 
 
+def plain_version(torch, ref, q, k, v, kw):
+    """K1's plain version on q [B,H,Sq,D], k/v [B,K,Skv,D]; one (batch, KV head)
+    slice at a time when the whole call's fp32 scores pass PLAIN_SLICE_BYTES."""
+    B, H, Sq, _ = q.shape
+    K, Skv = k.shape[1], k.shape[2]
+    if B * H * Sq * Skv * 4 <= PLAIN_SLICE_BYTES:
+        return ref.flash_attention_ref(q, k, v, **kw)
+    G = H // K
+    out = torch.empty_like(q)
+    for b in range(B):
+        for kv in range(K):
+            heads = slice(kv * G, (kv + 1) * G)
+            out[b:b + 1, heads] = ref.flash_attention_ref(
+                q[b:b + 1, heads], k[b:b + 1, kv:kv + 1], v[b:b + 1, kv:kv + 1], **kw)
+    return out
+
+
 def flash_case(torch, F, fa, ref, case, seed, q_offset=0, layout="bhsd"):
     """Kernel vs plain version on one shape; returns a result dict."""
     B, H, K, S, D, causal, window, dtype, tol = case
@@ -226,7 +289,8 @@ def flash_case(torch, F, fa, ref, case, seed, q_offset=0, layout="bhsd"):
     torch.cuda.synchronize()
     check(fa.kernel_launches[variant] == before[variant] + 1,
           f"{case}: the {variant} kernel did not count the launch")
-    plain = ref.flash_attention_ref(q, k, v, **kw)
+    plain_fn = lambda: plain_version(torch, ref, q, k, v, kw)  # noqa: E731
+    plain = plain_fn()
     diff = (out.float() - plain.float()).abs()
     err = float(diff.max())
     check(torch.isfinite(out).all().item(), f"non-finite kernel output {case}")
@@ -255,7 +319,7 @@ def flash_case(torch, F, fa, ref, case, seed, q_offset=0, layout="bhsd"):
 
     iters = 20 if S * Sq * B * H < (1 << 28) else 10
     kernel_ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, **kw), iters)
-    plain_ms = cuda_ms(torch, lambda: ref.flash_attention_ref(q, k, v, **kw), iters)
+    plain_ms = cuda_ms(torch, plain_fn, iters if S * Sq * B * H < (1 << 30) else 2)
     library_ms = cuda_ms(torch, lib, iters)
     flops = 4 * D * B * H * int(mask.sum())                 # QK^T and PV on unmasked pairs
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
@@ -303,6 +367,25 @@ def scan_case(torch, ms, ref, case, seed):
                 gflop=flops / 1e9, mbytes=nbytes / 1e6)
 
 
+def prefix(batch, n):
+    """A batch's first n positions: tokens, and for a vlm batch the patches
+    (all in front) and [3, B, n] m-rope ids."""
+    n_img = batch["patch_embeds"].shape[1] if "patch_embeds" in batch else 0
+    out = dict(batch, tokens=batch["tokens"][:, :n - n_img])
+    if "positions" in batch:
+        out["positions"] = batch["positions"][:, :, :n]
+    return out
+
+
+def decode_ids(torch, cfg, tokens, pos):
+    """A decode step's rope ids: [3, B, 1] of pos for m-rope, else none (the step
+    makes [B, 1])."""
+    if cfg.rope != "mrope":
+        return {}
+    return {"positions": torch.full((3, tokens.shape[0], 1), pos, dtype=torch.int32,
+                                    device=tokens.device)}
+
+
 def main_path(rt, cfg, params, B, S, n_decode, attn_impl):
     """The serving path a user drives: 2 prefills (the first warms up), then n_decode
     greedy decode steps.  Every launch counter is zeroed just before and read just
@@ -329,7 +412,7 @@ def main_path(rt, cfg, params, B, S, n_decode, attn_impl):
     decode_s = []
     for i in range(n_decode):                      # the first step is timed apart (cold)
         t0 = time.perf_counter()
-        logits, cache = decode(params, cache, tok, S + i)
+        logits, cache = decode(params, cache, tok, S + i, **decode_ids(torch, cfg, tok, S + i))
         tok = logits[:, -1].argmax(-1, keepdim=True)
         generated.append(tok)
         if i in (0, n_decode - 1):
@@ -342,24 +425,13 @@ def main_path(rt, cfg, params, B, S, n_decode, attn_impl):
     check(prefill_logits.shape == (B, 1, cfg.vocab_size), f"logits {prefill_logits.shape}")
     check(bool(((generated >= 0) & (generated < cfg.vocab_size)).all()), "token out of range")
     warm_s = sum(decode_s[1:])
-    res = dict(arch=cfg.name, B=B, S=S, prefill_ms=prefill_s[1] * 1e3,
-               prefill_tok_s=B * S / prefill_s[1], cold_prefill_ms=prefill_s[0] * 1e3,
-               decode_ms=warm_s * 1e3 / (n_decode - 1),
+    res = dict(arch=cfg.name, layers=cfg.num_layers, B=B, S=S,
+               prefill_ms=prefill_s[1] * 1e3, prefill_tok_s=B * S / prefill_s[1],
+               cold_prefill_ms=prefill_s[0] * 1e3, decode_ms=warm_s * 1e3 / (n_decode - 1),
                decode_tok_s=B * (n_decode - 1) / warm_s, cold_decode_ms=decode_s[0] * 1e3,
                peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches,
                tokens0=generated[0].tolist())
     return res, batch, prefill, decode, prefill_logits, cache
-
-
-def cache_shapes(cfg, B, cache_len):
-    """The decode cache's shapes by family: k/v for attention, conv/ssm for Mamba."""
-    L, shapes = cfg.num_layers, {}
-    if cfg.family != "ssm":
-        shapes["k"] = shapes["v"] = (L, B, cache_len, cfg.num_kv_heads, cfg.head_dim)
-    if cfg.family != "dense":
-        shapes["conv"] = (L, B, cfg.d_conv - 1, cfg.d_inner)
-        shapes["ssm"] = (L, B, cfg.d_inner, cfg.ssm_state)
-    return shapes
 
 
 def run_server(rt, cfg, params):
@@ -380,24 +452,26 @@ def run_server(rt, cfg, params):
 
 
 def consistency(rt, cfg, params, B, S, impls):
-    """Relative errors on tokens of seed 1, launches not counted: for each attention
-    impl, prefill of S tokens + one decode step against forward's last logits on the
-    S + 1 tokens; the first impl's prefill against forward at S and against each other
-    impl's prefill.  Forward runs the naive attention, so naive prefill + decode
-    against it is the control with equal maths.  Where the cache holds k/v, layer 0's
-    (which precede any attention) must be equal bits for every impl."""
+    """Relative errors on a batch of seed 1, launches not counted: for each attention
+    impl, prefill of S positions + one decode step against forward's last logits on
+    the S + 1 positions; the first impl's prefill against forward at S and against
+    each other impl's prefill.  Forward runs the naive attention, so naive prefill +
+    decode against it is the control with equal maths.  Where the cache holds k/v,
+    layer 0's (which precede any attention) must be equal bits for every impl."""
     torch = rt.torch
-    toks = rt.api.demo_batch(cfg, B, S + 1, seed=1)["tokens"]
+    batch = rt.api.demo_batch(cfg, B, S + 1, seed=1)
+    last = prefix(batch, S + 1)["tokens"][:, -1:]
     lg, dec, kv0 = {}, {}, {}
     for impl in impls:
         step = rt.make_prefill_step(cfg, rt.StepSettings(attn_impl=impl), cache_len=S + 1)
-        lg[impl], cache = step(params, {"tokens": toks[:, :S]})
+        lg[impl], cache = step(params, prefix(batch, S))
         if "k" in cache:
             kv0[impl] = (cache["k"][0].clone(), cache["v"][0].clone())
-        dec[impl], _ = rt.make_decode_step(cfg)(params, cache, toks[:, S:], S)
+        dec[impl], _ = rt.make_decode_step(cfg)(params, cache, last, S,
+                                                **decode_ids(torch, cfg, last, S))
         del cache
     with torch.no_grad():
-        full, _ = rt.api.forward(cfg, params, {"tokens": toks}, attn_impl="naive")
+        full, _ = rt.api.forward(cfg, params, batch, attn_impl="naive")
     first = impls[0]
     out = {f"{first}_vs_{impl}_prefill": rel(torch, lg[first], lg[impl])
            for impl in impls[1:]}
@@ -420,30 +494,40 @@ def report_path(res, per_prefill):
     print(f"[serve] {res['arch']} main path " + json.dumps(res))
 
 
-def serve_model(rt, arch, B, S, impls, check_shape, per_prefill):
+def serve_model(rt, model):
     """One model at full width with seed-0 random bf16 weights: the main path and its
     launch counts, a profile of one prefill and one decode step, BatchedServer, then
     the consistency checks, reported in bf16 and held in fp32 compute.  Each set of
     weights is freed before the next is built.  Returns the main path's launches."""
     torch, api = rt.torch, rt.api
+    arch, B, S, impls, check_shape, per_prefill, depth, fp32_depth = model
     cfg = rt.get_config(arch)
+    full_depth = cfg.num_layers
+    if depth:
+        cfg = cfg.replace(num_layers=depth)
     t0 = time.perf_counter()
     params = api.init_params(cfg, 0)
     torch.cuda.synchronize()
     print(f"[serve] {cfg.name}: {api.param_count(cfg) / 1e9:.3f}B params in bf16, "
-          f"init {time.perf_counter() - t0:.1f}s, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+          f"{cfg.num_layers} of {full_depth} layers"
+          + (" (reduced depth)" if depth else "")
+          + f", init {time.perf_counter() - t0:.1f}s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     res, batch, prefill, decode, prefill_logits, cache = main_path(
         rt, cfg, params, B, S, N_DECODE, impls[0])
     want = {name: 2 * per_prefill.get(name, 0) for name in read_counts(rt.counters)}
     check(res["launches"] == want, f"{res['launches']} launches on the {cfg.name} main "
                                    f"path, want {want}")
-    shapes = {name: tuple(a.shape) for name, a in cache.items()}
-    check(shapes == cache_shapes(cfg, B, S + N_DECODE), f"cache {shapes}")
+    specs = api.cache_specs(cfg, rt.ShapeSpec("main_path", "decode", S + N_DECODE, B))
+    shapes = {name: (tuple(a.shape), a.dtype) for name, a in cache.items()}
+    check(shapes == {name: (spec.shape, spec.dtype) for name, spec in specs.items()},
+          f"cache {shapes} against api.cache_specs {specs}")
     report_path(res, per_prefill)
     check(torch.equal(prefill(params, batch)[0], prefill_logits), "prefill is not deterministic")
     nxt = prefill_logits[:, -1].argmax(-1, keepdim=True)
+    ids = decode_ids(torch, cfg, nxt, S)
     for label, fn in (("prefill", lambda: prefill(params, batch)),
-                      ("decode", lambda: decode(params, cache, nxt, S))):
+                      ("decode", lambda: decode(params, cache, nxt, S, **ids))):
         print(f"[profile] {cfg.name} {label} " + json.dumps(device_breakdown(torch, fn)))
     del cache, prefill, decode, prefill_logits
     torch.cuda.empty_cache()
@@ -451,23 +535,58 @@ def serve_model(rt, arch, B, S, impls, check_shape, per_prefill):
 
     # in bf16 at full width the equal-maths control already differs by about the
     # tests' 0.02, so the limits are held in fp32 compute, where the same
-    # comparisons must agree to rounding
+    # comparisons must agree to rounding.  A MoE model is checked at the no-drop
+    # capacity: prefill routes groups of tokens and decode groups of one, so at
+    # the default capacity they drop different tokens
+    if cfg.num_experts:
+        cfg = cfg.replace(capacity_factor=cfg.num_experts / cfg.top_k)
     bf16 = consistency(rt, cfg, params, *check_shape, impls)
-    print(f"[check] {cfg.name} bf16 B={check_shape[0]} S={check_shape[1]}, reported "
-          + json.dumps(bf16))
+    print(f"[check] {cfg.name} bf16 {cfg.num_layers} layers B={check_shape[0]} "
+          f"S={check_shape[1]}, reported " + json.dumps(bf16))
     check(bf16.get("layer0_kv_equal", True), f"{cfg.name}: layer-0 k/v differ between impls")
     del params
     torch.cuda.empty_cache()
-    cfg32 = cfg.replace(compute_dtype="float32")
+    cfg32 = cfg.replace(compute_dtype="float32", num_layers=fp32_depth or cfg.num_layers)
     params32 = api.init_params(cfg32, 0)
     fp32 = consistency(rt, cfg32, params32, *check_shape, impls)
     del params32
     torch.cuda.empty_cache()
-    print(f"[check] {cfg.name} fp32, limit {FP32_TOL} " + json.dumps(fp32))
+    print(f"[check] {cfg.name} fp32 {cfg32.num_layers} layers, limit {FP32_TOL} "
+          + json.dumps(fp32))
     for key, val in fp32.items():
         check(val is True if isinstance(val, bool) else val < FP32_TOL,
               f"{cfg.name} fp32 {key}: {val}")
     return res["launches"]
+
+
+def ring_cache(rt):
+    """The windowed ring cache at full width: h2o-danube-3-4b with its window cut to
+    RING's, fp32 compute and fp32 caches, one ring of `window` slots against one full
+    cache, decoding the same tokens from empty caches; once the ring has wrapped
+    (step >= window) their logits must agree within FP32_TOL."""
+    torch, api, T = rt.torch, rt.api, rt.transformer
+    cfg = rt.get_config(RING["arch"]).replace(window=RING["window"], num_layers=RING["layers"],
+                                              compute_dtype="float32")
+    B, steps, w = RING["B"], RING["steps"], RING["window"]
+    params = api.init_params(cfg, 0)
+    toks = api.demo_batch(cfg, B, steps, seed=2)["tokens"]
+    ring = T.init_cache(cfg, B, steps, windowed=True, dtype=torch.float32, device=toks.device)
+    full = T.init_cache(cfg, B, steps, windowed=False, dtype=torch.float32, device=toks.device)
+    check(ring["k"].shape[2] == w and full["k"].shape[2] == steps,
+          f"ring {tuple(ring['k'].shape)}, full {tuple(full['k'].shape)}")
+    decode = rt.make_decode_step(cfg)
+    errs = []
+    for t in range(steps):
+        lr, ring = decode(params, ring, toks[:, t:t + 1], t)
+        lf, full = decode(params, full, toks[:, t:t + 1], t)
+        errs.append(rel(torch, lr, lf))
+    warm = max(errs[w:])
+    print(f"[ring] {cfg.name} window {w}, {cfg.num_layers} layers, B={B}, {steps} steps, fp32: "
+          f"ring vs full max rel {warm:.3e} from step {w} (before it {max(errs[:w]):.3e}), "
+          f"limit {FP32_TOL}")
+    check(warm < FP32_TOL, f"ring cache vs full cache: {warm}")
+    del params, ring, full
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -483,7 +602,7 @@ def main() -> int:
     sys.path.insert(0, str(src))
     import numpy as np
     import torch.nn.functional as F
-    from repro_torch.configs import get_config
+    from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as ms
@@ -491,7 +610,7 @@ def main() -> int:
     from repro_torch.launch.presets import StepSettings
     from repro_torch.launch.serve import BatchedServer, Request
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
-    from repro_torch.models import api
+    from repro_torch.models import api, transformer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -500,7 +619,8 @@ def main() -> int:
     rt = SimpleNamespace(torch=torch, np=np, api=api, get_config=get_config,
                          make_prefill_step=make_prefill_step,
                          make_decode_step=make_decode_step, StepSettings=StepSettings,
-                         BatchedServer=BatchedServer, Request=Request, counters=counters)
+                         BatchedServer=BatchedServer, Request=Request, counters=counters,
+                         ShapeSpec=ShapeSpec, transformer=transformer)
 
     # 1. device
     smi = nvidia_smi()
@@ -536,7 +656,12 @@ def main() -> int:
           f"{PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s fp32 (dense, 700 W)")
     for r in results:
         print("[kernel] " + json.dumps(r))
-    path = results[-len(PATH_SHAPES)]
+    path_results = dict(zip(PATH_SHAPES, results[-len(PATH_SHAPES):]))
+    # the kernels' line reports each K1 kernel at a main path's shape: the
+    # tensor-core one at chatglm3-6b's, the CUDA-core one at gemma3-4b's global layers
+    variant_path = {"tensor_core": path_results[PATH_SHAPES[0]],
+                    "cuda_core": path_results[PATH_SHAPES[6]]}
+    path = variant_path["tensor_core"]
     scans = [scan_case(torch, ms, ref, case, seed=200 + i)
              for i, case in enumerate(SCAN_CASES + SCAN_PATH_SHAPES)]
     for r in scans:
@@ -545,20 +670,30 @@ def main() -> int:
     print(f"[kernel] mamba_scan library_ms null: {SCAN_NO_LIBRARY}")
     torch.cuda.empty_cache()
 
-    # 4-6. the models at full width, one at a time
+    # 4-10. the models at full width, one at a time
     main_launches = {kname: 0 for kname in read_counts(counters)}
     for model in MODELS:
-        for kname, n in serve_model(rt, *model).items():
+        for kname, n in serve_model(rt, model).items():
             main_launches[kname] += n
 
-    # 7. results: launches are the main paths' (chatglm3-6b, falcon-mamba-7b, hymba-1.5b)
+    # 11. the ring cache
+    ring_cache(rt)
+
+    # 12. results: launches are the main paths' (every MODELS row's two prefills)
     print(f"[done] main-path launches {main_launches}")
+    variants = {v: dict(launches=main_launches[f"flash_attention/{v}"], case=r["case"],
+                        max_abs_err=r["max_abs_err"], bf16_steps=r["bf16_steps"],
+                        ms=r["kernel_ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                        bound_by=r["bound_by"], library_ms=r["library_ms"],
+                        tflops=r["tflops"])
+                for v, r in variant_path.items()}
     kernels = [dict(name="flash_attention", route="cuda", variant=path["variant"],
                     source="src/repro_torch/csrc/flash_attention.cu",
                     replaces="src/repro/kernels/flash_attention.py:30",
                     launches=main_launches["flash_attention"], max_abs_err=path["max_abs_err"],
                     ms=path["kernel_ms"], plain_ms=path["plain_ms"], bound_ms=path["bound_ms"],
-                    bound_by=path["bound_by"], library_ms=path["library_ms"]),
+                    bound_by=path["bound_by"], library_ms=path["library_ms"],
+                    variants=variants),
                dict(name="mamba_scan", route="cuda",
                     source="src/repro_torch/csrc/mamba_scan.cu",
                     replaces="src/repro/kernels/mamba_scan.py:24",

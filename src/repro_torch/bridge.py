@@ -11,8 +11,9 @@ Layouts:
 The reference keeps fp32 params and casts each to the compute dtype with
 `.astype(dt)` where it is used; the port casts once here (default: the
 compute dtype), which gives the same bits at every use; leaves the reference
-reads in fp32 (`ParamMeta.dtype`: the SSM's dt_bias, a_log, d_skip) stay
-fp32.
+reads in fp32 (`ParamMeta.dtype`: the SSM's dt_bias, a_log, d_skip, the MoE
+router, the q/k norms) stay fp32.  MoE expert weights keep their expert axis:
+layer i's `moe/w_gate` is the reference's `[i]`, an `[E, D, F]` tensor.
 """
 from __future__ import annotations
 

@@ -1,10 +1,19 @@
-"""Architecture registry.  Only the archs whose slice is ported are listed."""
+"""Architecture registry: every decoder-only arch of the reference's registry
+(whisper-tiny, the encoder-decoder, is not ported yet)."""
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeSpec, smoke_config
 from repro_torch.configs.chatglm3_6b import CONFIG as _chatglm3_6b
 from repro_torch.configs.falcon_mamba_7b import CONFIG as _falcon_mamba_7b
+from repro_torch.configs.gemma3_4b import CONFIG as _gemma3_4b
+from repro_torch.configs.h2o_danube3_4b import CONFIG as _h2o_danube3_4b
 from repro_torch.configs.hymba_1_5b import CONFIG as _hymba_1_5b
+from repro_torch.configs.llama3_405b import CONFIG as _llama3_405b
+from repro_torch.configs.mixtral_8x22b import CONFIG as _mixtral_8x22b
+from repro_torch.configs.qwen2_vl_2b import CONFIG as _qwen2_vl_2b
+from repro_torch.configs.qwen3_moe_235b_a22b import CONFIG as _qwen3_moe
 
-ARCHS = {cfg.name: cfg for cfg in (_chatglm3_6b, _falcon_mamba_7b, _hymba_1_5b)}
+ARCHS = {cfg.name: cfg for cfg in (
+    _falcon_mamba_7b, _mixtral_8x22b, _qwen3_moe, _chatglm3_6b, _llama3_405b,
+    _gemma3_4b, _h2o_danube3_4b, _hymba_1_5b, _qwen2_vl_2b)}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -12,11 +12,13 @@ token-0 steps also advance the other slots' SSM state (the reference's
 behaviour; its recurrent state has no position to mask by).  Neither kernel
 is on this path (as in the reference): decode attention is naive and the SSM
 decode step is one recurrence update.  The prefill step factory launches them.
+The vlm family serves text only here: a decode step with no `positions` turns
+every m-rope section by the token's position, as the reference's does.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
         --requests 4 --max-new 8            # full width, on the card
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
-        --smoke --device cpu                # archs: chatglm3-6b, falcon-mamba-7b, hymba-1.5b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \
+        --smoke --device cpu                # --arch: every decoder-only arch (--help)
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, smoke_config
+from repro_torch.configs import ARCHS, get_config, smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_decode_step
 from repro_torch.models import api as model_api
@@ -106,7 +108,7 @@ class BatchedServer:
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
     ap.add_argument("--smoke", action="store_true", help="reduced config")
     ap.add_argument("--device", default=None, help="default: cuda")
     ap.add_argument("--requests", type=int, default=4)
@@ -136,7 +138,7 @@ def main():
     print(f"[serve] {cfg.name} on {where}: {len(reqs)} requests, {total_tokens} tokens "
           f"in {dt:.2f}s ({total_tokens / dt:.1f} tok/s)")
     for r in reqs[:2]:
-        print(f"  req {r.rid}: {list(r.prompt[:4])}... -> {r.generated[:8]}")
+        print(f"  req {r.rid}: {r.prompt[:4].tolist()}... -> {r.generated[:8]}")
 
 
 if __name__ == "__main__":

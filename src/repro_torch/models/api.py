@@ -38,12 +38,39 @@ def prefill(cfg, params, batch, *, attn_impl="auto", cache_len=None):
 
 
 def decode_step(cfg, params, cache, tokens, pos: int, *, positions=None):
+    """`positions` overrides the rope ids: [B,1], or [3,B,1] for m-rope."""
     return transformer.decode_step(cfg, params, cache, tokens, pos,
                                    positions=positions)
 
 
+def n_image_patches(cfg, seq_len: int) -> int:
+    """Patch count of the vlm family's stub frontend for a sequence of `seq_len`."""
+    return min(1024, max(1, seq_len // 4))
+
+
+def cache_specs(cfg, shape, dtype=torch.bfloat16):
+    """The decode cache's `CacheSpec`s (shape, dtype) for a `ShapeSpec`: a
+    stacked dict, or a per-layer list for a windowed cache whose layers have
+    different windows (`transformer.cache_specs`)."""
+    return transformer.cache_specs(cfg, shape.global_batch, shape.seq_len,
+                                   windowed=shape.windowed_cache, dtype=dtype)
+
+
 def demo_batch(cfg, batch_size: int, seq_len: int, seed: int = 0, *, device=None):
-    """{"tokens": [B, S] int64} drawn with numpy from `seed`."""
+    """{"tokens": [B, S] int64} drawn with numpy from `seed`.  For the vlm
+    family, S - n_image_patches tokens after {"patch_embeds": [B, P, D] fp32}
+    (standard normal), and {"positions": [3, B, S]}: 0..S-1 on each axis."""
     rng = np.random.default_rng(seed)
-    tokens = rng.integers(0, cfg.vocab_size, (batch_size, seq_len), dtype=np.int64)
-    return {"tokens": torch.from_numpy(tokens).to(resolve_device(device))}
+    device = resolve_device(device)
+    batch = {}
+    n_tok = seq_len
+    if cfg.family == "vlm":
+        n_img = n_image_patches(cfg, seq_len)
+        n_tok = seq_len - n_img
+        patches = rng.standard_normal((batch_size, n_img, cfg.d_model), dtype=np.float32)
+        batch["patch_embeds"] = torch.from_numpy(patches).to(device)
+        batch["positions"] = torch.arange(seq_len, dtype=torch.int32, device=device).expand(
+            3, batch_size, seq_len)
+    tokens = rng.integers(0, cfg.vocab_size, (batch_size, n_tok), dtype=np.int64)
+    batch["tokens"] = torch.from_numpy(tokens).to(device)
+    return batch

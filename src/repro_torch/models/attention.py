@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 from torch.profiler import record_function
 
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, rms_norm_head
 from repro_torch.models.meta import ParamMeta
 
 NEG_INF = -1e30
@@ -31,12 +31,16 @@ def largest_divisor_leq(n: int, cap: int) -> int:
 
 def attention_meta(cfg):
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
-    return {
+    m = {
         "wq": ParamMeta((d, qd), ("embed", "heads")),
         "wk": ParamMeta((d, kvd), ("embed", "kv_heads")),
         "wv": ParamMeta((d, kvd), ("embed", "kv_heads")),
         "wo": ParamMeta((qd, d), ("heads", "embed")),
     }
+    if cfg.qk_norm:   # read in fp32 by `rms_norm_head`
+        m["q_norm"] = ParamMeta((cfg.head_dim,), (None,), init="ones", dtype="float32")
+        m["k_norm"] = ParamMeta((cfg.head_dim,), (None,), init="ones", dtype="float32")
+    return m
 
 
 def project_qkv(cfg, p, x_q, x_kv, positions_q, positions_kv):
@@ -48,6 +52,9 @@ def project_qkv(cfg, p, x_q, x_kv, positions_q, positions_kv):
     q = (x_q @ p["wq"].to(dt)).reshape(B, Sq, H, Dh)
     k = (x_kv @ p["wk"].to(dt)).reshape(B, Skv, K, Dh)
     v = (x_kv @ p["wv"].to(dt)).reshape(B, Skv, K, Dh)
+    if cfg.qk_norm:
+        q = rms_norm_head(q, p["q_norm"])
+        k = rms_norm_head(k, p["k_norm"])
     if positions_q is not None:
         q = apply_rope(cfg, q, positions_q)
     if positions_kv is not None:
@@ -146,27 +153,34 @@ def attend(cfg, q, k, v, *, causal=True, window=0, q_offset=0, impl="auto",
 
 def decode_attention(cfg, p, x, cache_k, cache_v, pos: int, *, window=0,
                      windowed_cache=False, positions=None):
-    """One-token self-attention against a full-length KV cache.
+    """One-token self-attention against a KV cache.
 
-    x [B, 1, D]; pos the current position (int); cache_k/v [B, Sc, K, Dh].
+    x [B, 1, D]; pos the current position (int); cache_k/v [B, Sc, K, Dh], Sc
+    the full length or, with `windowed_cache`, the window (a ring buffer).
+    `positions` overrides the rope ids ([B, 1], or [3, B, 1] for m-rope).
     Writes the new key and value into the caches IN PLACE at slot `pos`
-    (the reference returns updated copies and donates the old buffers) and
-    returns (out [B,1,D], cache_k, cache_v).
+    (`pos % Sc` for the ring; the reference returns updated copies and
+    donates the old buffers) and returns (out [B,1,D], cache_k, cache_v).
     """
-    if windowed_cache:
-        raise NotImplementedError("windowed ring cache arrives with the SWA item of "
-                                  "ROADMAP slice 2")
     with record_function("attn_decode"):
         dt = x.dtype
-        B = x.shape[0]
+        B, Sc = x.shape[0], cache_k.shape[1]
         if positions is None:
             positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
         q, k_new, v_new = project_qkv(cfg, p, x, x, positions, positions)
-        cache_k[:, pos] = k_new[:, 0].to(cache_k.dtype)
-        cache_v[:, pos] = v_new[:, 0].to(cache_v.dtype)
-        # slot index == absolute position, so causal + window masking with
-        # q_offset=pos covers validity too (k_idx <= pos)
-        out = attend_naive(cfg, q, cache_k.to(dt), cache_v.to(dt),
-                           causal=True, window=window, q_offset=pos)
+        slot = pos % Sc if windowed_cache else pos
+        cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[:, slot] = v_new[:, 0].to(cache_v.dtype)
+        if windowed_cache:
+            # ring buffer: once warm every slot holds a key inside the window
+            # (keys carry their rope, so slot order does not matter); before
+            # that, the slots past pos are masked as not yet written
+            out = attend_naive(cfg, q, cache_k.to(dt), cache_v.to(dt), causal=False,
+                               window=None, kv_valid_len=min(pos + 1, Sc))
+        else:
+            # slot index == absolute position, so causal + window masking
+            # with q_offset=pos covers validity too (k_idx <= pos)
+            out = attend_naive(cfg, q, cache_k.to(dt), cache_v.to(dt),
+                               causal=True, window=window, q_offset=pos)
         y = out.reshape(B, 1, -1) @ p["wo"].to(dt)
         return y, cache_k, cache_v

@@ -1,4 +1,4 @@
-"""Shared model layers: rmsnorm, RoPE (standard/partial), SwiGLU, embeddings.
+"""Shared model layers: rmsnorm, RoPE (standard/partial/m-rope), GLU MLPs, embeddings.
 
 Conventions (as in the reference `repro.models.layers`):
   * the residual stream is `compute_dtype`; norm statistics and softmax in fp32.
@@ -36,8 +36,15 @@ def apply_norm(cfg, p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return x * torch.rsqrt(ms + eps).to(dtype) * p["scale"].to(dtype)
 
 
+def rms_norm_head(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Per-head q/k RMSNorm (qwen3), all in fp32 as in the reference."""
+    xf = x.float()
+    ms = torch.square(xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
 # --------------------------------------------------------------------------
-# rotary position embeddings (standard / partial)
+# rotary position embeddings (standard / partial / m-rope)
 # --------------------------------------------------------------------------
 
 def _rope_angles(positions: torch.Tensor, n_freq: int, theta: float) -> torch.Tensor:
@@ -52,18 +59,39 @@ def _rotate_half(x, cos, sin):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def apply_rope(cfg, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    """Rotate the first `rope_fraction` of head_dim, half-split (not interleaved).
+def _mrope_angles(cfg, positions: torch.Tensor, dh: int) -> torch.Tensor:
+    """M-RoPE: `mrope_sections` (t, h, w) split the head_dim/2 frequencies, and
+    section i takes its angles from positions[i].  positions [3, B, S] ->
+    angles [B, S, head_dim/2] (fp32)."""
+    sections = cfg.mrope_sections
+    if sum(sections) != dh // 2:
+        raise ValueError(f"mrope sections {sections} do not sum to head_dim/2 = {dh // 2}")
+    parts, start = [], 0
+    for axis, sec in enumerate(sections):
+        freq = torch.arange(start, start + sec, dtype=torch.float32, device=positions.device)
+        inv = cfg.rope_theta ** (-2.0 * freq / dh)
+        parts.append(positions[axis].to(torch.float32)[..., None] * inv)
+        start += sec
+    return torch.cat(parts, dim=-1)
 
-    x [B, S, H, Dh]; positions [B, S] int.  cos/sin are cast to x's dtype
-    before the products, as in the reference.
+
+def apply_rope(cfg, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Rotate the first `rope_fraction` of head_dim (all of it for m-rope),
+    half-split (not interleaved).
+
+    x [B, S, H, Dh]; positions [B, S] int, or [3, B, S] for m-rope.  cos/sin
+    are cast to x's dtype before the products, as in the reference.
     """
     if cfg.rope == "none":
         return x
     dh = x.shape[-1]
-    rot = int(dh * cfg.rope_fraction)
-    rot -= rot % 2
-    angles = _rope_angles(positions, rot // 2, cfg.rope_theta)
+    if cfg.rope == "mrope":
+        angles = _mrope_angles(cfg, positions, dh)
+        rot = dh
+    else:
+        rot = int(dh * cfg.rope_fraction)
+        rot -= rot % 2
+        angles = _rope_angles(positions, rot // 2, cfg.rope_theta)
     cos = torch.cos(angles)[..., None, :].to(x.dtype)   # [B,S,1,n_freq]
     sin = torch.sin(angles)[..., None, :].to(x.dtype)
     if rot == dh:
@@ -72,7 +100,7 @@ def apply_rope(cfg, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# MLP (SwiGLU)
+# MLP (gated: SwiGLU, GeGLU)
 # --------------------------------------------------------------------------
 
 def mlp_meta(cfg):
@@ -84,10 +112,16 @@ def mlp_meta(cfg):
     }
 
 
+def act(cfg, x: torch.Tensor) -> torch.Tensor:
+    """silu, or gelu as the reference's `jax.nn.gelu` computes it by default:
+    the tanh approximation (torch's default is the exact erf form)."""
+    return F.silu(x) if cfg.act == "silu" else F.gelu(x, approximate="tanh")
+
+
 def apply_mlp(cfg, p, x: torch.Tensor) -> torch.Tensor:
     with record_function("mlp"):
         dt = x.dtype
-        h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
+        h = act(cfg, x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
         return h @ p["w_down"].to(dt)
 
 

@@ -82,9 +82,6 @@ def apply_ssm(cfg, p, x, *, return_state=False):
     inputs of the conv in fp32 (zeros before the sequence's start) and the
     scan's final state, from the same kernel launch as `out`.
     """
-    if cfg.ssm_inloop:
-        raise NotImplementedError("ssm_inloop needs an initial-state input to the scan "
-                                  "kernel (ROADMAP queue 2, K2 follow-ups)")
     with record_function("ssm"):
         dt = x.dtype
         x_in, z = (x @ p["in_proj"].to(dt)).chunk(2, dim=-1)

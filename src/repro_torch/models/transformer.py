@@ -1,17 +1,20 @@
-"""Decoder-LM assembly for the dense, ssm and hybrid families: params,
-forward, prefill, decode.
+"""Decoder-LM assembly for the dense, moe, ssm, hybrid and vlm families:
+params, forward, prefill, decode.
 
 The reference runs layers under `lax.scan` over stacked parameters with the
 per-layer windows as traced scan inputs.  Here layers are a Python list of
 per-layer dicts and a Python loop runs them, so each window is a plain int
 (which is also what lets the flash kernel take it as a launch argument).
-The decode cache keeps the reference's stacked layout: {k, v: [L,B,Sc,K,Dh]}
-for attention layers, {conv: [L,B,d_conv-1,Di], ssm: [L,B,Di,N]} (fp32) for
-Mamba layers, both for hybrid; decode writes it in place.
+The decode cache keeps the reference's layouts: a stacked dict {k, v:
+[L,B,Sc,K,Dh]} for attention layers, {conv: [L,B,d_conv-1,Di], ssm:
+[L,B,Di,N]} (fp32) for Mamba layers, both for hybrid; or, for a windowed
+cache whose layers have different windows (gemma3, hymba), a list of one
+such dict per layer without the L axis.  A layer whose cache is exactly its
+window long is a ring buffer.  Decode writes the cache in place.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -19,25 +22,31 @@ from torch.profiler import record_function
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 def check_supported(cfg) -> None:
-    """Raise for what the port has not ported yet, naming its ROADMAP slice."""
-    if cfg.family not in ("dense", "ssm", "hybrid"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                                  "(ROADMAP slice 2)")
+    """Raise for what the port has not ported yet, naming its ROADMAP item."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(f"{cfg.name}: family 'encdec' not ported yet "
+                                  "(ROADMAP slice 2, encdec)")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     unported = [name for name, on in (
-        ("sandwich norm", cfg.sandwich_norm),
-        ("qk norm", cfg.qk_norm),
         (f"norm {cfg.norm!r}", cfg.norm != "rmsnorm"),
-        (f"mlp act={cfg.act!r} glu={cfg.glu}", cfg.act != "silu" or not cfg.glu),
-        (f"rope {cfg.rope!r}", cfg.rope not in ("standard", "partial", "none")),
+        (f"rope {cfg.rope!r}", cfg.rope == "learned"),
         ("tied embeddings", cfg.tie_embeddings),
+        ("glu=False mlp", not cfg.glu),
     ) if on]
     if unported:
         raise NotImplementedError(f"{cfg.name}: {', '.join(unported)} not ported yet "
-                                  "(ROADMAP slice 2)")
+                                  "(ROADMAP slice 2, encdec)")
+    if cfg.ssm_inloop and cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(f"{cfg.name}: ssm_inloop needs an initial-state input "
+                                  "to the scan kernel (ROADMAP queue 2, K2 follow-ups)")
 
 
 # --------------------------------------------------------------------------
@@ -48,9 +57,16 @@ def block_meta(cfg) -> Dict[str, Any]:
     if cfg.family == "ssm":
         return {"norm1": L.norm_meta(cfg), "ssm": ssm_mod.ssm_meta(cfg)}
     m = {"norm1": L.norm_meta(cfg), "attn": attn_mod.attention_meta(cfg),
-         "norm2": L.norm_meta(cfg), "mlp": L.mlp_meta(cfg)}
+         "norm2": L.norm_meta(cfg)}
+    if cfg.family == "moe":
+        m["moe"] = moe_mod.moe_meta(cfg)
+    else:
+        m["mlp"] = L.mlp_meta(cfg)
     if cfg.family == "hybrid":
         m["ssm"] = ssm_mod.ssm_meta(cfg)
+    if cfg.sandwich_norm:
+        m["post_norm1"] = L.norm_meta(cfg)
+        m["post_norm2"] = L.norm_meta(cfg)
     return m
 
 
@@ -77,11 +93,12 @@ def _ssm(cfg, p, h, cache):
 
 def apply_block(cfg, p, x, positions, window: int, *, attn_impl="auto",
                 collect_cache=False):
-    """One layer. Returns (x, cache_entry_or_None)."""
+    """One layer. Returns (x, aux, cache_entry_or_None); aux is the MoE's
+    load-balancing loss, None for the other families."""
     cache = {} if collect_cache else None
     h = L.apply_norm(cfg, p["norm1"], x)
     if cfg.family == "ssm":
-        return x + _ssm(cfg, p["ssm"], h, cache), cache
+        return x + _ssm(cfg, p["ssm"], h, cache), None, cache
     q, k, v = attn_mod.project_qkv(cfg, p["attn"], h, h, positions, positions)
     with record_function("attn"):
         out = attn_mod.attend(cfg, q, k, v, causal=True, window=window,
@@ -92,31 +109,55 @@ def apply_block(cfg, p, x, positions, window: int, *, attn_impl="auto",
     if cfg.family == "hybrid":
         # parallel attention and Mamba heads on the same normed input, mean-fused
         attn_out = 0.5 * (attn_out + _ssm(cfg, p["ssm"], h, cache))
-    x = x + attn_out
-    h2 = L.apply_norm(cfg, p["norm2"], x)
-    x = x + L.apply_mlp(cfg, p["mlp"], h2)
-    return x, cache
+    x = _residual(cfg, p, "post_norm1", x, attn_out)
+    ff, aux = _ffn(cfg, p, L.apply_norm(cfg, p["norm2"], x))
+    return _residual(cfg, p, "post_norm2", x, ff), aux, cache
+
+
+def _residual(cfg, p, post_norm, x, y):
+    """x + y; with gemma3's sandwich norm, y is normed first by `post_norm`."""
+    if cfg.sandwich_norm:
+        y = L.apply_norm(cfg, p[post_norm], y)
+    return x + y
+
+
+def _ffn(cfg, p, h):
+    """The layer's feed-forward on the normed h: (MoE, its aux loss) or (MLP, None)."""
+    if cfg.family == "moe":
+        return moe_mod.apply_moe(cfg, p["moe"], h)
+    return L.apply_mlp(cfg, p["mlp"], h), None
 
 
 def apply_layers(cfg, layers, x, positions, *, attn_impl="auto",
                  collect_cache=False):
-    """Loop over layers. Returns (x, stacked cache or None): {k, v: [L,B,S,K,Dh]}
-    and/or {conv: [L,B,d_conv-1,Di], ssm: [L,B,Di,N]}, by family."""
+    """Loop over layers. Returns (x, aux summed over layers, stacked cache or
+    None): {k, v: [L,B,S,K,Dh]} and/or {conv: [L,B,d_conv-1,Di], ssm: [L,B,Di,N]}."""
     entries = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, window in zip(layers, cfg.layer_windows()):
         with record_function("layer"):
-            x, entry = apply_block(cfg, p, x, positions, window,
-                                   attn_impl=attn_impl,
-                                   collect_cache=collect_cache)
+            x, a, entry = apply_block(cfg, p, x, positions, window,
+                                      attn_impl=attn_impl,
+                                      collect_cache=collect_cache)
+        if a is not None:
+            aux = aux + a
         entries.append(entry)
     if not collect_cache:
-        return x, None
-    return x, {name: torch.stack([e[name] for e in entries]) for name in entries[0]}
+        return x, aux, None
+    return x, aux, {name: torch.stack([e[name] for e in entries]) for name in entries[0]}
 
 
 def embed_inputs(cfg, params, batch):
-    """Returns (x [B,S,D], positions [B,S])."""
+    """Returns (x [B,S,D], positions): [B,S], or for the vlm family the
+    batch's [3,B,S] m-rope ids, with the patch embeddings in front of the
+    token embeddings."""
     tokens = batch["tokens"]
+    if cfg.family == "vlm":
+        patches = batch["patch_embeds"].to(getattr(torch, cfg.compute_dtype))
+        tok_x = L.embed_tokens(cfg, params["embed"], tokens)
+        with record_function("vision_stub"):
+            x = torch.cat([patches, tok_x], dim=1)
+        return x, batch["positions"]
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
@@ -124,13 +165,12 @@ def embed_inputs(cfg, params, batch):
 
 
 def forward(cfg, params, batch, *, attn_impl="auto"):
-    """Full forward to logits. Returns (logits [B,S,V], aux_loss) — aux is 0
-    for the ported families (only MoE has one)."""
+    """Full forward to logits. Returns (logits [B,S,V], aux_loss): the sum of
+    the MoE layers' load-balancing losses, 0 for the other families."""
     check_supported(cfg)
     x, positions = embed_inputs(cfg, params, batch)
-    x, _ = apply_layers(cfg, params["layers"], x, positions, attn_impl=attn_impl)
+    x, aux, _ = apply_layers(cfg, params["layers"], x, positions, attn_impl=attn_impl)
     x = L.apply_norm(cfg, params["final_norm"], x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return L.logits_head(cfg, params["embed"], x), aux
 
 
@@ -138,43 +178,83 @@ def forward(cfg, params, batch, *, attn_impl="auto"):
 # decode
 # --------------------------------------------------------------------------
 
+class CacheSpec(NamedTuple):
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def uniform_cache(cfg, windowed: bool) -> bool:
+    """True when every layer keeps one KV length: the cache is one stacked dict."""
+    return cfg.family == "ssm" or not windowed or len(set(cfg.layer_windows())) == 1
+
+
+def cache_specs(cfg, batch_size: int, seq_len: int, *, windowed: bool,
+                dtype=torch.bfloat16):
+    """The decode cache's layout as `CacheSpec`s, in the reference's structure:
+    a stacked dict when `uniform_cache`, else a list of per-layer dicts.  k/v
+    take `dtype` and are `seq_len` long, or min(seq_len, window) on a layer
+    with a window when `windowed`; the SSM state is fp32."""
+    check_supported(cfg)
+    windows, f32 = cfg.layer_windows(), torch.float32
+    K, Dh, Di, Ln = cfg.num_kv_heads, cfg.head_dim, cfg.d_inner, cfg.num_layers
+
+    def entry(window, lead):
+        e = {}
+        if cfg.family != "ssm":
+            sc = min(seq_len, window) if windowed and window > 0 else seq_len
+            e["k"] = e["v"] = CacheSpec(lead + (batch_size, sc, K, Dh), dtype)
+        if cfg.family in ("ssm", "hybrid"):
+            e["conv"] = CacheSpec(lead + (batch_size, cfg.d_conv - 1, Di), f32)
+            e["ssm"] = CacheSpec(lead + (batch_size, Di, cfg.ssm_state), f32)
+        return e
+
+    if uniform_cache(cfg, windowed):
+        return entry(windows[0], (Ln,))
+    return [entry(w, ()) for w in windows]
+
+
 def init_cache(cfg, batch_size: int, seq_len: int, *, windowed: bool,
                dtype=torch.bfloat16, device=None):
-    """Decode cache of zeros, stacked over layers: {k, v: [L,B,seq_len,K,Dh]}
-    in `dtype` for attention layers, {conv: [L,B,d_conv-1,Di], ssm: [L,B,Di,N]}
-    in fp32 for Mamba layers (both for hybrid)."""
-    check_supported(cfg)
-    cache = {}
-    if cfg.family != "ssm":
-        if windowed and any(w > 0 for w in cfg.layer_windows()):
-            raise NotImplementedError("windowed ring cache arrives with the SWA item of "
-                                      "ROADMAP slice 2")
-        shape = (cfg.num_layers, batch_size, seq_len, cfg.num_kv_heads, cfg.head_dim)
-        cache.update({name: torch.zeros(shape, dtype=dtype, device=device)
-                      for name in ("k", "v")})
-    if cfg.family in ("ssm", "hybrid"):
-        state = ssm_mod.init_ssm_state(cfg, batch_size, device=device)
-        cache.update({name: a[None].repeat(cfg.num_layers, *(1,) * a.ndim)
-                      for name, a in state.items()})
-    return cache
+    """Decode cache of zeros laid out by `cache_specs`."""
+    def zeros(entry):
+        return {name: torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+                for name, spec in entry.items()}
+
+    specs = cache_specs(cfg, batch_size, seq_len, windowed=windowed, dtype=dtype)
+    return zeros(specs) if isinstance(specs, dict) else [zeros(e) for e in specs]
 
 
 def decode_step(cfg, params, cache, tokens, pos: int, *, positions=None):
     """One decode step. tokens [B,1] -> (logits [B,1,V], cache).
 
-    `cache` is the stacked dict; each layer's slice is updated in place (its
-    keys and values at slot `pos`, its SSM state whole; the reference donates
-    the cache buffer and returns a new one) and the same dict is returned.
+    `cache` is the stacked dict or the per-layer list (`cache_specs`); each
+    layer's part is updated in place (its key and value at slot `pos`, or
+    `pos % window` in a ring, its SSM state whole; the reference donates the
+    cache buffer and returns a new one) and the same object is returned.
+    `positions` overrides the rope ids ([3,B,1] for m-rope).
     """
     check_supported(cfg)
     B = tokens.shape[0]
     if positions is None:
         positions = torch.full((B, 1), pos, dtype=torch.int32, device=tokens.device)
+        if cfg.rope == "mrope":
+            # the reference passes these [B,1] ids to its m-rope, which reads
+            # rows 0, 1 and 2 of them (clamped to row B-1 when B < 3): each row
+            # holds pos, so every section turns by pos, as [3,B,1] ids of pos do
+            positions = positions[None].expand(3, B, 1)
+    windows = cfg.layer_windows()
+    if isinstance(cache, dict):
+        entries = [{name: a[li] for name, a in cache.items()} for li in range(cfg.num_layers)]
+        # a ring only when the one shared window is exactly the cache's length
+        sc = cache["k"].shape[2] if "k" in cache else 0
+        rings = [len(set(windows)) == 1 and windows[0] > 0 and sc == windows[0]] * len(windows)
+    else:
+        entries = cache
+        rings = [w > 0 and "k" in e and e["k"].shape[1] == w for e, w in zip(cache, windows)]
     x = L.embed_tokens(cfg, params["embed"], tokens)
-    for li, (p, window) in enumerate(zip(params["layers"], cfg.layer_windows())):
+    for p, entry, window, ring in zip(params["layers"], entries, windows, rings):
         with record_function("layer"):
-            x = _decode_block(cfg, p, x, {name: a[li] for name, a in cache.items()},
-                              pos, window, positions)
+            x = _decode_block(cfg, p, x, entry, pos, window, positions, ring)
     x = L.apply_norm(cfg, params["final_norm"], x)
     return L.logits_head(cfg, params["embed"], x), cache
 
@@ -187,19 +267,20 @@ def _decode_ssm(cfg, p, h, entry):
     return y
 
 
-def _decode_block(cfg, p, x, entry, pos, window, positions):
-    """One layer's decode step; `entry` holds views of this layer's cache slices."""
+def _decode_block(cfg, p, x, entry, pos, window, positions, ring):
+    """One layer's decode step; `entry` holds this layer's cache tensors (views
+    of the stacked cache, or a per-layer list's own)."""
     h = L.apply_norm(cfg, p["norm1"], x)
     if cfg.family == "ssm":
         return x + _decode_ssm(cfg, p["ssm"], h, entry)
     attn_out, _, _ = attn_mod.decode_attention(cfg, p["attn"], h, entry["k"], entry["v"],
-                                               pos, window=window,
+                                               pos, window=window, windowed_cache=ring,
                                                positions=positions)
     if cfg.family == "hybrid":
         attn_out = 0.5 * (attn_out + _decode_ssm(cfg, p["ssm"], h, entry))
-    x = x + attn_out
-    h2 = L.apply_norm(cfg, p["norm2"], x)
-    return x + L.apply_mlp(cfg, p["mlp"], h2)
+    x = _residual(cfg, p, "post_norm1", x, attn_out)
+    ff, _ = _ffn(cfg, p, L.apply_norm(cfg, p["norm2"], x))
+    return _residual(cfg, p, "post_norm2", x, ff)
 
 
 # --------------------------------------------------------------------------
@@ -215,8 +296,8 @@ def prefill(cfg, params, batch, *, attn_impl="auto", cache_len=None):
     """
     check_supported(cfg)
     x, positions = embed_inputs(cfg, params, batch)
-    x, caches = apply_layers(cfg, params["layers"], x, positions,
-                             attn_impl=attn_impl, collect_cache=True)
+    x, _, caches = apply_layers(cfg, params["layers"], x, positions,
+                                attn_impl=attn_impl, collect_cache=True)
     x = L.apply_norm(cfg, params["final_norm"], x[:, -1:])
     logits = L.logits_head(cfg, params["embed"], x)
     return logits, _pad_kv(caches, cache_len)

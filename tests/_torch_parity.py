@@ -67,3 +67,56 @@ def scan_inputs(seed, B, S, Di, N):
     bx = (rng.standard_normal((B, S, Di, N)) * 0.1).astype(np.float32)
     c = rng.standard_normal((B, S, N)).astype(np.float32)
     return a, bx, c
+
+
+# --------------------------------------------------------------------------
+# whole models: the reference's seed-0 smoke weights in both packages
+# (jax is imported inside these, so the card-only tests can import this file)
+# --------------------------------------------------------------------------
+
+def model_pair(arch, dtype, **change):
+    """(port cfg, reference cfg, reference params, port params): the smoke config
+    of `arch` in `dtype` with `change`, and the reference's seed-0 weights bridged."""
+    import jax
+    from repro.configs import ARCHS
+    from repro.configs import smoke_config as jax_smoke
+    from repro.models import api as jax_api
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.configs import get_config, smoke_config
+
+    cfg = smoke_config(get_config(arch)).replace(compute_dtype=dtype, **change)
+    jcfg = jax_smoke(ARCHS[arch]).replace(compute_dtype=dtype, **change)
+    jp = jax_api.init_params(jcfg, 0)
+    return cfg, jcfg, jp, params_from_jax(jax.tree.map(np.array, jp), cfg, device="cpu")
+
+
+def batch_pair(cfg, B, S, seed=0):
+    """One numpy-seeded batch of S positions for both packages, as (port batch,
+    reference batch); a vlm batch has patch embeddings and [3, B, S] positions."""
+    import jax.numpy as jnp
+    from repro_torch.models import api
+
+    batch = api.demo_batch(cfg, B, S, seed, device="cpu")
+    jbatch = {k: jnp.asarray(v.numpy().astype(np.int32) if k != "patch_embeds"
+                             else v.numpy()) for k, v in batch.items()}
+    return batch, jbatch
+
+
+def n_patches(batch) -> int:
+    return batch["patch_embeds"].shape[1] if "patch_embeds" in batch else 0
+
+
+def prefix(batch, n):
+    """The batch's first n positions (n past the patches, for a vlm batch)."""
+    out = dict(batch, tokens=batch["tokens"][:, :n - n_patches(batch)])
+    if "positions" in batch:
+        out["positions"] = batch["positions"][:, :, :n]
+    return out
+
+
+def step_at(batch, i):
+    """(token [B, 1] at sequence position i, decode kwargs: the [3, B, 1]
+    m-rope ids of a vlm batch)."""
+    t = i - n_patches(batch)
+    kw = {"positions": batch["positions"][:, :, i:i + 1]} if "positions" in batch else {}
+    return batch["tokens"][:, t:t + 1], kw

@@ -183,3 +183,60 @@ def test_model_prefill_launches_the_scan_once_per_layer_on_card(arch):
     dec, _ = api.decode_step(cfg, p, cache, batch["tokens"][:, -1:], 39)
     scale = float(full[:, -1].abs().max())
     assert float((dec[:, 0] - full[:, -1]).abs().max()) / scale < 2e-5
+
+
+# the new serving paths' K1 shapes, cut in batch and heads to keep the plain
+# version small: B, H, K, S, D, window.  danube's head dim 120 is read unpadded
+# (TMA fills the tile's rest with zeros); its and mixtral's window of 4096 masks
+# only past S = 4096; gemma3's head dim 256 runs the CUDA-core kernel in bf16
+PATH_CASES = [
+    (1, 8, 2, 4352, 120, 4096),     # h2o-danube-3-4b
+    (1, 6, 1, 4352, 128, 4096),     # mixtral-8x22b
+    (1, 8, 4, 2048, 256, 1024),     # gemma3-4b, local layers
+    (1, 8, 4, 2048, 256, 0),        # gemma3-4b, global layers
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,K,S,D,window", PATH_CASES)
+def test_new_path_shapes_meet_the_path_limits(B, H, K, S, D, window):
+    """bf16, causal, model layout: max abs < 1e-2 and every element within two
+    bf16 rounding steps of the plain version, on the kernel `kernel_for` names."""
+    _need_card()
+    (q, _), (k, _), (v, _) = qkv(S + D + window, B, H, K, S, S, D, "bfloat16")
+    q, k, v = (t.cuda().transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    kernel = fa.kernel_for(torch.bfloat16, D)
+    assert kernel == ("cuda_core" if D > 128 else "tensor_core")
+    before = dict(fa.kernel_launches)
+    out = fa.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert fa.kernel_launches == dict(before, **{kernel: before[kernel] + 1})
+    ref = flash_attention_ref(q, k, v, causal=True, window=window)
+    assert _bf16_within_two_steps(out, ref)
+    assert max_abs_err(to_np(out), to_np(ref)) < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "gemma3-4b", "qwen2-vl-2b",
+                                  "mixtral-8x22b", "qwen3-moe-235b-a22b", "llama3-405b"])
+def test_new_arch_prefill_launches_k1_once_per_layer_on_card(arch):
+    """The smoke config's flash prefill: in bf16, one K1 launch per layer, all on
+    the kernel `kernel_for` names for its head dim; in fp32 compute, logits within
+    2e-5 of the naive prefill's.  (In bf16 the two prefills' rounding can tip a
+    MoE router's choice or drop, a discrete difference; fp32 holds them all.)"""
+    _need_card()
+    for dtype in ("bfloat16", "float32"):
+        cfg = smoke_config(get_config(arch)).replace(compute_dtype=dtype)
+        p = api.init_params(cfg, 0)
+        batch = api.demo_batch(cfg, 2, 80)
+        kernel = fa.kernel_for(getattr(torch, dtype), cfg.head_dim)
+        before = fa.launches, dict(fa.kernel_launches)
+        lg, _ = api.prefill(cfg, p, batch, attn_impl="flash", cache_len=96)
+        torch.cuda.synchronize()
+        assert fa.launches == before[0] + cfg.num_layers
+        assert fa.kernel_launches == dict(before[1],
+                                          **{kernel: before[1][kernel] + cfg.num_layers})
+        assert bool(torch.isfinite(lg).all())
+    ref_lg, _ = api.prefill(cfg, p, batch, attn_impl="naive", cache_len=96)
+    scale = float(ref_lg.abs().max())
+    assert float((lg - ref_lg).abs().max()) / scale < 2e-5

@@ -1,4 +1,6 @@
-"""The port's serving slice vs the reference on smoke chatglm3-6b, same weights.
+"""The port's serving path vs the reference on smoke configs, same weights:
+chatglm3-6b's flash prefill and decode, and every decoder-only arch's
+`BatchedServer` tokens.
 
 The port's prefill runs with attn_impl="flash" (on the CPU, the kernel's
 plain version) and is held against the reference's prefill with
@@ -31,7 +33,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch import serve
 from repro_torch.launch.presets import StepSettings
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
-from repro_torch.models import api, transformer
+from repro_torch.models import api
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = {"float32": 2e-5, "bfloat16": 0.02}
@@ -152,10 +154,30 @@ def test_batched_server_greedy_tokens_match_reference_ssm_families(arch):
     _server_greedy_tokens_match_reference(arch)
 
 
-def _server_greedy_tokens_match_reference(arch):
+@pytest.mark.parametrize("arch,max_batch", [
+    ("h2o-danube-3-4b", 2), ("gemma3-4b", 2), ("llama3-405b", 2), ("mixtral-8x22b", 2),
+    ("qwen3-moe-235b-a22b", 2), ("qwen2-vl-2b", 2), ("qwen2-vl-2b", 4)])
+def test_batched_server_greedy_tokens_match_reference_decoder_families(arch, max_batch):
+    """The same check for the other decoder-only archs.  The MoE decode step
+    routes each token alone (groups of one), so nothing is dropped; qwen2-vl
+    decodes with no positions, which both packages turn into m-rope ids of the
+    position on every axis, with fewer slots than rows of ids (2) and more (4).
+
+    The MoE archs' logit limit is 2e-3: the server's cache is bf16 (in both
+    packages) under fp32 compute, and a value whose fp32 results differ by
+    rounding between the packages rounded to neighbouring bf16 values in their
+    runs (mixtral: one element of layer 1's v, 1.78125 against 1.7890625),
+    which moved the later logits by up to 8.8e-4.  Equal tokens still follow
+    from the margin check."""
+    moe = get_config(arch).family == "moe"
+    _server_greedy_tokens_match_reference(arch, max_batch, logit_tol=2e-3 if moe else 1e-4)
+
+
+def _server_greedy_tokens_match_reference(arch, max_batch=2, logit_tol=1e-4):
     """3 requests through 2 slots, fp32: the same greedy tokens as the reference.
 
-    The logits must agree within LOGIT_TOL at every call, and at every
+    The logits must agree within LOGIT_TOL (1e-4 unless the caller says
+    otherwise) at every call, and at every
     choice the reference's top-1/top-2 margin must exceed 2 * LOGIT_TOL, which
     makes equal argmaxes a consequence of the logit bound.  At a near-tie
     (margin <= 2 * LOGIT_TOL) the greedy tokens are not comparable: the test
@@ -164,18 +186,18 @@ def _server_greedy_tokens_match_reference(arch):
     size of a typical top-2 margin here (bf16 logits are held by
     `test_flash_prefill_and_decode_match_reference`).
     """
-    LOGIT_TOL = 1e-4
+    LOGIT_TOL = logit_tol
     cfg, jcfg, jp, p = _setup("float32", arch)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, 4) for _ in range(3)]
 
-    jsrv = jax_serve.BatchedServer(jcfg, jp, max_batch=2, cache_len=32)
+    jsrv = jax_serve.BatchedServer(jcfg, jp, max_batch=max_batch, cache_len=32)
     jcalls = _record_logits(jsrv, lambda a: np.asarray(a, np.float32))
     jreqs = [jax_serve.Request(i, pr.astype(np.int32), 4) for i, pr in enumerate(prompts)]
     decisions = []
     _drive(jsrv, jreqs, decisions, jcalls)
 
-    srv = serve.BatchedServer(cfg, p, max_batch=2, cache_len=32)
+    srv = serve.BatchedServer(cfg, p, max_batch=max_batch, cache_len=32)
     calls = _record_logits(srv, to_np)
     reqs = [serve.Request(i, pr, 4) for i, pr in enumerate(prompts)]
     _drive(srv, reqs)
@@ -210,12 +232,6 @@ def test_reference_pallas_prefill_raises():
     batch = {"tokens": jnp.zeros((1, 8), jnp.int32)}
     with pytest.raises(jax.errors.TracerBoolConversionError):
         jax_api.prefill(jcfg, jp, batch, attn_impl="pallas")
-
-
-def test_windowed_ring_cache_is_not_ported_yet():
-    cfg = smoke_config(get_config("chatglm3-6b")).replace(window=8)
-    with pytest.raises(NotImplementedError, match="ring cache"):
-        transformer.init_cache(cfg, 1, 8, windowed=True, device="cpu")
 
 
 def test_entry_points_never_drift_to_the_cpu():
