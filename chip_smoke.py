@@ -13,12 +13,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                K1 flash_attention: path-shape max abs error 1e-2 (chatglm3-6b's;
                hymba-1.5b's with windows 1024 and 0; h2o-danube-3-4b's at head dim
                120 and mixtral-8x22b's, both with window 4096; gemma3-4b's at head
-               dim 256, on the CUDA-core kernel, with windows 1024 and 0;
-               qwen2-vl-2b's), bf16 outputs element by element within two bf16
-               rounding steps; each case names the kernel that ran (tensor_core:
-               bf16 with head dim <= 128; cuda_core: the rest) and its achieved
-               TFLOP/s; the plain version of the largest shapes runs one (batch, KV
-               head) slice at a time
+               dim 256 with windows 1024 and 0; qwen2-vl-2b's; head dim 192, which
+               TMA zero-pads to 256), bf16 outputs element by element within two
+               bf16 rounding steps; each case names the kernel that ran
+               (tensor_core: bf16; cuda_core: fp32, also at the shape of gemma3-4b's
+               fp32 check) and its achieved TFLOP/s; the plain version of the
+               largest shapes runs one (batch, KV head) slice at a time
                K2 mamba_scan: max abs error 1e-4 for y and the final state, at the
                reference's cases and falcon-mamba-7b's and hymba-1.5b's shapes
   4-10. the models at full width with seed-0 random bf16 weights, one table row
@@ -39,15 +39,17 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                7. h2o-danube-3-4b (dense, 24 layers, window 4096, head dim 120):
                   2 x 8192, 24 tensor-core K1; checks at 1 x 4352
                8. gemma3-4b (dense, 34 layers, sandwich norm, GeGLU, windows of 1024
-                  with every sixth layer global, head dim 256): 4 x 2048, 34 CUDA-core
-                  K1 and no tensor-core K1; checks at 2 x 2048
+                  with every sixth layer global, head dim 256): 4 x 2048, 34 tensor-core
+                  K1 and no CUDA-core K1; checks at 2 x 2048
                9. qwen2-vl-2b (vlm, 28 layers, m-rope): 4 x 2048 of which 512 patch
                   embeddings, 28 tensor-core K1
                10. mixtral-8x22b (moe, 8 of its 56 layers, 8 experts top-2, window
                   4096): 2 x 8192, 8 tensor-core K1; checks at 1 x 4352, fp32 at 2 layers
   11. ring    — h2o-danube-3-4b at full width, window cut to 64, 2 layers: ring-cache
                decode against full-cache decode for 80 steps, fp32 (< 2e-5 once wrapped)
-  12. a JSON line of every ported kernel (K1 also by kernel), then the JSON result line.
+  12. a JSON line of every ported kernel (K1 also by kernel: the tensor-core one at
+               chatglm3-6b's and gemma3-4b's global shapes, the CUDA-core one at
+               gemma3-4b's fp32 check's), then the JSON result line.
 Each model's weights are freed before the next model is built.  Without a CUDA
 device, or outside a checkout of the repo, it exits non-zero and prints no result.
 """
@@ -73,8 +75,7 @@ BF16_STEP, BF16_FLOOR, BF16_MAX_STEPS = 2.0 ** -7, 1e-5, 2.0
 # layout (chatglm3-6b's prefill of 4 x 1024; hymba-1.5b's of 4 x 2048 with its
 # windowed and global layers; h2o-danube-3-4b's 2 x 8192 at head dim 120 and
 # mixtral-8x22b's, both with a window of 4096; gemma3-4b's 4 x 2048 at head dim
-# 256, on the CUDA-core kernel, with its local and global layers; qwen2-vl-2b's
-# 4 x 2048), and the reference's FLASH_CASES (tests/test_kernels.py) with their
+# 256, with its local and global layers; qwen2-vl-2b's 4 x 2048), and the reference's FLASH_CASES (tests/test_kernels.py) with their
 # tolerances.  The path shapes' max abs limit is set from their readings: error
 # 0.0039 (one bf16 step at values in [0.5, 1)) against a median |output| of
 # ~0.05 at chatglm3-6b's
@@ -97,9 +98,14 @@ FLASH_CASES = [
     (1, 4, 4, 128, 128, True, 0, "bfloat16", 3e-2),
     (1, 2, 2, 384, 128, True, 128, "bfloat16", 3e-2),
 ]
-# bf16 with a head dim above 128 runs the CUDA-core kernel (gemma3-4b's path shapes
-# above), here at the reference's small size
+# bf16 with a head dim above 128 runs the tensor-core kernel at 64 keys a KV tile
+# (gemma3-4b's path shapes above): at the reference's small size, and at head dim
+# 192 (TMA zero-pads it to 256 in shared memory) in the model layout, with S not a
+# multiple of 64 and a window edge inside a tile, at the path limit
 BF16_WIDE_CASE = (1, 4, 2, 256, 256, True, 0, "bfloat16", 3e-2)
+BF16_PAD_CASE = (2, 8, 4, 1000, 192, True, 300, "bfloat16", 1e-2)
+# fp32 runs the CUDA-core kernel: gemma3-4b's global layers at its fp32 check's 2 x 2048
+FP32_PATH_CASE = (2, 8, 4, 2048, 256, True, 0, "float32", 2e-5)
 # K2: B, S, Di, N — the reference's MAMBA_CASES (tests/test_kernels.py:69) and the
 # shapes of the serving paths' prefills (falcon-mamba-7b 4 x 1024, hymba-1.5b
 # 4 x 2048); the reference's tolerance
@@ -125,7 +131,7 @@ MODELS = [
     Model("h2o-danube-3-4b", 2, 8192, ("flash", "naive"), (1, 4352),
           {"flash_attention": 24, "flash_attention/tensor_core": 24}),
     Model("gemma3-4b", 4, 2048, ("flash", "naive"), (2, 2048),
-          {"flash_attention": 34, "flash_attention/cuda_core": 34}),
+          {"flash_attention": 34, "flash_attention/tensor_core": 34}),
     Model("qwen2-vl-2b", 4, 2048, ("flash", "naive"), (4, 2048),
           {"flash_attention": 28, "flash_attention/tensor_core": 28}),
     # 8 of 56 layers: the full depth's ~282 GB of bf16 weights need the sharding slice
@@ -649,6 +655,9 @@ def main() -> int:
     results.append(flash_case(torch, F, fa, ref, (1, 4, 2, 128, 120, True, 0, "float32", 2e-5),
                               seed=101, layout="bshd"))
     results.append(flash_case(torch, F, fa, ref, BF16_WIDE_CASE, seed=105))
+    results.append(flash_case(torch, F, fa, ref, BF16_PAD_CASE, seed=106, layout="bshd"))
+    fp32_path = flash_case(torch, F, fa, ref, FP32_PATH_CASE, seed=107, layout="bshd")
+    results.append(fp32_path)
     results += [flash_case(torch, F, fa, ref, case, seed=102 + i, layout="bshd")
                 for i, case in enumerate(PATH_SHAPES)]
     print(f"[kernel] bounds use H100 SXM data-sheet rates: {PEAK_BYTES / 1e12} TB/s, "
@@ -657,11 +666,12 @@ def main() -> int:
     for r in results:
         print("[kernel] " + json.dumps(r))
     path_results = dict(zip(PATH_SHAPES, results[-len(PATH_SHAPES):]))
-    # the kernels' line reports each K1 kernel at a main path's shape: the
-    # tensor-core one at chatglm3-6b's, the CUDA-core one at gemma3-4b's global layers
-    variant_path = {"tensor_core": path_results[PATH_SHAPES[0]],
-                    "cuda_core": path_results[PATH_SHAPES[6]]}
-    path = variant_path["tensor_core"]
+    # the kernels' line reports the tensor-core K1 kernel at chatglm3-6b's and
+    # gemma3-4b's global shapes, the CUDA-core one (fp32 only) at gemma3-4b's fp32 check's
+    variant_path = {"tensor_core": {"chatglm3-6b": path_results[PATH_SHAPES[0]],
+                                    "gemma3-4b global": path_results[PATH_SHAPES[6]]},
+                    "cuda_core": {"gemma3-4b global, fp32 check": fp32_path}}
+    path = variant_path["tensor_core"]["chatglm3-6b"]
     scans = [scan_case(torch, ms, ref, case, seed=200 + i)
              for i, case in enumerate(SCAN_CASES + SCAN_PATH_SHAPES)]
     for r in scans:
@@ -681,12 +691,14 @@ def main() -> int:
 
     # 12. results: launches are the main paths' (every MODELS row's two prefills)
     print(f"[done] main-path launches {main_launches}")
-    variants = {v: dict(launches=main_launches[f"flash_attention/{v}"], case=r["case"],
-                        max_abs_err=r["max_abs_err"], bf16_steps=r["bf16_steps"],
-                        ms=r["kernel_ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                        bound_by=r["bound_by"], library_ms=r["library_ms"],
-                        tflops=r["tflops"])
-                for v, r in variant_path.items()}
+    variants = {v: dict(launches=main_launches[f"flash_attention/{v}"],
+                        at={where: dict(case=r["case"], max_abs_err=r["max_abs_err"],
+                                        bf16_steps=r["bf16_steps"], ms=r["kernel_ms"],
+                                        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                                        bound_by=r["bound_by"], library_ms=r["library_ms"],
+                                        tflops=r["tflops"])
+                            for where, r in shapes.items()})
+                for v, shapes in variant_path.items()}
     kernels = [dict(name="flash_attention", route="cuda", variant=path["variant"],
                     source="src/repro_torch/csrc/flash_attention.cu",
                     replaces="src/repro/kernels/flash_attention.py:30",

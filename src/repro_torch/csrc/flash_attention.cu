@@ -9,9 +9,9 @@
 // skipped.
 //
 // Dispatch (repro_flash_attention_fwd, mirrored by kernels/flash_attention.py::kernel_for):
-//   * bfloat16 with head dim d <= 128  -> flash_fwd_wgmma_kernel, on the tensor cores;
-//   * float32 at any d <= 256, and bfloat16 with 128 < d <= 256 -> flash_fwd_kernel, fp32
-//     FFMA on the CUDA cores (the fp32 cases must meet 2e-5, which TF32 cannot).
+//   * bfloat16 at any head dim d <= 256 -> flash_fwd_wgmma_kernel, on the tensor cores;
+//   * float32 at any d <= 256 -> flash_fwd_kernel, fp32 FFMA on the CUDA cores (the fp32
+//     cases must meet 2e-5, which TF32 cannot).
 // Neither stands in for the other: a bf16 call whose base or strides TMA cannot take
 // returns an error.
 //
@@ -19,16 +19,22 @@
 // causal) one call does ~34 GFLOP on ~71 MB: ~480 FLOP per byte, so the card's bound is its
 // bf16 tensor-core rate, not memory.
 //
-// flash_fwd_wgmma_kernel (bf16, d <= 128), what its design does about that:
+// flash_fwd_wgmma_kernel (bf16), what its design does about that:
 //   * one block of 3 warpgroups per (128-row q tile, head, batch), the heaviest causal q
 //     tiles first; warpgroup 2 is the producer: after setmaxnreg gives its registers to the
-//     consumers, one thread starts TMA loads of Q once and of K/V tiles of 128 keys into a
-//     ring of 3 stages (d = 128) or 4 (d = 64) guarded by mbarriers (full: bytes landed;
-//     empty: the 8 consumer warps are done);
+//     consumers, one thread starts TMA loads of Q once and of K/V tiles of BN keys into a
+//     ring of stages guarded by mbarriers (full: bytes landed; empty: the 8 consumer warps
+//     are done, K and V released apart, K as soon as its S is in registers);
+//   * the tile is compiled per padded head dim D (64, 128, 256) with BN and the stages
+//     beside it: BN 128 with 4 stages (D = 64) or 3 (D = 128); BN 64 with 2 stages at
+//     D = 256, where O takes 128 registers a consumer thread and the Q tile 64 KB, so that
+//     O + S + P_hi + P_lo stay at 192 registers under setmaxnreg's 240 and Q + 2 x (K + V)
+//     at 192 KB of shared memory;
 //   * tensor maps are 4-d over [B, S, heads, d] with the caller's strides, so the model
-//     layout [B, S, H, D] is read in place; 64-column boxes with 128-byte swizzle, and TMA's
-//     zero fill pads d to 64 or 128 and rows past S, in shared memory only;
-//   * warpgroups 0 and 1 own 64 q rows each: S = Q K^T on wgmma m64n128k16 from shared
+//     layout [B, S, H, D] is read in place; 64-column boxes (128 rows for Q, BN for K/V)
+//     with 128-byte swizzle, and TMA's zero fill pads d to D (120 to 128, 129-255 to 256)
+//     and rows past S, in shared memory only;
+//   * warpgroups 0 and 1 own 64 q rows each: S = Q K^T on wgmma m64nBNk16 from shared
 //     memory, bf16 x bf16 -> fp32 (products of bf16 values are exact in fp32); scale, mask
 //     and online softmax in fp32 registers, in base 2, the row sum from the fp32 P; the
 //     mask runs only on tiles that cross the diagonal, the window's edge or Skv, as one
@@ -39,20 +45,19 @@
 //     two bf16 steps per element at outputs near zero needs; it costs half again the
 //     tensor work of Q K^T + P V.  The S accumulator's fragments are the A operand's once
 //     pairs are packed to bf16x2; V is the MN-major B operand through the transpose bit,
-//     so nothing is transposed in memory;
+//     so nothing is transposed in memory; at D = 256 O is two m64n128 halves;
 //   * tile i's Q K^T is started together with tile i-1's P V, and tile i's softmax runs
 //     while that P V does, so the tensor cores and the softmax overlap inside a warpgroup;
-//   * 224 KB of shared memory at d = 128 (144 KB at 64): one block per SM.
+//   * 224 KB of shared memory at d = 128, 192 KB at 256, 144 KB at 64: one block per SM.
 
-// flash_fwd_kernel (fp32, and bf16 with d > 128), on the CUDA cores, bound by the SIMT fp32
-// rate and by shared-memory bandwidth under that:
+// flash_fwd_kernel (fp32), on the CUDA cores, bound by the SIMT fp32 rate and by
+// shared-memory bandwidth under that:
 //   * one block of 256 threads per (64-row q tile, head, batch); the KV loop runs inside the
 //     block and stops at the causal/window limit (the Pallas kernel's pl.when), so fully
 //     masked tiles cost nothing and no state crosses blocks;
-//   * Q, K and V tiles live in shared memory as fp32 (bf16 widened on load); each thread owns
-//     a 4x4 block of scores and a 4 x (D/16) block of the output and reads shared memory with
-//     16-byte loads, 8 loads per 64 FMAs; rows are padded by 4 floats so those loads hit no
-//     bank twice;
+//   * Q, K and V tiles live in shared memory; each thread owns a 4x4 block of scores and a
+//     4 x (D/16) block of the output and reads shared memory with 16-byte loads, 8 loads
+//     per 64 FMAs; rows are padded by 4 floats so those loads hit no bank twice;
 //   * row max and row sum reduce over the 16 threads that share a row with warp shuffles;
 //   * P reuses the K buffer once the scores sit in registers, which keeps D=128 at 98 KB of
 //     shared memory and two blocks per SM;
@@ -81,24 +86,16 @@ struct Args {
   float scale;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Copy rows [row0, row0 + 64) of a [S, d] slice into shared memory as fp32 with row pitch
-// `pitch`; rows past S and columns past d are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, int pitch, const T* src, long long ss,
+// Copy rows [row0, row0 + 64) of a [S, d] slice into shared memory with row pitch `pitch`;
+// rows past S and columns past d are zero.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, int pitch, const float* src, long long ss,
                                           int row0, int S, int d) {
   for (int idx = threadIdx.x; idx < 64 * D; idx += NTHREADS) {
     const int r = idx / D, c = idx % D;
     const int s = row0 + r;
     float val = 0.f;
-    if (s < S && c < d) val = to_f(src[(long long)s * ss + c]);
+    if (s < S && c < d) val = src[(long long)s * ss + c];
     dst[r * pitch + c] = val;
   }
 }
@@ -115,7 +112,7 @@ __device__ __forceinline__ float group16_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(const Args a) {
   constexpr int QP = D + 4;    // Q and K row pitch (floats)
   constexpr int PP = BK + 4;   // P row pitch
@@ -129,12 +126,12 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(const Args a) {
   const int kvh = h / a.G;
   const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
 
-  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* k = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-  T* o = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
+  const float* q = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* k = static_cast<const float*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const float* v = static_cast<const float*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+  float* o = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh;
 
-  load_tile<T, D>(sQ, QP, q, a.q_ss, qt * BQ, a.Sq, a.d);
+  load_tile<D>(sQ, QP, q, a.q_ss, qt * BQ, a.Sq, a.d);
 
   // KV tiles that hold at least one unmasked key for some row of this q tile
   const int q_start = qt * BQ + a.q_offset;        // absolute position of row 0
@@ -159,8 +156,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(const Args a) {
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k_start = kt * BK;
     __syncthreads();   // the previous tile's P and V are consumed
-    load_tile<T, D>(sK, QP, k, a.k_ss, k_start, a.Skv, a.d);
-    load_tile<T, D>(sV, D, v, a.v_ss, k_start, a.Skv, a.d);
+    load_tile<D>(sK, QP, k, a.k_ss, k_start, a.Skv, a.d);
+    load_tile<D>(sV, D, v, a.v_ss, k_start, a.Skv, a.d);
     __syncthreads();
 
     // scores for rows tr*4+i, columns tc+16*j
@@ -261,39 +258,40 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(const Args a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = g * 64 + tc * 4 + e;
-        if (col < a.d) o[(long long)row * a.o_ss + col] = from_f<T>(acc[i][g][e] / denom);
+        if (col < a.d) o[(long long)row * a.o_ss + col] = acc[i][g][e] / denom;
       }
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   const int smem = (2 * 64 * (D + 4) + 64 * D) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, B);
-  flash_fwd_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(a);
+  flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_dim(const Args& a, int B, cudaStream_t stream) {
-  if (a.d <= 64) return launch<T, 64>(a, B, stream);
-  if (a.d <= 128) return launch<T, 128>(a, B, stream);
-  if (a.d <= 256) return launch<T, 256>(a, B, stream);
+cudaError_t dispatch_fp32(const Args& a, int B, cudaStream_t stream) {
+  if (a.d <= 64) return launch<64>(a, B, stream);
+  if (a.d <= 128) return launch<128>(a, B, stream);
+  if (a.d <= 256) return launch<256>(a, B, stream);
   return cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------------------
-// The tensor-core kernel: bf16, head dim <= 128.
+// The tensor-core kernel: bf16, compiled per padded head dim D (64, 128, 256) and the keys
+// per KV tile BN beside it (128, 128, 64).
 
 constexpr int TC_BM = 128;        // query rows per block: 64 per consumer warpgroup
-constexpr int TC_BN = 128;        // keys per KV tile
-// K/V tiles in flight: as many as shared memory holds beside Q
-template <int D> __host__ __device__ constexpr int tc_stages() { return D <= 64 ? 4 : 3; }
+// K/V stages in flight: as many as shared memory holds beside Q
+template <int D> __host__ __device__ constexpr int tc_stages() {
+  return D <= 64 ? 4 : D <= 128 ? 3 : 2;
+}
 constexpr int TC_THREADS = 384;   // consumer warpgroups 0 and 1, producer warpgroup 2
-constexpr int TC_HALF = 128 * 128;  // bytes of one 64-column half of a 128-row bf16 tile
+constexpr int ROW_BYTES = 128;    // a row of a 64-column chunk of a bf16 tile (the swizzle)
 constexpr float LOG2E = 1.4426950408889634f;
 
 struct TcArgs {
@@ -334,7 +332,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// TMA: the box {64 columns, 128 rows, 1, 1} at coordinates {c0, c1, c2, c3} into `dst`;
+// TMA: the map's box {64 columns, 128 or BN rows, 1, 1} at coordinates {c0, c1, c2, c3} into `dst`;
 // its bytes count against the barrier's expected transactions.
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2, int c3) {
@@ -349,7 +347,7 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
 // wgmma shared-memory descriptor for a 128-byte-swizzled operand (layout type 1 in bits
 // 62-63); offsets in bytes, stored in 16-byte units.  K-major (Q, K): rows of 128 bytes,
 // 8-row groups 1024 bytes apart (SBO), LBO unused.  MN-major (V): SBO is the stride of
-// 8-key groups (1024 bytes) and LBO that of the 64-column halves.
+// 8-key groups (1024 bytes) and LBO that of the 64-column chunks.
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
@@ -411,6 +409,24 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory (K-major).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d[64 x 64] += A[64 x 16] B[16 x 64], A from registers (bf16x2 fragments), B from
 // shared memory MN-major (the transpose bit set).
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
@@ -457,67 +473,78 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4],
-                                         uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)[4],
-                                             uint64_t db) { wgmma_rs_n64(o, a, db); }
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4],
-                                              uint64_t db) { wgmma_rs_n128(o, a, db); }
-
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int j = 0; j < N; ++j) reg_fence(r[j]);
 }
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[8][4]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < N; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e) reg_fence(r[kk][e]);
 }
 
-// S = Q K^T for this warpgroup's 64 rows and 128 keys: D/16 steps of 16 columns; within
-// a 64-column half a step is +32 bytes.
-template <int D>
-__device__ __forceinline__ void mma_qk(float (&sc)[64], uint32_t q_addr, uint32_t k_addr) {
+// S = Q K^T for this warpgroup's 64 rows and BN keys: D/16 steps of 16 columns; a step
+// moves +32 bytes inside a 64-column chunk, and the chunks of Q (128 rows) and K (BN rows)
+// lie TC_BM * 128 and BN * 128 bytes apart.
+template <int D, int BN>
+__device__ __forceinline__ void mma_qk(float (&sc)[BN / 2], uint32_t q_addr, uint32_t k_addr) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk / 4) * TC_HALF + (kk % 4) * 32;
-    wgmma_ss_n128(sc, sw128_desc(q_addr + off, 16, 1024), sw128_desc(k_addr + off, 16, 1024),
-                  kk > 0);
+    const uint64_t dq = sw128_desc(q_addr + (kk / 4) * TC_BM * ROW_BYTES + (kk % 4) * 32, 16, 1024);
+    const uint64_t dk = sw128_desc(k_addr + (kk / 4) * BN * ROW_BYTES + (kk % 4) * 32, 16, 1024);
+    if constexpr (BN == 128) wgmma_ss_n128(sc, dq, dk, kk > 0);
+    else wgmma_ss_n64(sc, dq, dk, kk > 0);
   }
 }
 
-// O += P_hi V + P_lo V: 16 keys a step, 2048 bytes of V.
-template <int D>
-__device__ __forceinline__ void mma_pv(float (&o)[D / 2], const uint32_t (&p_hi)[8][4],
-                                         const uint32_t (&p_lo)[8][4], uint32_t v_addr) {
+// O += A V for the 16 keys of one step at v_addr (MN-major, 64-column chunks BN * 128
+// bytes apart); at D = 256 O is two m64n128 halves, the second from V's chunks 2 and 3.
+template <int D, int BN>
+__device__ __forceinline__ void pv_step(float (&o)[D / 2], const uint32_t (&a)[4],
+                                        uint32_t v_addr) {
+  constexpr uint32_t CHUNK = BN * ROW_BYTES;
+  if constexpr (D == 64) {
+    wgmma_rs_n64(o, a, sw128_desc(v_addr, CHUNK, 1024));
+  } else if constexpr (D == 128) {
+    wgmma_rs_n128(o, a, sw128_desc(v_addr, CHUNK, 1024));
+  } else {
+    static_assert(D == 256, "head dims are padded to 64, 128 or 256");
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&o[0]), a, sw128_desc(v_addr, CHUNK, 1024));
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&o[64]), a,
+                  sw128_desc(v_addr + 2 * CHUNK, CHUNK, 1024));
+  }
+}
+
+// O += P_hi V + P_lo V: 16 keys a step, 2048 bytes into each chunk of V.
+template <int D, int BN>
+__device__ __forceinline__ void mma_pv(float (&o)[D / 2], const uint32_t (&p_hi)[BN / 16][4],
+                                       const uint32_t (&p_lo)[BN / 16][4], uint32_t v_addr) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
-    wgmma_pv<D>(o, p_hi[kk], sw128_desc(v_addr + kk * 2048, TC_HALF, 1024));
+  for (int kk = 0; kk < BN / 16; ++kk) pv_step<D, BN>(o, p_hi[kk], v_addr + kk * 2048);
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
-    wgmma_pv<D>(o, p_lo[kk], sw128_desc(v_addr + kk * 2048, TC_HALF, 1024));
+  for (int kk = 0; kk < BN / 16; ++kk) pv_step<D, BN>(o, p_lo[kk], v_addr + kk * 2048);
 }
 
 // Whether the KV tile at k0 needs the element mask: it crosses the diagonal, the
 // window's edge or Skv (for any row of the block's 128).
+template <int BN>
 __device__ __forceinline__ bool edge_tile(const TcArgs& a, int k0, int qa0) {
-  return k0 + TC_BN > a.Skv || (a.causal && k0 + TC_BN - 1 > qa0) ||
+  return k0 + BN > a.Skv || (a.causal && k0 + BN - 1 > qa0) ||
          (a.window > 0 && qa0 + TC_BM - 1 - k0 >= a.window);
 }
 
-// Lane 0 of each warp tells the producer that the warp is done with a stage.
+// Lane 0 of each warp tells the producer that the warp is done with a buffer.
 __device__ __forceinline__ void release(uint64_t* empty, int lane) {
   __syncwarp();
   if (lane == 0) mbar_arrive(empty);
 }
 
-// Online softmax of one thread's two rows (S accumulator fragments: element j is row
-// r0 + 8 * ((j >> 1) & 1), column (j >> 2) * 8 + col0 + (j & 1)), in base 2.
+// Online softmax of one thread's two rows over BN keys (S accumulator fragments: element
+// j is row r0 + 8 * ((j >> 1) & 1), column (j >> 2) * 8 + col0 + (j & 1)), in base 2.
+template <int BN>
 struct Softmax {
   int qa_r0, col0;
   float scale_log2;
@@ -525,8 +552,8 @@ struct Softmax {
   float l[2];          // this thread's partial row sums
 
   // Scores -> P in place (fp32), m and l updated; alpha: how much O must shrink.
-  __device__ __forceinline__ void step(float (&sc)[64], float (&alpha)[2], bool edge, int k0,
-                                       const TcArgs& a) {
+  __device__ __forceinline__ void step(float (&sc)[BN / 2], float (&alpha)[2], bool edge,
+                                       int k0, const TcArgs& a) {
     float mx[2] = {NEG_INF, NEG_INF};
     if (edge) {
       // row r keeps keys k0 + col0 + c with lo[r] <= c <= hi[r]; c is (j >> 2) * 8 + (j & 1)
@@ -535,10 +562,10 @@ struct Softmax {
       for (int r = 0; r < 2; ++r) {
         const int qi = qa_r0 + r * 8, base = k0 + col0;
         hi[r] = (a.causal ? min(qi, a.Skv - 1) : a.Skv - 1) - base;
-        lo[r] = a.window > 0 ? qi - a.window + 1 - base : -TC_BN;
+        lo[r] = a.window > 0 ? qi - a.window + 1 - base : -BN;
       }
 #pragma unroll
-      for (int j = 0; j < 64; ++j) {
+      for (int j = 0; j < BN / 2; ++j) {
         const int c = (j >> 2) * 8 + (j & 1), r = (j >> 1) & 1;
         const float x = (c >= lo[r] && c <= hi[r]) ? sc[j] * scale_log2 : NEG_INF;
         sc[j] = x;
@@ -546,7 +573,7 @@ struct Softmax {
       }
     } else {
 #pragma unroll
-      for (int j = 0; j < 64; ++j) {
+      for (int j = 0; j < BN / 2; ++j) {
         sc[j] *= scale_log2;
         mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sc[j]);
       }
@@ -561,7 +588,7 @@ struct Softmax {
       m[r] = m_new;
     }
 #pragma unroll
-    for (int j = 0; j < 64; ++j) {
+    for (int j = 0; j < BN / 2; ++j) {
       sc[j] = ex2(sc[j] - m[(j >> 1) & 1]);
       sum[(j >> 1) & 1] += sc[j];
     }
@@ -579,10 +606,11 @@ __device__ __forceinline__ void rescale(float (&o)[D / 2], const float (&alpha)[
 // P = P_hi + P_lo as bf16x2 A fragments (fragment e of 16-key step kk holds elements
 // 8 kk + 2 e and + 1): P_hi rounded to nearest, P_lo the rest truncated, so P keeps
 // < 2^-15 of relative error instead of bf16's 2^-9.
-__device__ __forceinline__ void split_p(const float (&p)[64], uint32_t (&p_hi)[8][4],
-                                        uint32_t (&p_lo)[8][4]) {
+template <int BN>
+__device__ __forceinline__ void split_p(const float (&p)[BN / 2], uint32_t (&p_hi)[BN / 16][4],
+                                        uint32_t (&p_lo)[BN / 16][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float x0 = p[kk * 8 + e * 2], x1 = p[kk * 8 + e * 2 + 1];
@@ -594,71 +622,77 @@ __device__ __forceinline__ void split_p(const float (&p)[64], uint32_t (&p_hi)[8
 }
 
 // One block per (128-row q tile, head, batch); the heaviest causal tiles launch first.
-// Shared memory (1024-byte aligned): Q [D/64][128 rows][128 B], then STAGES x (K, V) of
-// the same shape, then the barriers (q_full, k_full[], v_full[], empty[]).  Every tile
-// is stored as TMA's 128-byte swizzle lays it out, which is what the wgmma descriptors
-// read.
-template <int D>
+// Shared memory (1024-byte aligned): Q [D/64][128 rows][128 B], then STAGES x (K, V), each
+// [D/64][BN rows][128 B], then the barriers (q_full, k_full[], v_full[], k_empty[],
+// v_empty[]).  Every tile is stored as TMA's 128-byte swizzle lays it out, which is what
+// the wgmma descriptors read.
+template <int D, int BN>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv, const TcArgs a) {
-  constexpr int NH = D / 64;                   // 64-column halves of a row
-  constexpr int TILE = NH * TC_HALF;           // bytes of one Q, K or V tile
+  constexpr int NC = D / 64;                   // 64-column chunks of a row
+  constexpr int Q_CHUNK = TC_BM * ROW_BYTES;   // bytes of one chunk of the Q tile
+  constexpr int KV_CHUNK = BN * ROW_BYTES;     // ... of a K or V tile
+  constexpr int Q_TILE = NC * Q_CHUNK, KV_TILE = NC * KV_CHUNK;
   constexpr int STAGES = tc_stages<D>();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* sQ = smem;
-  uint8_t* sK = sQ + TILE;                     // stage s at sK + s * 2 * TILE
-  uint64_t* bars = reinterpret_cast<uint64_t*>(sQ + (1 + 2 * STAGES) * TILE);
+  uint8_t* sK = sQ + Q_TILE;                   // stage s at sK + s * 2 * KV_TILE
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sK + 2 * STAGES * KV_TILE);
   uint64_t* q_full = bars;
   uint64_t* k_full = bars + 1;
   uint64_t* v_full = k_full + STAGES;
-  uint64_t* empty = v_full + STAGES;
+  uint64_t* k_empty = v_full + STAGES;
+  uint64_t* v_empty = k_empty + STAGES;
 
   const int qt = a.nq - 1 - blockIdx.z;        // reversed: the longest causal rows first
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = qt * TC_BM;
   const int qa0 = q0 + a.q_offset;             // absolute position of the tile's row 0
-  const int nk = (a.Skv + TC_BN - 1) / TC_BN;
+  const int nk = (a.Skv + BN - 1) / BN;
   int kt_end = nk;
-  if (a.causal) kt_end = min(nk, (qa0 + TC_BM - 1) / TC_BN + 1);
+  if (a.causal) kt_end = min(nk, (qa0 + TC_BM - 1) / BN + 1);
   int kt_begin = 0;
-  if (a.window > 0) kt_begin = max(0, qa0 - a.window + 1) / TC_BN;
+  if (a.window > 0) kt_begin = max(0, qa0 - a.window + 1) / BN;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&k_full[s], 1);
       mbar_init(&v_full[s], 1);
-      mbar_init(&empty[s], 8);                 // lane 0 of each consumer warp
+      mbar_init(&k_empty[s], 8);               // lane 0 of each consumer warp
+      mbar_init(&v_empty[s], 8);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (threadIdx.x >= 256) {
-    // producer warpgroup: one thread starts every TMA load
+    // producer warpgroup: one thread starts every TMA load; a stage's K is refilled once
+    // its S is computed, its V once its P V is
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 256) {
       const int kvh = h / a.G;
-      mbar_expect_tx(q_full, TILE);
+      mbar_expect_tx(q_full, Q_TILE);
 #pragma unroll
-      for (int c = 0; c < NH; ++c) tma_load_4d(sQ + c * TC_HALF, &tq, q_full, 64 * c, q0, h, b);
+      for (int c = 0; c < NC; ++c) tma_load_4d(sQ + c * Q_CHUNK, &tq, q_full, 64 * c, q0, h, b);
       for (int kt = kt_begin, i = 0; kt < kt_end; ++kt, ++i) {
         const int s = i % STAGES;
-        const uint32_t lap = i / STAGES;
-        mbar_wait(&empty[s], (lap & 1) ^ 1);  // round 0 passes: the stage starts empty
-        uint8_t* k_s = sK + s * 2 * TILE;
-        uint8_t* v_s = k_s + TILE;
-        mbar_expect_tx(&k_full[s], TILE);
+        const uint32_t free_parity = ((i / STAGES) & 1) ^ 1;  // lap 0 passes: stages start empty
+        uint8_t* k_s = sK + s * 2 * KV_TILE;
+        uint8_t* v_s = k_s + KV_TILE;
+        mbar_wait(&k_empty[s], free_parity);
+        mbar_expect_tx(&k_full[s], KV_TILE);
 #pragma unroll
-        for (int c = 0; c < NH; ++c)
-          tma_load_4d(k_s + c * TC_HALF, &tk, &k_full[s], 64 * c, kt * TC_BN, kvh, b);
-        mbar_expect_tx(&v_full[s], TILE);
+        for (int c = 0; c < NC; ++c)
+          tma_load_4d(k_s + c * KV_CHUNK, &tk, &k_full[s], 64 * c, kt * BN, kvh, b);
+        mbar_wait(&v_empty[s], free_parity);
+        mbar_expect_tx(&v_full[s], KV_TILE);
 #pragma unroll
-        for (int c = 0; c < NH; ++c)
-          tma_load_4d(v_s + c * TC_HALF, &tv, &v_full[s], 64 * c, kt * TC_BN, kvh, b);
+        for (int c = 0; c < NC; ++c)
+          tma_load_4d(v_s + c * KV_CHUNK, &tv, &v_full[s], 64 * c, kt * BN, kvh, b);
       }
     }
   } else {
@@ -667,18 +701,18 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int wg = threadIdx.x / 128;
     const int lane = threadIdx.x % 32;
     const int r0 = wg * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;  // rows r0, r0 + 8
-    Softmax sm{qa0 + r0, (lane % 4) * 2, a.scale_log2, {NEG_INF, NEG_INF}, {0.f, 0.f}};
+    Softmax<BN> sm{qa0 + r0, (lane % 4) * 2, a.scale_log2, {NEG_INF, NEG_INF}, {0.f, 0.f}};
 
     float o[D / 2];
 #pragma unroll
     for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
-    float sc[64];
+    float sc[BN / 2];
 #pragma unroll
-    for (int j = 0; j < 64; ++j) sc[j] = 0.f;
-    uint32_t p_hi[8][4], p_lo[8][4];                 // P of a tile as bf16x2 A fragments
+    for (int j = 0; j < BN / 2; ++j) sc[j] = 0.f;
+    uint32_t p_hi[BN / 16][4], p_lo[BN / 16][4];     // P of a tile as bf16x2 A fragments
     float alpha[2];
 
-    const uint32_t q_addr = smem_u32(sQ) + wg * 64 * 128;
+    const uint32_t q_addr = smem_u32(sQ) + wg * 64 * ROW_BYTES;
     const uint32_t kv_base = smem_u32(sK);
     const int n = kt_end - kt_begin;
     mbar_wait(q_full, 0);
@@ -688,47 +722,49 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (n > 0) {
       mbar_wait(&k_full[0], 0);
       wgmma_fence();
-      mma_qk<D>(sc, q_addr, kv_base);
+      mma_qk<D, BN>(sc, q_addr, kv_base);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
-      sm.step(sc, alpha, edge_tile(a, kt_begin * TC_BN, qa0), kt_begin * TC_BN, a);
-      split_p(sc, p_hi, p_lo);
+      release(&k_empty[0], lane);
+      sm.step(sc, alpha, edge_tile<BN>(a, kt_begin * BN, qa0), kt_begin * BN, a);
+      split_p<BN>(sc, p_hi, p_lo);
     }
     for (int i = 1; i < n; ++i) {
       const int s = i % STAGES, sp = (i - 1) % STAGES;
-      const uint32_t k_addr = kv_base + s * 2 * TILE;
-      const uint32_t v_addr = kv_base + sp * 2 * TILE + TILE;
+      const uint32_t k_addr = kv_base + s * 2 * KV_TILE;
+      const uint32_t v_addr = kv_base + sp * 2 * KV_TILE + KV_TILE;
       mbar_wait(&k_full[s], (i / STAGES) & 1);
       mbar_wait(&v_full[sp], ((i - 1) / STAGES) & 1);
       wgmma_fence();
-      mma_qk<D>(sc, q_addr, k_addr);
+      mma_qk<D, BN>(sc, q_addr, k_addr);
       wgmma_commit();
-      mma_pv<D>(o, p_hi, p_lo, v_addr);
+      mma_pv<D, BN>(o, p_hi, p_lo, v_addr);
       wgmma_commit();
       wgmma_wait<1>();                             // S of tile i
       fence_regs(sc);
-      const int k0 = (kt_begin + i) * TC_BN;
-      sm.step(sc, alpha, edge_tile(a, k0, qa0), k0, a);
+      release(&k_empty[s], lane);
+      const int k0 = (kt_begin + i) * BN;
+      sm.step(sc, alpha, edge_tile<BN>(a, k0, qa0), k0, a);
       wgmma_wait<0>();                             // O of tile i-1
       fence_regs(o);
       fence_regs(p_hi);
       fence_regs(p_lo);
-      release(&empty[sp], lane);
+      release(&v_empty[sp], lane);
       rescale<D>(o, alpha);
-      split_p(sc, p_hi, p_lo);
+      split_p<BN>(sc, p_hi, p_lo);
     }
     if (n > 0) {
       const int sp = (n - 1) % STAGES;
       mbar_wait(&v_full[sp], ((n - 1) / STAGES) & 1);
       wgmma_fence();
-      mma_pv<D>(o, p_hi, p_lo, kv_base + sp * 2 * TILE + TILE);
+      mma_pv<D, BN>(o, p_hi, p_lo, kv_base + sp * 2 * KV_TILE + KV_TILE);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
       fence_regs(p_hi);
       fence_regs(p_lo);
-      release(&empty[sp], lane);
+      release(&v_empty[sp], lane);
     }
 
     float* l = sm.l;
@@ -785,16 +821,17 @@ EncodeTiled encode_tiled() {
 }
 
 // A 4-d map over [B, S, heads, d] read through its strides (elements), boxes of 64
-// columns x 128 rows of one head, 128-byte swizzle; rows and columns past the tensor read
-// as zero.  A dim of size 1 takes a stride of 16 bytes, which TMA accepts and never uses.
+// columns x `rows` rows of one head, 128-byte swizzle; rows and columns past the tensor
+// read as zero.  A dim of size 1 takes a stride of 16 bytes, which TMA accepts and never
+// uses.
 bool make_map(EncodeTiled enc, CUtensorMap* map, const void* base, int d, int S, int heads,
-              int B, long long ss, long long sh, long long sb) {
+              int B, long long ss, long long sh, long long sb, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)std::max(S, 1), (cuuint64_t)heads,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {S > 1 ? (cuuint64_t)ss * 2 : 16,
                                  heads > 1 ? (cuuint64_t)sh * 2 : 16,
                                  B > 1 ? (cuuint64_t)sb * 2 : 16};
-  const cuuint32_t box[4] = {64, (cuuint32_t)TC_BM, 1, 1};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
              box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -802,33 +839,33 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* base, int d, int S,
          CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, int BN>
 cudaError_t launch_tc(const Args& a, int B, int K, cudaStream_t stream) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  if (!make_map(enc, &tq, a.q, a.d, a.Sq, a.H, B, a.q_ss, a.q_sh, a.q_sb) ||
-      !make_map(enc, &tk, a.k, a.d, a.Skv, K, B, a.k_ss, a.k_sh, a.k_sb) ||
-      !make_map(enc, &tv, a.v, a.d, a.Skv, K, B, a.v_ss, a.v_sh, a.v_sb))
+  if (!make_map(enc, &tq, a.q, a.d, a.Sq, a.H, B, a.q_ss, a.q_sh, a.q_sb, TC_BM) ||
+      !make_map(enc, &tk, a.k, a.d, a.Skv, K, B, a.k_ss, a.k_sh, a.k_sb, BN) ||
+      !make_map(enc, &tv, a.v, a.d, a.Skv, K, B, a.v_ss, a.v_sh, a.v_sb, BN))
     return cudaErrorInvalidValue;
   const int nq = (a.Sq + TC_BM - 1) / TC_BM;
   const TcArgs t{a.o, a.o_sb, a.o_ss, a.o_sh, a.Sq, a.Skv, a.G, a.d,
                  a.causal, a.window, a.q_offset, nq, a.scale * LOG2E};
   constexpr int stages = tc_stages<D>();
-  const int smem = 1024 + (1 + 2 * stages) * (D / 64) * TC_HALF + 8 * (1 + 3 * stages);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
+  const int smem = 1024 + (TC_BM + 2 * stages * BN) * D * 2 + 8 * (1 + 4 * stages);
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D, BN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.H, B, nq);
-  flash_fwd_wgmma_kernel<D><<<grid, TC_THREADS, smem, stream>>>(tq, tk, tv, t);
+  flash_fwd_wgmma_kernel<D, BN><<<grid, TC_THREADS, smem, stream>>>(tq, tk, tv, t);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the last dim is contiguous.
-// bf16 with d <= 128 runs the tensor-core kernel and needs 16-byte aligned bases and strides
-// (a multiple of 8 elements) for TMA; everything else runs the CUDA-core kernel.
+// bf16 runs the tensor-core kernel and needs 16-byte aligned bases and strides (a multiple
+// of 8 elements) for TMA; float32 runs the CUDA-core kernel.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype,
@@ -843,9 +880,9 @@ extern "C" int repro_flash_attention_fwd(
          q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
          causal, window, q_offset, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch_dim<float>(a, B, st);
-  if (dtype == 1 && d <= 64) return (int)launch_tc<64>(a, B, K, st);
-  if (dtype == 1 && d <= 128) return (int)launch_tc<128>(a, B, K, st);
-  if (dtype == 1) return (int)dispatch_dim<__nv_bfloat16>(a, B, st);
+  if (dtype == 0) return (int)dispatch_fp32(a, B, st);
+  if (dtype == 1 && d <= 64) return (int)launch_tc<64, 128>(a, B, K, st);
+  if (dtype == 1 && d <= 128) return (int)launch_tc<128, 128>(a, B, K, st);
+  if (dtype == 1 && d <= 256) return (int)launch_tc<256, 64>(a, B, K, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,10 +6,10 @@ It is compiled with `nvcc` at first use into `build/repro_torch/` of the
 checkout the package runs from and loaded with ctypes (`build.py`).
 
 One C entry point runs one of two kernels, by the rule `kernel_for` states:
-bf16 with head dim <= 128 runs on the tensor cores (wgmma fed by TMA), and
-float32, or bf16 with a head dim of 129-256, on the CUDA cores.  TMA needs
-16-byte aligned bases and strides, so a bf16 call that breaks that raises
-here, with the reason, rather than run the other kernel.
+bf16 runs on the tensor cores (wgmma fed by TMA) at any head dim up to 256,
+zero-padded in shared memory to 64, 128 or 256, and float32 on the CUDA
+cores.  TMA needs 16-byte aligned bases and strides, so a bf16 call that
+breaks that raises here, with the reason, rather than run the other kernel.
 
 `flash_attention` takes a CPU tensor to the plain version (`ref.py`) and a
 CUDA tensor to the kernel; it never falls back from one to the other.
@@ -26,7 +26,6 @@ from repro_torch.kernels.ref import flash_attention_ref
 
 SOURCE = _build.PACKAGE / "csrc" / "flash_attention.cu"
 MAX_HEAD_DIM = 256
-TENSOR_CORE_MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0   # kernel launches; a run zeroes it to count one path's launches
@@ -34,8 +33,10 @@ kernel_launches = {"tensor_core": 0, "cuda_core": 0}   # the same launches, by k
 
 
 def kernel_for(dtype, head_dim) -> str:
-    """Which kernel a CUDA call runs, as `repro_flash_attention_fwd` dispatches."""
-    if dtype == torch.bfloat16 and head_dim <= TENSOR_CORE_MAX_HEAD_DIM:
+    """Which kernel a CUDA call runs, as `repro_flash_attention_fwd` dispatches:
+    bf16 on the tensor cores, float32 (held to 2e-5, which TF32 cannot meet) on
+    the CUDA cores."""
+    if dtype == torch.bfloat16 and head_dim <= MAX_HEAD_DIM:
         return "tensor_core"
     return "cuda_core"
 

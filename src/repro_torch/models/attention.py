@@ -151,6 +151,17 @@ def attend(cfg, q, k, v, *, causal=True, window=0, q_offset=0, impl="auto",
 # decode (single new token against a cache)
 # --------------------------------------------------------------------------
 
+def decode_positions(cfg, B: int, pos: int, device) -> torch.Tensor:
+    """The rope ids of a decode step at `pos`: [B, 1], or [3, B, 1] for m-rope.
+
+    The reference passes [B, 1] ids to its m-rope, which reads rows 0, 1 and 2
+    of them (clamped to row B-1 when B < 3): each row holds pos, so every
+    section turns by pos, as [3, B, 1] ids of pos do.
+    """
+    shape = (3, B, 1) if cfg.rope == "mrope" else (B, 1)
+    return torch.full(shape, pos, dtype=torch.int32, device=device)
+
+
 def decode_attention(cfg, p, x, cache_k, cache_v, pos: int, *, window=0,
                      windowed_cache=False, positions=None):
     """One-token self-attention against a KV cache.
@@ -166,7 +177,7 @@ def decode_attention(cfg, p, x, cache_k, cache_v, pos: int, *, window=0,
         dt = x.dtype
         B, Sc = x.shape[0], cache_k.shape[1]
         if positions is None:
-            positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+            positions = decode_positions(cfg, B, pos, x.device)
         q, k_new, v_new = project_qkv(cfg, p, x, x, positions, positions)
         slot = pos % Sc if windowed_cache else pos
         cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)

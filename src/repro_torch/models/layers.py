@@ -80,9 +80,10 @@ def apply_rope(cfg, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     half-split (not interleaved).
 
     x [B, S, H, Dh]; positions [B, S] int, or [3, B, S] for m-rope.  cos/sin
-    are cast to x's dtype before the products, as in the reference.
+    are cast to x's dtype before the products, as in the reference.  "none"
+    and "learned" (positions are embedded, not rotated) return x unchanged.
     """
-    if cfg.rope == "none":
+    if cfg.rope in ("none", "learned"):
         return x
     dh = x.shape[-1]
     if cfg.rope == "mrope":

@@ -236,12 +236,7 @@ def decode_step(cfg, params, cache, tokens, pos: int, *, positions=None):
     check_supported(cfg)
     B = tokens.shape[0]
     if positions is None:
-        positions = torch.full((B, 1), pos, dtype=torch.int32, device=tokens.device)
-        if cfg.rope == "mrope":
-            # the reference passes these [B,1] ids to its m-rope, which reads
-            # rows 0, 1 and 2 of them (clamped to row B-1 when B < 3): each row
-            # holds pos, so every section turns by pos, as [3,B,1] ids of pos do
-            positions = positions[None].expand(3, B, 1)
+        positions = attn_mod.decode_positions(cfg, B, pos, tokens.device)
     windows = cfg.layer_windows()
     if isinstance(cache, dict):
         entries = [{name: a[li] for name, a in cache.items()} for li in range(cfg.num_layers)]

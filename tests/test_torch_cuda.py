@@ -64,9 +64,10 @@ def test_kernel_bf16_head_dim_64_model_layout(window):
     assert max_abs_err(to_np(out), to_np(ref)) < 3e-2
 
 
-# the tensor-core kernel (bf16, head dim <= 128) in the model layout: B, H, K, Sq, Skv,
-# D, window, q_offset.  S not a multiple of 128, q_offset > 0, window edges inside a
-# tile, D in {64, 120, 128}, G = H / K in {1, 5, 16}
+# the tensor-core kernel (bf16, every head dim) in the model layout: B, H, K, Sq, Skv,
+# D, window, q_offset.  S not a multiple of 128 (of 64 at D > 128, whose KV tiles hold
+# 64 keys), q_offset > 0, window edges inside a tile, D in {64, 120, 128, 192, 256}
+# (192 zero-padded to 256 by TMA), G = H / K in {1, 2, 5, 16}
 TENSOR_CORE_CASES = [
     (1, 4, 4, 100, 100, 128, 0, 0),
     (2, 5, 1, 1000, 1000, 64, 300, 0),
@@ -75,6 +76,10 @@ TENSOR_CORE_CASES = [
     (1, 5, 5, 256, 256, 64, 77, 0),
     (1, 16, 1, 40, 300, 64, 50, 260),
     (2, 10, 2, 333, 333, 120, 200, 0),
+    (1, 8, 4, 333, 333, 256, 0, 0),
+    (2, 4, 2, 122, 250, 256, 77, 128),
+    (1, 4, 4, 300, 300, 192, 100, 0),
+    (1, 8, 4, 40, 301, 192, 50, 261),
 ]
 
 
@@ -100,15 +105,29 @@ def test_tensor_core_kernel_matches_plain_version(B, H, K, Sq, Skv, D, window, q
 
 
 @pytest.mark.cuda
-def test_bf16_wide_heads_run_on_the_cuda_cores():
+def test_bf16_wide_heads_run_on_the_tensor_cores():
     _need_card()
     (q, _), (k, _), (v, _) = qkv(7, 1, 4, 2, 256, 256, 256, "bfloat16")
     q, k, v = q.cuda(), k.cuda(), v.cuda()
     before = dict(fa.kernel_launches)
     out = fa.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
-    assert fa.kernel_launches == dict(before, cuda_core=before["cuda_core"] + 1)
+    assert fa.kernel_launches == dict(before, tensor_core=before["tensor_core"] + 1)
     assert _bf16_within_two_steps(out, flash_attention_ref(q, k, v, causal=True))
+
+
+@pytest.mark.cuda
+def test_fp32_wide_heads_run_on_the_cuda_cores():
+    """fp32 at head dim 256 stays on the CUDA cores and meets 2e-5."""
+    _need_card()
+    (q, _), (k, _), (v, _) = qkv(8, 1, 4, 2, 200, 200, 256, "float32")
+    q, k, v = (t.cuda().transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    before = dict(fa.kernel_launches)
+    out = fa.flash_attention(q, k, v, causal=True, window=70)
+    torch.cuda.synchronize()
+    assert fa.kernel_launches == dict(before, cuda_core=before["cuda_core"] + 1)
+    ref = flash_attention_ref(q, k, v, causal=True, window=70)
+    assert max_abs_err(to_np(out), to_np(ref)) < 2e-5
 
 
 @pytest.mark.cuda
@@ -188,7 +207,8 @@ def test_model_prefill_launches_the_scan_once_per_layer_on_card(arch):
 # the new serving paths' K1 shapes, cut in batch and heads to keep the plain
 # version small: B, H, K, S, D, window.  danube's head dim 120 is read unpadded
 # (TMA fills the tile's rest with zeros); its and mixtral's window of 4096 masks
-# only past S = 4096; gemma3's head dim 256 runs the CUDA-core kernel in bf16
+# only past S = 4096; gemma3's head dim 256 runs the tensor-core kernel at 64 keys a
+# KV tile
 PATH_CASES = [
     (1, 8, 2, 4352, 120, 4096),     # h2o-danube-3-4b
     (1, 6, 1, 4352, 128, 4096),     # mixtral-8x22b
@@ -206,7 +226,7 @@ def test_new_path_shapes_meet_the_path_limits(B, H, K, S, D, window):
     (q, _), (k, _), (v, _) = qkv(S + D + window, B, H, K, S, S, D, "bfloat16")
     q, k, v = (t.cuda().transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
     kernel = fa.kernel_for(torch.bfloat16, D)
-    assert kernel == ("cuda_core" if D > 128 else "tensor_core")
+    assert kernel == "tensor_core"
     before = dict(fa.kernel_launches)
     out = fa.flash_attention(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()

@@ -126,13 +126,13 @@ def test_kernel_builds_into_the_checkout_and_nowhere_else(tmp_path, monkeypatch)
 @pytest.mark.parametrize("dtype,head_dim,kernel", [
     (torch.bfloat16, 16, "tensor_core"), (torch.bfloat16, 64, "tensor_core"),
     (torch.bfloat16, 120, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
-    (torch.bfloat16, 129, "cuda_core"), (torch.bfloat16, 256, "cuda_core"),
+    (torch.bfloat16, 129, "tensor_core"), (torch.bfloat16, 256, "tensor_core"),
     (torch.float32, 64, "cuda_core"), (torch.float32, 128, "cuda_core"),
     (torch.float32, 256, "cuda_core"),
 ])
 def test_dispatch_rule(dtype, head_dim, kernel):
-    """bf16 with head dim <= 128 runs on the tensor cores; fp32 (2e-5, which TF32
-    cannot meet) and wider bf16 heads on the CUDA cores."""
+    """bf16 runs on the tensor cores at every head dim up to 256; fp32 (2e-5, which
+    TF32 cannot meet) on the CUDA cores."""
     assert fa.kernel_for(dtype, head_dim) == kernel
 
 
@@ -157,8 +157,8 @@ def emulate_tensor_core_kernel(q, k, v, *, causal, window, q_offset, split_p=Tru
                                bm=128, bn=128):
     """The arithmetic of `flash_fwd_wgmma_kernel`, in PyTorch on the CPU.
 
-    q [B,H,Sq,D], k/v [B,K,Skv,D] bf16.  Per 128-row q tile, the KV tiles of 128 keys
-    that the kernel visits; scores in fp32 from the bf16 inputs, scaled to base 2;
+    q [B,H,Sq,D], k/v [B,K,Skv,D] bf16.  Per 128-row q tile, the KV tiles of `bn` keys
+    that the kernel visits (128 at D <= 128, 64 at D = 256); scores in fp32 from the bf16 inputs, scaled to base 2;
     running max and sum in fp32, the sum taken from the fp32 P; P split into bf16
     P_hi (rounded to nearest) + P_lo (the rest, truncated), or with split_p=False
     rounded once to bf16, before the fp32 P V; O / max(l, 1e-30) rounded once to bf16.
@@ -212,18 +212,23 @@ def _bf16_steps(out, ref):
     return float((np.abs(out - ref) / (2.0 ** -7 * np.abs(ref) + 1e-5)).max())
 
 
-# reduced path shapes: chatglm3-6b's D=128 with 16:1 GQA, hymba-1.5b's D=64 with 5:1
-# GQA and a window, h2o-danube's D=120 with a q_offset (the Pallas kernel takes
-# D % 128 == 0, so D is zero-padded for it, as the reference's wrapper pads it)
+# reduced path shapes and the kernel's keys per KV tile: chatglm3-6b's D=128 with 16:1
+# GQA, hymba-1.5b's D=64 with 5:1 GQA and a window, h2o-danube's D=120 with a
+# q_offset (the Pallas kernel takes D % 128 == 0, so D is zero-padded for it, as the
+# reference's wrapper pads it), and gemma3-4b's D=256 with 2:1 GQA at BN 64, causal
+# and with a window and a q_offset
 EMULATED_CASES = [
-    (1, 16, 1, 384, 128, True, 0, 0),
-    (1, 5, 1, 384, 64, True, 160, 0),
-    (1, 4, 2, 256, 120, True, 0, 128),
+    (1, 16, 1, 384, 128, True, 0, 0, 128),
+    (1, 5, 1, 384, 64, True, 160, 0, 128),
+    (1, 4, 2, 256, 120, True, 0, 128, 128),
+    (1, 4, 2, 384, 256, True, 0, 0, 64),
+    (1, 4, 2, 384, 256, True, 160, 128, 64),
 ]
 
 
-@pytest.mark.parametrize("B,H,K,S,D,causal,window,q_offset", EMULATED_CASES)
-def test_tensor_core_arithmetic_meets_the_path_limits(B, H, K, S, D, causal, window, q_offset):
+@pytest.mark.parametrize("B,H,K,S,D,causal,window,q_offset,bn", EMULATED_CASES)
+def test_tensor_core_arithmetic_meets_the_path_limits(B, H, K, S, D, causal, window, q_offset,
+                                                      bn):
     """The kernel's arithmetic (P split into bf16 hi + lo) against the reference's Pallas
     kernel in interpret mode: max abs error < 1e-2 and every element within two bf16
     steps, the limits chip_smoke.py holds the kernel to.  A single bf16 P is printed
@@ -235,8 +240,8 @@ def test_tensor_core_arithmetic_meets_the_path_limits(B, H, K, S, D, causal, win
     jq, jk, jv = (jnp.asarray(np.pad(x, pad), jnp.bfloat16) for x in (qn, kn, vn))
     pallas = np.asarray(fa_kernel(jq, jk, jv, interpret=True, bq=128, bk=128, scale=D ** -0.5,
                                   **kw), np.float32)[..., :D]
-    split = to_np(emulate_tensor_core_kernel(q, k, v, **kw))
-    single = to_np(emulate_tensor_core_kernel(q, k, v, split_p=False, **kw))
+    split = to_np(emulate_tensor_core_kernel(q, k, v, bn=bn, **kw))
+    single = to_np(emulate_tensor_core_kernel(q, k, v, split_p=False, bn=bn, **kw))
     errs = {name: (_err(x, pallas), _bf16_steps(x, pallas))
             for name, x in (("split", split), ("single", single))}
     print(f"tensor-core arithmetic vs Pallas (max abs, bf16 steps): {errs}")

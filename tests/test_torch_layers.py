@@ -82,6 +82,20 @@ def test_partial_rope_matches_reference(dtype):
     assert torch.equal(out[..., rot:], x[..., rot:])
 
 
+def test_learned_rope_leaves_x_as_the_reference_does():
+    """rope="learned" embeds positions instead of rotating: both packages' apply_rope
+    return x as it is."""
+    cfg = get_config("chatglm3-6b").replace(rope="learned")
+    jcfg = ARCHS["chatglm3-6b"].replace(rope="learned")
+    rng = np.random.default_rng(7)
+    x, xn = randn(rng, (2, 12, 4, cfg.head_dim), "float32")
+    pos = rng.integers(0, 64, (2, 12))
+    out = L.apply_rope(cfg, x, torch.from_numpy(pos))
+    ref = JL.apply_rope(jcfg, jnp.asarray(xn), jnp.asarray(pos, jnp.int32))
+    np.testing.assert_array_equal(to_np(out), np.asarray(ref))
+    assert torch.equal(out, x)
+
+
 def test_standard_rope_is_a_rotation():
     cfg = _cfgs("float32")[0].replace(rope="standard", rope_fraction=1.0)
     x = torch.from_numpy(np.random.default_rng(2).standard_normal((2, 8, 4, 16)).astype(np.float32))

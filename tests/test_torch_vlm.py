@@ -92,3 +92,26 @@ def test_decode_without_positions_matches_reference(B):
         ids = torch.full((3, B, 1), t, dtype=torch.int32)
         lg_own, own = api.decode_step(cfg, p, own, tok, t, positions=ids)
         assert torch.equal(lg, lg_own), t
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_decode_attention_without_positions_matches_reference(B):
+    """decode_attention itself with positions=None on m-rope (B < 3, where [B, 1] ids
+    have fewer rows than the 3 sections): the port builds [3, B, 1] ids of pos, the
+    reference reads clamped rows of [B, 1]; fp32, output and both caches."""
+    import jax
+    from repro.models import attention as jax_attention
+    from repro_torch.models import attention
+    cfg, jcfg, jp, p = model_pair(ARCH, "float32")
+    rng = np.random.default_rng(3)
+    Sc, pos = 8, 5
+    x, xn = randn(rng, (B, 1, cfg.d_model), "float32")
+    (ck, ckn), (cv, cvn) = (randn(rng, (B, Sc, cfg.num_kv_heads, cfg.head_dim), "float32")
+                            for _ in range(2))
+    out, k, v = attention.decode_attention(cfg, p["layers"][0]["attn"], x, ck.clone(),
+                                           cv.clone(), pos)
+    jattn = jax.tree.map(lambda a: a[0], jp["layers"]["attn"])
+    jout, jk, jv = jax_attention.decode_attention(jcfg, jattn, jnp.asarray(xn), jnp.asarray(ckn),
+                                                  jnp.asarray(cvn), jnp.int32(pos))
+    for a, b in ((out, jout), (k, jk), (v, jv)):
+        assert rel_err(to_np(a), b) < TOL["float32"]
