@@ -21,7 +21,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                largest shapes runs one (batch, KV head) slice at a time
                K2 mamba_scan: max abs error 1e-4 for y and the final state, at the
                reference's cases and falcon-mamba-7b's and hymba-1.5b's shapes
-  4-10. the models at full width with seed-0 random bf16 weights, one table row
+  4-11. the models at full width with seed-0 random bf16 weights, one table row
                each (MODELS): prefill through make_prefill_step(attn_impl="flash"),
                16 greedy make_decode_step steps (qwen2-vl-2b's with [3, B, 1] m-rope
                ids), each kernel's launches per prefill asserted (K1's by kernel
@@ -45,16 +45,38 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                   embeddings, 28 tensor-core K1
                10. mixtral-8x22b (moe, 8 of its 56 layers, 8 experts top-2, window
                   4096): 2 x 8192, 8 tensor-core K1; checks at 1 x 4352, fp32 at 2 layers
-  11. ring    — h2o-danube-3-4b at full width, window cut to 64, 2 layers: ring-cache
+               11. whisper-tiny (encdec, 4 + 4 layers, learned positions, tied head):
+                  prefill 4 x 64 tokens over 1500 frames through make_prefill_step, no
+                  kernel launched (every encdec attention is `auto`, as in the
+                  reference); no BatchedServer, which refuses encdec as the reference's
+                  serve driver does; prefill + decode vs forward in fp32
+  12. ring    — h2o-danube-3-4b at full width, window cut to 64, 2 layers: ring-cache
                decode against full-cache decode for 80 steps, fp32 (< 2e-5 once wrapped)
-  12. a JSON line of every ported kernel (K1 also by kernel: the tensor-core one at
+  13-14. training at full width (TRAINS), fp32 master weights, Trainer with
+               StepSettings(accum=2, remat="dots"): the eval step at the step-0 params,
+               naive and flash (flash launches K1 once per attention layer and must
+               agree with naive within the bf16 limit), a profiler breakdown of one
+               train step; then, under torch.use_deterministic_algorithms, a straight
+               run of 4 steps (its launches must all be 0: no kernel trains), and 2
+               steps + a checkpoint under build/ + a resume for 2 more, whose losses and
+               grad norms must equal the straight run's bit for bit; every loss and grad
+               norm finite, the step-0 loss equal to the naive eval's within the bf16
+               limit, the resumed checkpoint's count 4 and its params moved.  Step ms,
+               tokens/s, peak GB and the model-FLOP share of the data-sheet peak
+               13. qwen2-vl-2b (vlm, 1.78e9 params): 4 x 2048 with 512 patch embeddings,
+                   28 tensor-core K1 per flash eval
+               14. whisper-tiny: 8 x 448 tokens over 1500 frames, no kernel
+  15. a JSON line of every ported kernel (K1 also by kernel: the tensor-core one at
                chatglm3-6b's and gemma3-4b's global shapes, the CUDA-core one at
                gemma3-4b's fp32 check's), then the JSON result line.
 Each model's weights are freed before the next model is built.  Without a CUDA
 device, or outside a checkout of the repo, it exits non-zero and prints no result.
 """
 import json
+import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -137,7 +159,19 @@ MODELS = [
     # 8 of 56 layers: the full depth's ~282 GB of bf16 weights need the sharding slice
     Model("mixtral-8x22b", 2, 8192, ("flash", "naive"), (1, 4352),
           {"flash_attention": 8, "flash_attention/tensor_core": 8}, depth=8, fp32_depth=2),
+    # S counts the decoder's prompt tokens; the encoder reads 1500 frames a row
+    Model("whisper-tiny", 4, 64, ("auto",), (4, 64), {}),
 ]
+# training at full width: arch, batch and sequence length, steps, the step of the
+# checkpoint the resume starts from, and K1's launches per flash eval (one per
+# attention layer; whisper's attention is always `auto`, so none)
+Train = namedtuple("Train", "arch B S steps ckpt_at per_eval")
+TRAINS = [Train("qwen2-vl-2b", 4, 2048, 4, 2,
+                {"flash_attention": 28, "flash_attention/tensor_core": 28}),
+          Train("whisper-tiny", 8, 448, 4, 2, {})]
+# bf16 results against each other: the parity tests' bf16 limit (relative)
+BF16_REL = 0.02
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
 # h2o-danube-3-4b at full width with its window cut to 64 and 2 layers: ring-cache
 # decode against full-cache decode over 80 steps, fp32 compute
 RING = dict(arch="h2o-danube-3-4b", window=64, layers=2, B=2, steps=80)
@@ -217,13 +251,14 @@ def rel(torch, a, b):
     return float((a.float() - b.float()).abs().max() / (b.float().abs().max() + 1e-6))
 
 
-def device_breakdown(torch, fn):
+def device_breakdown(torch, fn, host=False):
     """Device time of fn() by kernel group, from a torch.profiler trace.
 
     busy_ms sums kernel durations (one stream: they do not overlap); idle is
     the share of the span from the first kernel's start to the last one's end
     in which no kernel ran; top_other lists the five kernels of the "other"
-    group with the most time.
+    group with the most time.  With `host`, also the five host-side entries
+    with the most self CPU time (ms; the profiler's own cost inflates them).
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -253,9 +288,14 @@ def device_breakdown(torch, fn):
     busy = sum(groups.values())
     span = (max(ends) - min(starts)) / 1e3
     top = sorted(other.items(), key=lambda kv: -kv[1])[:5]
-    return dict(busy_ms=busy, span_ms=span, idle_share=1 - busy / span,
-                **{f"{k}_ms": v for k, v in groups.items()},
-                top_other=[[k, round(v, 3)] for k, v in top])
+    out = dict(busy_ms=busy, span_ms=span, idle_share=1 - busy / span,
+               **{f"{k}_ms": v for k, v in groups.items()},
+               top_other=[[k, round(v, 3)] for k, v in top])
+    if host:
+        cpu = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:5]
+        out["host_top"] = [[e.key[:60], round(e.self_cpu_time_total / 1e3, 3), e.count]
+                           for e in cpu]
+    return out
 
 
 def plain_version(torch, ref, q, k, v, kw):
@@ -525,8 +565,8 @@ def serve_model(rt, model):
     check(res["launches"] == want, f"{res['launches']} launches on the {cfg.name} main "
                                    f"path, want {want}")
     specs = api.cache_specs(cfg, rt.ShapeSpec("main_path", "decode", S + N_DECODE, B))
-    shapes = {name: (tuple(a.shape), a.dtype) for name, a in cache.items()}
-    check(shapes == {name: (spec.shape, spec.dtype) for name, spec in specs.items()},
+    shapes = layout(cache, lambda a: (tuple(a.shape), a.dtype))
+    check(shapes == layout(specs, lambda spec: (spec.shape, spec.dtype)),
           f"cache {shapes} against api.cache_specs {specs}")
     report_path(res, per_prefill)
     check(torch.equal(prefill(params, batch)[0], prefill_logits), "prefill is not deterministic")
@@ -537,7 +577,11 @@ def serve_model(rt, model):
         print(f"[profile] {cfg.name} {label} " + json.dumps(device_breakdown(torch, fn)))
     del cache, prefill, decode, prefill_logits
     torch.cuda.empty_cache()
-    run_server(rt, cfg, params)
+    if cfg.family == "encdec":
+        print(f"[server] {cfg.name}: not served; BatchedServer targets decoder-only "
+              "families, as the reference's serve driver does")
+    else:
+        run_server(rt, cfg, params)
 
     # in bf16 at full width the equal-maths control already differs by about the
     # tests' 0.02, so the limits are held in fp32 compute, where the same
@@ -563,6 +607,132 @@ def serve_model(rt, model):
         check(val is True if isinstance(val, bool) else val < FP32_TOL,
               f"{cfg.name} fp32 {key}: {val}")
     return res["launches"]
+
+
+def layout(cache, fn):
+    """fn over a cache's (or its specs') entries: a stacked dict, or a per-layer list."""
+    if isinstance(cache, dict):
+        return {name: fn(a) for name, a in cache.items()}
+    return [{name: fn(a) for name, a in entry.items()} for entry in cache]
+
+
+def train_model(rt, spec):
+    """One model trained at full width from fp32 master weights through Trainer: the
+    eval step (naive and flash) at the step-0 params, a profile of one train step,
+    a straight run, and a run cut at spec.ckpt_at and resumed from its checkpoint;
+    see the module's docstring for the checks.  Returns the launches of the flash
+    eval and of the straight run (every count 0), the two paths of this phase."""
+    torch, api = rt.torch, rt.api
+    cfg = rt.get_config(spec.arch)
+    settings = rt.StepSettings(accum=2, remat="dots")
+    tokens = spec.B * spec.S
+    n_flops = api.flops_param_count(cfg)
+
+    def trainer(steps, **kw):
+        return rt.Trainer(cfg, steps=steps, batch=spec.B, seq=spec.S, settings=settings,
+                          log_every=1, **kw)
+
+    print(f"[train] {cfg.name}: {api.param_count(cfg) / 1e9:.3f}B params in fp32 "
+          f"({n_flops / 1e9:.3f}B in the model-FLOP count), B={spec.B} S={spec.S}, "
+          f"accum 2, remat dots, AdamW with fp32 moments")
+    tr = trainer(spec.steps)
+    params, opt, _ = tr.init_state(0)
+    batch = rt.to_device(tr.data.batch_at(0), "cuda")
+    evals, eval_launches = {}, {}
+    for impl in ("naive", "flash"):
+        zero_counts(rt.counters)
+        t0 = time.perf_counter()
+        evals[impl] = float(rt.make_eval_step(cfg, rt.StepSettings(attn_impl=impl))(
+            params, batch))
+        torch.cuda.synchronize()
+        eval_launches[impl] = read_counts(rt.counters)
+        print(f"[train] {cfg.name} eval {impl}: loss {evals[impl]:.6f} in "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms (cold), launches {eval_launches[impl]}")
+    want = {name: spec.per_eval.get(name, 0) for name in read_counts(rt.counters)}
+    check(eval_launches["flash"] == want, f"{cfg.name} flash eval launches "
+                                          f"{eval_launches['flash']}, want {want}")
+    eval_rel = abs(evals["flash"] - evals["naive"]) / abs(evals["naive"])
+    check(eval_rel < BF16_REL, f"{cfg.name} flash eval vs naive: {eval_rel}")
+    # the step's parts, host-timed after a warm-up: the data of one step, and the
+    # step function with each remat policy ("full" for comparison: the selective
+    # "dots" policy runs a Python dispatch mode over every op)
+    t0 = time.perf_counter()
+    tr.data.batch_at(1)
+    data_ms = (time.perf_counter() - t0) * 1e3
+    step_fn_ms = {}
+    for remat in ("dots", "full"):
+        fn = rt.make_train_step(cfg, tr.opt_cfg, rt.StepSettings(accum=2, remat=remat))
+        fn(params, opt, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(params, opt, batch)
+        torch.cuda.synchronize()
+        step_fn_ms[remat] = (time.perf_counter() - t0) * 1e3
+    print(f"[train] {cfg.name} one step's data {data_ms:.1f} ms (host); the step function "
+          f"alone, remat dots {step_fn_ms['dots']:.1f} ms, full {step_fn_ms['full']:.1f} ms")
+    prof = device_breakdown(torch, lambda: tr.step_fn(params, opt, batch), host=True)
+    print(f"[profile] {cfg.name} train step " + json.dumps(prof))
+    del params, opt, batch, tr
+    torch.cuda.empty_cache()
+
+    ckpt = CKPT_DIR / cfg.name
+    shutil.rmtree(ckpt, ignore_errors=True)
+    # bitwise resume on the card: embedding and gather backward accumulate with
+    # atomics unless PyTorch's deterministic algorithms are on (cuBLAS's workspace
+    # is fixed by CUBLAS_WORKSPACE_CONFIG, set in main before cuBLAS starts)
+    torch.use_deterministic_algorithms(True)
+    try:
+        zero_counts(rt.counters)
+        torch.cuda.reset_peak_memory_stats()
+        log_a = trainer(spec.steps).run()
+        train_launches = read_counts(rt.counters)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        trainer(spec.ckpt_at, ckpt_dir=str(ckpt), ckpt_every=spec.ckpt_at).run()
+        log_b = trainer(spec.steps, ckpt_dir=str(ckpt), ckpt_every=spec.ckpt_at).run()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(all(n == 0 for n in train_launches.values()),
+          f"{cfg.name} train steps launched kernels: {train_launches}")
+    for m in log_a:
+        step_s = m["sec"]
+        print(f"[train] {cfg.name} step {m['step']}: {step_s * 1e3:.1f} ms, "
+              f"{tokens / step_s:.0f} tok/s, loss {m['loss']:.6f}, grad_norm "
+              f"{m['grad_norm']:.6f}, 6*N*tokens/step time {6 * n_flops * tokens / step_s / 1e12:.1f} "
+              f"TFLOP/s = {6 * n_flops * tokens / step_s / PEAK_FLOPS['bfloat16']:.3f} of "
+              f"{PEAK_FLOPS['bfloat16'] / 1e12:.0f}")
+    check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in log_a + log_b),
+          f"{cfg.name}: non-finite loss or grad norm")
+    step0_rel = abs(log_a[0]["loss"] - evals["naive"]) / abs(evals["naive"])
+    check(step0_rel < BF16_REL, f"{cfg.name} step-0 train loss {log_a[0]['loss']} vs naive "
+                                f"eval {evals['naive']}")
+    resumed = [(m["loss"], m["grad_norm"]) for m in log_b]
+    straight = [(m["loss"], m["grad_norm"]) for m in log_a[spec.ckpt_at:]]
+    check(resumed == straight, f"{cfg.name} resumed {resumed} != straight {straight}")
+    init = api.init_params(cfg, 0, dtype=torch.float32)
+    last, extra = rt.checkpoint.restore(
+        str(ckpt), {"params": init, "opt": {"count": torch.zeros((), dtype=torch.int32)}})
+    check(extra["next_step"] == spec.steps and int(last["opt"]["count"]) == spec.steps,
+          f"{cfg.name} checkpoint at {extra}, count {int(last['opt']['count'])}")
+    moved = sum(float((a - b).abs().sum()) for a, b in zip(rt.leaves(init),
+                                                            rt.leaves(last["params"])))
+    check(moved > 0, f"{cfg.name}: params did not move")
+    del init, last
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    warm = [m["sec"] for m in log_a[1:]]
+    step_s = sum(warm) / len(warm)
+    res = dict(arch=cfg.name, B=spec.B, S=spec.S, steps=spec.steps, accum=2, remat="dots",
+               step_ms=step_s * 1e3, cold_step_ms=log_a[0]["sec"] * 1e3,
+               tok_s=tokens / step_s, peak_gb=peak_gb,
+               model_tflops=6 * n_flops * tokens / step_s / 1e12,
+               model_flop_share=6 * n_flops * tokens / step_s / PEAK_FLOPS["bfloat16"],
+               losses=[m["loss"] for m in log_a], grad_norms=[m["grad_norm"] for m in log_a],
+               eval_naive=evals["naive"], eval_flash=evals["flash"], eval_rel=eval_rel,
+               step0_vs_eval_rel=step0_rel, resumed_equal=True, moved_abs_sum=moved,
+               data_ms=data_ms, step_fn_ms=step_fn_ms,
+               launches_train=train_launches, launches_flash_eval=eval_launches["flash"])
+    print(f"[train] {cfg.name} result " + json.dumps(res))
+    return {name: eval_launches["flash"][name] + train_launches[name] for name in train_launches}
 
 
 def ring_cache(rt):
@@ -596,6 +766,9 @@ def ring_cache(rt):
 
 
 def main() -> int:
+    # a fixed cuBLAS workspace, set before cuBLAS starts: the train phase's
+    # deterministic algorithms require it (32 MiB, H100's default size in PyTorch)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -615,8 +788,13 @@ def main() -> int:
     from repro_torch.kernels import ref
     from repro_torch.launch.presets import StepSettings
     from repro_torch.launch.serve import BatchedServer, Request
-    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch import checkpoint
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch.steps import (make_decode_step, make_eval_step, make_prefill_step,
+                                          make_train_step)
+    from repro_torch.launch.train import Trainer
     from repro_torch.models import api, transformer
+    from repro_torch.models.meta import leaves
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -626,7 +804,10 @@ def main() -> int:
                          make_prefill_step=make_prefill_step,
                          make_decode_step=make_decode_step, StepSettings=StepSettings,
                          BatchedServer=BatchedServer, Request=Request, counters=counters,
-                         ShapeSpec=ShapeSpec, transformer=transformer)
+                         ShapeSpec=ShapeSpec, transformer=transformer, Trainer=Trainer,
+                         make_eval_step=make_eval_step, make_train_step=make_train_step,
+                         to_device=to_device,
+                         checkpoint=checkpoint, leaves=leaves)
 
     # 1. device
     smi = nvidia_smi()
@@ -680,16 +861,24 @@ def main() -> int:
     print(f"[kernel] mamba_scan library_ms null: {SCAN_NO_LIBRARY}")
     torch.cuda.empty_cache()
 
-    # 4-10. the models at full width, one at a time
+    # 4-11. the models at full width, one at a time
     main_launches = {kname: 0 for kname in read_counts(counters)}
     for model in MODELS:
         for kname, n in serve_model(rt, model).items():
             main_launches[kname] += n
 
-    # 11. the ring cache
+    # 12. the ring cache
     ring_cache(rt)
 
-    # 12. results: launches are the main paths' (every MODELS row's two prefills)
+    # 13-14. training at full width
+    print(f"[train] checkpoints under {CKPT_DIR}; disk free "
+          f"{shutil.disk_usage(CKPT_DIR.parent if CKPT_DIR.parent.exists() else '.').free / 1e9:.0f} GB")
+    for spec in TRAINS:
+        for kname, n in train_model(rt, spec).items():
+            main_launches[kname] += n
+
+    # 15. results: launches are the main paths' (every MODELS row's two prefills, each
+    # train phase's flash eval and straight run)
     print(f"[done] main-path launches {main_launches}")
     variants = {v: dict(launches=main_launches[f"flash_attention/{v}"],
                         at={where: dict(case=r["case"], max_abs_err=r["max_abs_err"],

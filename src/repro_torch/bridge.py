@@ -3,10 +3,13 @@
 Layouts:
   * reference: {"embed": {...}, "layers": {leaf: [L, ...]}, "final_norm": {...}}
     with every per-layer leaf stacked on a leading layer axis, matrices
-    `[L, in, out]` (`repro.models.transformer.stack_meta`), all fp32.
-  * port: the same dicts, but "layers" is a list of L per-layer dicts, and
-    layer i's leaf is the reference's `[i]` slice: matrices stay `[in, out]`
-    (every projection is `x @ w`), vectors stay `[d]`.
+    `[L, in, out]` (`repro.models.transformer.stack_meta`), all fp32; the
+    encoder-decoder adds "enc_layers" (stacked the same way) and "enc_norm",
+    its decoder layers hold "cross", its embed a "pos_table" and no
+    "out_head" (the head is tied).
+  * port: the same dicts, but "layers" and "enc_layers" are lists of
+    per-layer dicts, and layer i's leaf is the reference's `[i]` slice:
+    matrices stay `[in, out]` (every projection is `x @ w`), vectors `[d]`.
 
 The reference keeps fp32 params and casts each to the compute dtype with
 `.astype(dt)` where it is used; the port casts once here (default: the
@@ -21,8 +24,10 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import api
 from repro_torch.models import meta as meta_mod
-from repro_torch.models import transformer
+
+LAYER_LISTS = ("layers", "enc_layers")   # the reference stacks these on a layer axis
 
 
 def _get(tree, path):
@@ -38,8 +43,8 @@ def params_from_jax(np_tree, cfg, device=None, dtype=None):
     dtype = dtype or getattr(torch, cfg.compute_dtype)
 
     def one(path, m: meta_mod.ParamMeta):
-        if path[0] == "layers":
-            arr = _get(np_tree["layers"], path[2:])[int(path[1])]
+        if path[0] in LAYER_LISTS:
+            arr = _get(np_tree[path[0]], path[2:])[int(path[1])]
         else:
             arr = _get(np_tree, path)
         if tuple(arr.shape) != m.shape:
@@ -48,7 +53,7 @@ def params_from_jax(np_tree, cfg, device=None, dtype=None):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(
             device=device, dtype=meta_mod.leaf_dtype(m, dtype))
 
-    return meta_mod.tree_map_meta(one, transformer.model_meta(cfg))
+    return meta_mod.tree_map_meta(one, api.model_meta(cfg))
 
 
 def params_to_jax(params):
@@ -63,7 +68,7 @@ def params_to_jax(params):
 
     def rec(node):
         if isinstance(node, dict):
-            return {k: (stack(v) if k == "layers" else rec(v)) for k, v in node.items()}
+            return {k: (stack(v) if k in LAYER_LISTS else rec(v)) for k, v in node.items()}
         return host(node)
 
     return rec(params)

@@ -12,7 +12,9 @@ cores.  TMA needs 16-byte aligned bases and strides, so a bf16 call that
 breaks that raises here, with the reason, rather than run the other kernel.
 
 `flash_attention` takes a CPU tensor to the plain version (`ref.py`) and a
-CUDA tensor to the kernel; it never falls back from one to the other.
+CUDA tensor to the kernel; it never falls back from one to the other.  It is
+forward only, and raises when autograd would record it (grad mode on and an
+input that requires grad) rather than return an output without a gradient.
 """
 from __future__ import annotations
 
@@ -90,6 +92,10 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0, scale=None):
     """
     global launches
     _check(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention has no backward (neither has the reference's "
+                           "kernel): its output would carry no gradient; train with "
+                           "attn_impl naive, blocked or auto")
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     window = int(window) if window else 0
     if q_offset < 0 or window < 0:

@@ -6,7 +6,9 @@ It is compiled with `nvcc` at first use into `build/repro_torch/` of the
 checkout the package runs from and loaded with ctypes (`build.py`).
 
 `mamba_scan` takes a CPU tensor to the plain version (`ref.py`) and a CUDA
-tensor to the kernel; it never falls back from one to the other.
+tensor to the kernel; it never falls back from one to the other.  It is
+forward only, and raises when autograd would record it (grad mode on and an
+input that requires grad) rather than return an output without a gradient.
 """
 from __future__ import annotations
 
@@ -56,6 +58,9 @@ def mamba_scan(a_bar, bx, c, *, return_state=False):
     """
     global launches
     _check(a_bar, bx, c)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (a_bar, bx, c)):
+        raise RuntimeError("mamba_scan has no backward: its output would carry no gradient; "
+                           "train with apply_ssm(scan_impl='plain')")
     if a_bar.device.type == "cpu":
         return mamba_scan_ref(a_bar, bx, c, return_state=return_state)
     if a_bar.device.type != "cuda":

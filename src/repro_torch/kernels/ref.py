@@ -32,7 +32,8 @@ def mamba_scan_ref(a_bar, bx, c, *, return_state=False):
     """Sequential scan: h_t = a_t * h_{t-1} + bx_t from h_0 = 0; y_t[d] = <h_t[d], c_t>.
 
     a_bar/bx [B,S,Di,N] fp32, c [B,S,N] fp32 -> y [B,S,Di] fp32, and with
-    `return_state` also h_S [B,Di,N].
+    `return_state` also h_S [B,Di,N].  Differentiable (autograd records the
+    writes into y): training runs it.
     """
     B, S, Di, N = a_bar.shape
     h = torch.zeros((B, Di, N), dtype=torch.float32, device=a_bar.device)

@@ -19,6 +19,9 @@ every m-rope section by the token's position, as the reference's does.
         --requests 4 --max-new 8            # full width, on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \
         --smoke --device cpu                # --arch: every decoder-only arch (--help)
+
+whisper-tiny, the encoder-decoder, is refused here as in the reference; it
+serves through `api.prefill` and `api.decode_step`.
 """
 from __future__ import annotations
 
@@ -46,10 +49,18 @@ class Request:
     done: bool = False
 
 
+# the reference's serve driver targets the decoder-only families; the
+# encoder-decoder serves through api.prefill and api.decode_step
+SERVABLE = sorted(name for name, c in ARCHS.items() if c.family != "encdec")
+
+
 class BatchedServer:
     """Slot-based batched decoder over one static-length decode cache."""
 
     def __init__(self, cfg, params, *, max_batch=8, cache_len=512):
+        if cfg.family == "encdec":
+            raise NotImplementedError(f"{cfg.name}: the batched server targets decoder-only "
+                                      "families, as the reference's does")
         self.cfg = cfg
         self.params = params
         self.max_batch = max_batch
@@ -108,7 +119,7 @@ class BatchedServer:
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
+    ap.add_argument("--arch", required=True, choices=SERVABLE)
     ap.add_argument("--smoke", action="store_true", help="reduced config")
     ap.add_argument("--device", default=None, help="default: cuda")
     ap.add_argument("--requests", type=int, default=4)

@@ -1,6 +1,8 @@
-"""Model facade: init / forward / prefill / decode entry points.
+"""Model facade: init / forward / loss / prefill / decode entry points.
 
-Every function takes the `ModelConfig` first.  Entry points that create
+Every function takes the `ModelConfig` first; family dispatch happens here
+(the encoder-decoder in `encdec`, every other family in `transformer`), so
+the launch code never branches on family itself.  Entry points that create
 tensors run on the card unless the caller passes `device="cpu"`.
 """
 from __future__ import annotations
@@ -9,8 +11,17 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec, transformer
 from repro_torch.models import meta as meta_mod
-from repro_torch.models import transformer
+from repro_torch.models.losses import fused_next_token_loss
+
+
+def _family(cfg):
+    return encdec if cfg.family == "encdec" else transformer
+
+
+def model_meta(cfg):
+    return _family(cfg).model_meta(cfg)
 
 
 def init_params(cfg, seed: int = 0, *, device=None, dtype=None):
@@ -18,27 +29,62 @@ def init_params(cfg, seed: int = 0, *, device=None, dtype=None):
     leaves the reference reads in fp32 stay fp32, see `ParamMeta.dtype`).
 
     The reference keeps fp32 params and casts them to the compute dtype at
-    each use; casting once here gives the same bits at every use.
+    each use; casting once here gives the same bits at every use.  Training
+    passes `dtype=torch.float32` for fp32 master weights, which every layer
+    casts at its use as the reference does.
     """
     dtype = dtype or getattr(torch, cfg.compute_dtype)
-    return meta_mod.materialize(transformer.model_meta(cfg), seed, resolve_device(device), dtype)
+    return meta_mod.materialize(model_meta(cfg), seed, resolve_device(device), dtype)
 
 
 def param_count(cfg) -> int:
-    return meta_mod.param_count(transformer.model_meta(cfg))
+    return meta_mod.param_count(model_meta(cfg))
+
+
+def active_param_count(cfg) -> int:
+    """Active params per token (MoE: top_k of num_experts experts)."""
+    total = param_count(cfg)
+    if not cfg.num_experts:
+        return total
+    expert_p = 3 * cfg.d_model * cfg.moe_d_ff * cfg.num_experts * cfg.num_layers
+    return total - expert_p + expert_p * cfg.top_k // cfg.num_experts
+
+
+def flops_param_count(cfg) -> int:
+    """N for MODEL_FLOPS = 6·N·tokens: active matmul params per token, as the
+    reference counts them (no embedding gather or learned position table; the
+    LM head's D x V matmul whether tied or not)."""
+    n = active_param_count(cfg) - cfg.vocab_size * cfg.d_model
+    if cfg.rope == "learned":
+        n -= (cfg.source_len + cfg.max_positions) * cfg.d_model
+    if cfg.tie_embeddings:
+        n += cfg.vocab_size * cfg.d_model
+    return n
 
 
 def forward(cfg, params, batch, *, attn_impl="auto"):
-    return transformer.forward(cfg, params, batch, attn_impl=attn_impl)
+    return _family(cfg).forward(cfg, params, batch, attn_impl=attn_impl)
+
+
+def loss_fn(cfg, params, batch, *, attn_impl="auto", remat="none", scan_impl="kernel"):
+    """Training loss: the LM head fused with the cross-entropy on the final hidden
+    states, chunk by chunk (no [B,S,V] logits).  A train step passes
+    scan_impl="plain": the kernels are forward only."""
+    hidden, aux = _family(cfg).forward_hidden(cfg, params, batch, attn_impl=attn_impl,
+                                              remat=remat, scan_impl=scan_impl)
+    return fused_next_token_loss(cfg, params["embed"], hidden, batch, aux)
 
 
 def prefill(cfg, params, batch, *, attn_impl="auto", cache_len=None):
-    return transformer.prefill(cfg, params, batch, attn_impl=attn_impl,
-                               cache_len=cache_len)
+    return _family(cfg).prefill(cfg, params, batch, attn_impl=attn_impl,
+                                cache_len=cache_len)
 
 
 def decode_step(cfg, params, cache, tokens, pos: int, *, positions=None):
-    """`positions` overrides the rope ids: [B,1], or [3,B,1] for m-rope."""
+    """`positions` overrides the rope ids: [B,1], or [3,B,1] for m-rope (the
+    encoder-decoder's learned positions take none, as in the reference)."""
+    if cfg.family == "encdec":
+        return encdec.decode_step(cfg, params, cache, tokens, pos)
     return transformer.decode_step(cfg, params, cache, tokens, pos,
                                    positions=positions)
 
@@ -51,7 +97,10 @@ def n_image_patches(cfg, seq_len: int) -> int:
 def cache_specs(cfg, shape, dtype=torch.bfloat16):
     """The decode cache's `CacheSpec`s (shape, dtype) for a `ShapeSpec`: a
     stacked dict, or a per-layer list for a windowed cache whose layers have
-    different windows (`transformer.cache_specs`)."""
+    different windows (`transformer.cache_specs`) and for the encoder-decoder
+    (`encdec.cache_specs`)."""
+    if cfg.family == "encdec":
+        return encdec.cache_specs(cfg, shape.global_batch, shape.seq_len, dtype=dtype)
     return transformer.cache_specs(cfg, shape.global_batch, shape.seq_len,
                                    windowed=shape.windowed_cache, dtype=dtype)
 
@@ -59,11 +108,16 @@ def cache_specs(cfg, shape, dtype=torch.bfloat16):
 def demo_batch(cfg, batch_size: int, seq_len: int, seed: int = 0, *, device=None):
     """{"tokens": [B, S] int64} drawn with numpy from `seed`.  For the vlm
     family, S - n_image_patches tokens after {"patch_embeds": [B, P, D] fp32}
-    (standard normal), and {"positions": [3, B, S]}: 0..S-1 on each axis."""
+    (standard normal), and {"positions": [3, B, S]}: 0..S-1 on each axis.  For
+    the encoder-decoder, {"frame_embeds": [B, source_len, D] fp32} (standard
+    normal) before the tokens."""
     rng = np.random.default_rng(seed)
     device = resolve_device(device)
     batch = {}
     n_tok = seq_len
+    if cfg.family == "encdec":
+        frames = rng.standard_normal((batch_size, cfg.source_len, cfg.d_model), dtype=np.float32)
+        batch["frame_embeds"] = torch.from_numpy(frames).to(device)
     if cfg.family == "vlm":
         n_img = n_image_patches(cfg, seq_len)
         n_tok = seq_len - n_img

@@ -7,7 +7,9 @@ Three compute paths, as in the reference `repro.models.attention`:
                   counterpart of the reference's ``pallas``; on a CPU tensor
                   it runs the kernel's plain version.
 ``auto`` never selects ``flash`` (the kernel is forward-only), as in the
-reference.  Keys are cached post-RoPE.
+reference.  Keys are cached post-RoPE.  The encoder-decoder adds a
+bidirectional self-attention and cross-attention against the encoder
+memory's K/V, computed once (`encode_memory_kv`) and cached for decode.
 """
 from __future__ import annotations
 
@@ -145,6 +147,36 @@ def attend(cfg, q, k, v, *, causal=True, window=0, q_offset=0, impl="auto",
         raise ValueError(f"attn impl {impl!r} not in auto|naive|blocked|flash")
     return attend_naive(cfg, q, k, v, causal=causal, window=window,
                         q_offset=q_offset, kv_valid_len=kv_valid_len)
+
+
+def apply_attention(cfg, p, x, positions, *, causal=True, window=0, impl="auto"):
+    """Self-attention over x [B,S,D] (the encoder's, bidirectional with causal=False)."""
+    with record_function("attn"):
+        q, k, v = project_qkv(cfg, p, x, x, positions, positions)
+        out = attend(cfg, q, k, v, causal=causal, window=window, impl=impl)
+        return out.reshape(*out.shape[:2], -1) @ p["wo"].to(x.dtype)
+
+
+def apply_cross_attention(cfg, p, x, memory_kv):
+    """Queries from x [B,Sq,D] against the encoder memory's (k, v) [B,Sm,K,Dh],
+    unmasked; the attention is always `auto`, as in the reference."""
+    with record_function("cross_attn"):
+        dt = x.dtype
+        B, Sq, _ = x.shape
+        q = (x @ p["wq"].to(dt)).reshape(B, Sq, cfg.num_heads, cfg.head_dim)
+        k, v = memory_kv
+        out = attend(cfg, q, k, v, causal=False, window=0, impl="auto")
+        return out.reshape(B, Sq, -1) @ p["wo"].to(dt)
+
+
+def encode_memory_kv(cfg, p, memory):
+    """Cross-attention (k, v) [B,Sm,K,Dh] from the encoder output [B,Sm,D]."""
+    dt = memory.dtype
+    B, Sm, _ = memory.shape
+    K, Dh = cfg.num_kv_heads, cfg.head_dim
+    k = (memory @ p["wk"].to(dt)).reshape(B, Sm, K, Dh)
+    v = (memory @ p["wv"].to(dt)).reshape(B, Sm, K, Dh)
+    return k, v
 
 
 # --------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Shared model layers: rmsnorm, RoPE (standard/partial/m-rope), GLU MLPs, embeddings.
+"""Shared model layers: rms/layer norms, RoPE (standard/partial/m-rope), GLU and
+plain MLPs, embeddings with learned positions, separate or tied heads.
 
 Conventions (as in the reference `repro.models.layers`):
   * the residual stream is `compute_dtype`; norm statistics and softmax in fp32.
@@ -24,15 +25,25 @@ from repro_torch.models.meta import ParamMeta
 # --------------------------------------------------------------------------
 
 def norm_meta(cfg, dim: Optional[int] = None):
-    return {"scale": ParamMeta((dim or cfg.d_model,), (None,), init="ones")}
+    d = dim or cfg.d_model
+    m = {"scale": ParamMeta((d,), (None,), init="ones")}
+    if cfg.norm == "layernorm":
+        m["bias"] = ParamMeta((d,), (None,), init="zeros")
+    return m
 
 
 def apply_norm(cfg, p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm with the reference's numerics: squares in the working dtype,
-    their mean accumulated in fp32, the rsqrt cast back to the working dtype
-    before the (working-dtype) products."""
+    """RMSNorm or LayerNorm with the reference's numerics: squares in the
+    working dtype, means accumulated in fp32 (LayerNorm: var = E[x^2] - mu^2
+    in fp32), mu and the rsqrt cast back to the working dtype before the
+    (working-dtype) products."""
     dtype = x.dtype
     ms = torch.square(x).mean(dim=-1, keepdim=True, dtype=torch.float32)
+    if cfg.norm == "layernorm":
+        mu = x.mean(dim=-1, keepdim=True, dtype=torch.float32)
+        inv = torch.rsqrt(ms - torch.square(mu) + eps)
+        y = (x - mu.to(dtype)) * inv.to(dtype)
+        return y * p["scale"].to(dtype) + p["bias"].to(dtype)
     return x * torch.rsqrt(ms + eps).to(dtype) * p["scale"].to(dtype)
 
 
@@ -101,16 +112,16 @@ def apply_rope(cfg, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# MLP (gated: SwiGLU, GeGLU)
+# MLP (gated: SwiGLU, GeGLU; plain with glu=False)
 # --------------------------------------------------------------------------
 
 def mlp_meta(cfg):
     d, f = cfg.d_model, cfg.d_ff
-    return {
-        "w_gate": ParamMeta((d, f), ("embed", "mlp")),
-        "w_up": ParamMeta((d, f), ("embed", "mlp")),
-        "w_down": ParamMeta((f, d), ("mlp", "embed")),
-    }
+    m = {"w_up": ParamMeta((d, f), ("embed", "mlp")),
+         "w_down": ParamMeta((f, d), ("mlp", "embed"))}
+    if cfg.glu:
+        m = {"w_gate": ParamMeta((d, f), ("embed", "mlp")), **m}
+    return m
 
 
 def act(cfg, x: torch.Tensor) -> torch.Tensor:
@@ -122,7 +133,10 @@ def act(cfg, x: torch.Tensor) -> torch.Tensor:
 def apply_mlp(cfg, p, x: torch.Tensor) -> torch.Tensor:
     with record_function("mlp"):
         dt = x.dtype
-        h = act(cfg, x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
+        if cfg.glu:
+            h = act(cfg, x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
+        else:
+            h = act(cfg, x @ p["w_up"].to(dt))
         return h @ p["w_down"].to(dt)
 
 
@@ -131,18 +145,34 @@ def apply_mlp(cfg, p, x: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 def embed_meta(cfg):
-    return {"in_table": ParamMeta((cfg.vocab_size, cfg.d_model),
-                                  ("in_vocab", "embed_tp"), scale=1.0),
-            "out_head": ParamMeta((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))}
+    # a tied table doubles as the LM head: scaled down so initial logits are O(1)
+    scale = cfg.d_model ** -0.5 if cfg.tie_embeddings else 1.0
+    m = {"in_table": ParamMeta((cfg.vocab_size, cfg.d_model),
+                               ("in_vocab", "embed_tp"), scale=scale)}
+    if not cfg.tie_embeddings:
+        m["out_head"] = ParamMeta((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
+    if cfg.rope == "learned":
+        m["pos_table"] = ParamMeta((cfg.source_len + cfg.max_positions, cfg.d_model),
+                                   (None, "embed_tp"), scale=0.02)
+    return m
 
 
-def embed_tokens(cfg, p, tokens: torch.Tensor) -> torch.Tensor:
-    """Gather path: rows of the table, cast to the compute dtype."""
+def embed_tokens(cfg, p, tokens: torch.Tensor, positions=None) -> torch.Tensor:
+    """Gather path: rows of the table, cast to the compute dtype; with learned
+    positions and `positions` given, plus those rows of the position table."""
     with record_function("embed"):
         cdt = getattr(torch, cfg.compute_dtype)
-        return p["in_table"][tokens].to(cdt)
+        x = p["in_table"][tokens].to(cdt)
+        if cfg.rope == "learned" and positions is not None:
+            x = x + p["pos_table"][positions].to(cdt)
+        return x
+
+
+def head_table(cfg, p) -> torch.Tensor:
+    """The LM head's [D, V] matrix: the tied table's transpose, or out_head."""
+    return p["in_table"].T if cfg.tie_embeddings else p["out_head"]
 
 
 def logits_head(cfg, p, x: torch.Tensor) -> torch.Tensor:
     with record_function("logits"):
-        return x @ p["out_head"].to(x.dtype)
+        return x @ head_table(cfg, p).to(x.dtype)

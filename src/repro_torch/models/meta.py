@@ -54,6 +54,15 @@ def leaves(tree):
         yield tree
 
 
+def tree_map(fn, tree, *rest):
+    """fn over the leaves of dict/list trees of one structure (the first's)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
 def _fold_path(seed: int, path: Tuple[str, ...]) -> int:
     """The reference's FNV-1a fold of the path, mixed with the seed into 32
     bits (the CPU generator keeps only the low 32 bits of a seed)."""

@@ -5,7 +5,8 @@ recurrence as an XLA chunked `associative_scan` and leaves its Pallas kernel
 to direct calls; here the full-sequence path (`apply_ssm`) launches the scan
 kernel once per call on the whole sequence (`kernels.ops.mamba_scan`: the
 CUDA kernel on the card, its plain version on the CPU), and takes the final
-state for the decode cache from that same launch.
+state for the decode cache from that same launch.  Training passes
+`scan_impl="plain"` for the kernel's differentiable plain version.
 
 Decode carries (conv_state [B, d_conv-1, d_inner] fp32, ssm_state
 [B, d_inner, N] fp32).
@@ -19,6 +20,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import mamba_scan_ref
 from repro_torch.models.meta import ParamMeta
 
 
@@ -75,19 +77,25 @@ def _conv1d_causal(cfg, p, x, conv_state=None):
     return out + p["conv_b"].to(x.dtype)
 
 
-def apply_ssm(cfg, p, x, *, return_state=False):
+def apply_ssm(cfg, p, x, *, return_state=False, scan_impl="kernel"):
     """Full-sequence selective SSM. x [B,S,D] -> [B,S,D].
 
-    With `return_state`, returns (out, {"conv", "ssm"}): the last d_conv-1
-    inputs of the conv in fp32 (zeros before the sequence's start) and the
-    scan's final state, from the same kernel launch as `out`.
+    `scan_impl`: "kernel" runs K2 (`kernels.ops.mamba_scan`, forward only: it
+    raises inside autograd); "plain" runs its differentiable plain version,
+    which training passes down, as the reference never trains through its
+    kernel either.  With `return_state`, returns (out, {"conv", "ssm"}): the
+    last d_conv-1 inputs of the conv in fp32 (zeros before the sequence's
+    start) and the scan's final state, from the same scan as `out`.
     """
+    if scan_impl not in ("kernel", "plain"):
+        raise ValueError(f"scan_impl {scan_impl!r} not in kernel|plain")
+    scan_fn = kops.mamba_scan if scan_impl == "kernel" else mamba_scan_ref
     with record_function("ssm"):
         dt = x.dtype
         x_in, z = (x @ p["in_proj"].to(dt)).chunk(2, dim=-1)
         xc = F.silu(_conv1d_causal(cfg, p, x_in))
         a_bar, bx, c = _ssm_inputs(cfg, p, xc)
-        scan = kops.mamba_scan(a_bar, bx, c, return_state=return_state)
+        scan = scan_fn(a_bar, bx, c, return_state=return_state)
         del a_bar, bx                      # 2 x [B,S,di,N] fp32: free before the rest
         y, h_last = scan if return_state else (scan, None)
         y = y + xc.float() * p["d_skip"].float()

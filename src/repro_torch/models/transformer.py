@@ -11,42 +11,67 @@ The decode cache keeps the reference's layouts: a stacked dict {k, v:
 cache whose layers have different windows (gemma3, hymba), a list of one
 such dict per layer without the L axis.  A layer whose cache is exactly its
 window long is a ring buffer.  Decode writes the cache in place.
+
+Training runs `forward_hidden` with a remat policy per layer (`remat_fn`)
+and `scan_impl="plain"`: neither kernel has a backward, and each kernel's
+wrapper raises inside autograd.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")   # encdec: models/encdec.py
 
 
 def check_supported(cfg) -> None:
-    """Raise for what the port has not ported yet, naming its ROADMAP item."""
-    if cfg.family == "encdec":
-        raise NotImplementedError(f"{cfg.name}: family 'encdec' not ported yet "
-                                  "(ROADMAP slice 2, encdec)")
+    """Raise for a family this module does not assemble, and for what the port
+    has not ported yet, naming its ROADMAP item."""
     if cfg.family not in FAMILIES:
-        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
-    unported = [name for name, on in (
-        (f"norm {cfg.norm!r}", cfg.norm != "rmsnorm"),
-        (f"rope {cfg.rope!r}", cfg.rope == "learned"),
-        ("tied embeddings", cfg.tie_embeddings),
-        ("glu=False mlp", not cfg.glu),
-    ) if on]
-    if unported:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(unported)} not ported yet "
-                                  "(ROADMAP slice 2, encdec)")
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} is not one of {FAMILIES}")
     if cfg.ssm_inloop and cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(f"{cfg.name}: ssm_inloop needs an initial-state input "
                                   "to the scan kernel (ROADMAP queue 2, K2 follow-ups)")
+
+
+# --------------------------------------------------------------------------
+# remat: the reference's jax.checkpoint policies, per layer
+# --------------------------------------------------------------------------
+
+_SAVED_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """"dots": keep the outputs of matmuls without a batch dimension (`x @ w` runs
+    as aten.mm), recompute everything else, as the reference's
+    `dots_with_no_batch_dims_saveable` does (attention's batched products too)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_fn(fn, remat: str):
+    """fn, or fn run under `torch.utils.checkpoint`: "full" saves only its inputs,
+    "dots" also the outputs of its unbatched matmuls."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _save_matmuls))
+    raise ValueError(f"remat {remat!r} not in none|dots|full")
 
 
 # --------------------------------------------------------------------------
@@ -82,23 +107,23 @@ def model_meta(cfg) -> Dict[str, Any]:
 # full forward (prefill)
 # --------------------------------------------------------------------------
 
-def _ssm(cfg, p, h, cache):
+def _ssm(cfg, p, h, cache, scan_impl):
     """The layer's SSM; with a `cache` dict, also put its final state there."""
     if cache is None:
-        return ssm_mod.apply_ssm(cfg, p, h)
-    y, state = ssm_mod.apply_ssm(cfg, p, h, return_state=True)
+        return ssm_mod.apply_ssm(cfg, p, h, scan_impl=scan_impl)
+    y, state = ssm_mod.apply_ssm(cfg, p, h, return_state=True, scan_impl=scan_impl)
     cache.update(state)
     return y
 
 
 def apply_block(cfg, p, x, positions, window: int, *, attn_impl="auto",
-                collect_cache=False):
+                scan_impl="kernel", collect_cache=False):
     """One layer. Returns (x, aux, cache_entry_or_None); aux is the MoE's
     load-balancing loss, None for the other families."""
     cache = {} if collect_cache else None
     h = L.apply_norm(cfg, p["norm1"], x)
     if cfg.family == "ssm":
-        return x + _ssm(cfg, p["ssm"], h, cache), None, cache
+        return x + _ssm(cfg, p["ssm"], h, cache, scan_impl), None, cache
     q, k, v = attn_mod.project_qkv(cfg, p["attn"], h, h, positions, positions)
     with record_function("attn"):
         out = attn_mod.attend(cfg, q, k, v, causal=True, window=window,
@@ -108,7 +133,7 @@ def apply_block(cfg, p, x, positions, window: int, *, attn_impl="auto",
         cache.update(k=k, v=v)
     if cfg.family == "hybrid":
         # parallel attention and Mamba heads on the same normed input, mean-fused
-        attn_out = 0.5 * (attn_out + _ssm(cfg, p["ssm"], h, cache))
+        attn_out = 0.5 * (attn_out + _ssm(cfg, p["ssm"], h, cache, scan_impl))
     x = _residual(cfg, p, "post_norm1", x, attn_out)
     ff, aux = _ffn(cfg, p, L.apply_norm(cfg, p["norm2"], x))
     return _residual(cfg, p, "post_norm2", x, ff), aux, cache
@@ -128,17 +153,18 @@ def _ffn(cfg, p, h):
     return L.apply_mlp(cfg, p["mlp"], h), None
 
 
-def apply_layers(cfg, layers, x, positions, *, attn_impl="auto",
-                 collect_cache=False):
-    """Loop over layers. Returns (x, aux summed over layers, stacked cache or
-    None): {k, v: [L,B,S,K,Dh]} and/or {conv: [L,B,d_conv-1,Di], ssm: [L,B,Di,N]}."""
+def apply_layers(cfg, layers, x, positions, *, attn_impl="auto", scan_impl="kernel",
+                 remat="none", collect_cache=False):
+    """Loop over layers, each under the `remat` policy. Returns (x, aux summed over
+    layers, stacked cache or None): {k, v: [L,B,S,K,Dh]} and/or {conv:
+    [L,B,d_conv-1,Di], ssm: [L,B,Di,N]}."""
     entries = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    block = remat_fn(apply_block, remat)
     for p, window in zip(layers, cfg.layer_windows()):
         with record_function("layer"):
-            x, a, entry = apply_block(cfg, p, x, positions, window,
-                                      attn_impl=attn_impl,
-                                      collect_cache=collect_cache)
+            x, a, entry = block(cfg, p, x, positions, window, attn_impl=attn_impl,
+                                scan_impl=scan_impl, collect_cache=collect_cache)
         if a is not None:
             aux = aux + a
         entries.append(entry)
@@ -150,7 +176,7 @@ def apply_layers(cfg, layers, x, positions, *, attn_impl="auto",
 def embed_inputs(cfg, params, batch):
     """Returns (x [B,S,D], positions): [B,S], or for the vlm family the
     batch's [3,B,S] m-rope ids, with the patch embeddings in front of the
-    token embeddings."""
+    token embeddings.  Learned positions are added to the token embeddings."""
     tokens = batch["tokens"]
     if cfg.family == "vlm":
         patches = batch["patch_embeds"].to(getattr(torch, cfg.compute_dtype))
@@ -161,16 +187,23 @@ def embed_inputs(cfg, params, batch):
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
-    return L.embed_tokens(cfg, params["embed"], tokens), positions
+    return L.embed_tokens(cfg, params["embed"], tokens, positions=positions), positions
+
+
+def forward_hidden(cfg, params, batch, *, attn_impl="auto", remat="none", scan_impl="kernel"):
+    """Forward to the final norm's hidden states. Returns (hidden [B,S,D], aux):
+    the sum of the MoE layers' load-balancing losses, 0 for the other families.
+    `scan_impl`: "kernel" (K2, forward only) or "plain" (differentiable)."""
+    check_supported(cfg)
+    x, positions = embed_inputs(cfg, params, batch)
+    x, aux, _ = apply_layers(cfg, params["layers"], x, positions, attn_impl=attn_impl,
+                             scan_impl=scan_impl, remat=remat)
+    return L.apply_norm(cfg, params["final_norm"], x), aux
 
 
 def forward(cfg, params, batch, *, attn_impl="auto"):
-    """Full forward to logits. Returns (logits [B,S,V], aux_loss): the sum of
-    the MoE layers' load-balancing losses, 0 for the other families."""
-    check_supported(cfg)
-    x, positions = embed_inputs(cfg, params, batch)
-    x, aux, _ = apply_layers(cfg, params["layers"], x, positions, attn_impl=attn_impl)
-    x = L.apply_norm(cfg, params["final_norm"], x)
+    """Full forward to logits. Returns (logits [B,S,V], aux_loss)."""
+    x, aux = forward_hidden(cfg, params, batch, attn_impl=attn_impl)
     return L.logits_head(cfg, params["embed"], x), aux
 
 
@@ -238,6 +271,8 @@ def decode_step(cfg, params, cache, tokens, pos: int, *, positions=None):
     if positions is None:
         positions = attn_mod.decode_positions(cfg, B, pos, tokens.device)
     windows = cfg.layer_windows()
+    # learned positions are read at source_len + pos, as in the reference
+    x = L.embed_tokens(cfg, params["embed"], tokens, positions=positions + cfg.source_len)
     if isinstance(cache, dict):
         entries = [{name: a[li] for name, a in cache.items()} for li in range(cfg.num_layers)]
         # a ring only when the one shared window is exactly the cache's length
@@ -246,7 +281,6 @@ def decode_step(cfg, params, cache, tokens, pos: int, *, positions=None):
     else:
         entries = cache
         rings = [w > 0 and "k" in e and e["k"].shape[1] == w for e, w in zip(cache, windows)]
-    x = L.embed_tokens(cfg, params["embed"], tokens)
     for p, entry, window, ring in zip(params["layers"], entries, windows, rings):
         with record_function("layer"):
             x = _decode_block(cfg, p, x, entry, pos, window, positions, ring)

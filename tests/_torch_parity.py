@@ -92,13 +92,14 @@ def model_pair(arch, dtype, **change):
 
 def batch_pair(cfg, B, S, seed=0):
     """One numpy-seeded batch of S positions for both packages, as (port batch,
-    reference batch); a vlm batch has patch embeddings and [3, B, S] positions."""
+    reference batch); a vlm batch has patch embeddings and [3, B, S] positions,
+    an encoder-decoder batch frame embeddings."""
     import jax.numpy as jnp
     from repro_torch.models import api
 
     batch = api.demo_batch(cfg, B, S, seed, device="cpu")
-    jbatch = {k: jnp.asarray(v.numpy().astype(np.int32) if k != "patch_embeds"
-                             else v.numpy()) for k, v in batch.items()}
+    jbatch = {k: jnp.asarray(v.numpy() if v.is_floating_point()
+                             else v.numpy().astype(np.int32)) for k, v in batch.items()}
     return batch, jbatch
 
 

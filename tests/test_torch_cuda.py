@@ -260,3 +260,62 @@ def test_new_arch_prefill_launches_k1_once_per_layer_on_card(arch):
     ref_lg, _ = api.prefill(cfg, p, batch, attn_impl="naive", cache_len=96)
     scale = float(ref_lg.abs().max())
     assert float((lg - ref_lg).abs().max()) / scale < 2e-5
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_raise_under_autograd_on_card():
+    """Neither kernel has a backward: with grad mode on and a CUDA input that
+    requires grad, each wrapper raises and launches nothing; under no_grad it runs."""
+    _need_card()
+    q = torch.randn(1, 2, 64, 64, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    k = torch.randn(1, 2, 64, 64, device="cuda", dtype=torch.bfloat16)
+    a = torch.rand(1, 16, 8, 4, device="cuda", requires_grad=True)
+    bx, c = torch.randn(1, 16, 8, 4, device="cuda"), torch.randn(1, 16, 4, device="cuda")
+    before = fa.launches, ms.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention(q, k, k)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ms.mamba_scan(a, bx, c)
+    assert (fa.launches, ms.launches) == before
+    with torch.no_grad():
+        fa.flash_attention(q, k, k)
+        ms.mamba_scan(a, bx, c)
+    torch.cuda.synchronize()
+    assert (fa.launches, ms.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "hymba-1.5b"])
+def test_smoke_train_step_on_card_launches_no_kernel(arch):
+    """One make_train_step(accum=2, remat="dots") step on the card from fp32
+    master weights: finite loss and grad norm, count 1, params moved, and neither
+    kernel launched (the train path runs naive attention and the plain scan);
+    then the flash eval step launches K1 (and, for the hybrid, K2) once per layer."""
+    from repro_torch.launch.presets import StepSettings
+    from repro_torch.launch.steps import make_eval_step, make_train_step
+    from repro_torch.optim import adamw
+    _need_card()
+    cfg = smoke_config(get_config(arch))
+    params = api.init_params(cfg, 0, dtype=torch.float32)
+    before_params = [t.clone() for t in _param_leaves(params)]
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    batch = api.demo_batch(cfg, 4, 32)
+    step = make_train_step(cfg, opt_cfg, StepSettings(accum=2, remat="dots"))
+    before = fa.launches, ms.launches
+    params, opt, metrics = step(params, adamw.init(opt_cfg, params), batch)
+    torch.cuda.synchronize()
+    assert (fa.launches, ms.launches) == before
+    assert bool(torch.isfinite(metrics["loss"])) and float(metrics["grad_norm"]) > 0
+    assert int(opt["count"]) == 1
+    assert any(not torch.equal(a, b) for a, b in zip(before_params, _param_leaves(params)))
+    n_scan = cfg.num_layers if cfg.family == "hybrid" else 0
+    flash = make_eval_step(cfg, StepSettings(attn_impl="flash"))(params, batch)
+    torch.cuda.synchronize()
+    assert (fa.launches, ms.launches) == (before[0] + cfg.num_layers, before[1] + n_scan)
+    naive = make_eval_step(cfg, StepSettings(attn_impl="naive"))(params, batch)
+    assert abs(float(flash) - float(naive)) / float(naive) < 0.02
+
+
+def _param_leaves(tree):
+    from repro_torch.models.meta import leaves
+    return list(leaves(tree))

@@ -158,11 +158,6 @@ def test_init_is_seeded_and_shaped_by_the_meta_tree():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(family="encdec"), "family 'encdec'.*ROADMAP slice 2"),
-    (dict(norm="layernorm"), "norm 'layernorm'.*ROADMAP slice 2"),
-    (dict(rope="learned"), "rope 'learned'.*ROADMAP slice 2"),
-    (dict(tie_embeddings=True), "tied embeddings.*ROADMAP slice 2"),
-    (dict(glu=False), "glu=False.*ROADMAP slice 2"),
     (dict(family="ssm", ssm_state=4, ssm_inloop=True), "ssm_inloop.*ROADMAP queue 2"),
 ])
 def test_unported_features_raise_naming_their_slice(change, match):
