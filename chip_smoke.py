@@ -66,7 +66,27 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                13. qwen2-vl-2b (vlm, 1.78e9 params): 4 x 2048 with 512 patch embeddings,
                    28 tensor-core K1 per flash eval
                14. whisper-tiny: 8 x 448 tokens over 1500 frames, no kernel
-  15. a JSON line of every ported kernel (K1 also by kernel: the tensor-core one at
+  15. trace   — the sharded train step's collective capture at full width:
+               chatglm3-6b (28 layers; its 2 kv heads do not divide `model`, so the
+               k/v projections are gathered before their heads split) as rank 0 of
+               a (2, 4) ("data", "model") DeviceMesh under the fake process group,
+               on the card: fp32 master weights and moments placed by the rules,
+               accum 2, remat "full", a global batch of 8 x 2048 (4 x 2048 on the
+               rank).  The (semantic, kind, link) table with multiplicity, bytes
+               and H100 cost-model time on the one-node mesh (nvlink), and again
+               with `data` on InfiniBand; the rank's step ms with the capture on
+               and off (in turns), peak GB, and the roofline's dominant term.
+               Checks: sites > 0, grad_sync and attention present, the grad_sync
+               bytes over `data` equal to the gradients' bytes with `data`
+               replicated (worked out from the placements), no K1 or K2 launch
+  16. shard   — Trainer(mesh=(1, 1)) on a real nccl group of world size 1 against
+               the straight Trainer: qwen2-vl-2b at the train phase's shape, 2
+               steps each, deterministic algorithms; losses and grad norms within
+               a relative 1e-3 (the first loss equal), no kernel launched; and a
+               third, straight run with the mesh's vocab-parallel loss formulation
+               (the one mesh-only difference in the model's maths), reported
+               against the mesh run bit for bit
+  17. a JSON line of every ported kernel (K1 also by kernel: the tensor-core one at
                chatglm3-6b's and gemma3-4b's global shapes, the CUDA-core one at
                gemma3-4b's fp32 check's), then the JSON result line.
 Each model's weights are freed before the next model is built.  Without a CUDA
@@ -77,6 +97,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -176,6 +197,11 @@ CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
 # decode against full-cache decode over 80 steps, fp32 compute
 RING = dict(arch="h2o-danube-3-4b", window=64, layers=2, B=2, steps=80)
 N_DECODE = 16
+# the traced step: chatglm3-6b at full width on a (2, 4) mesh under the fake
+# process group, global batch x sequence, accum 2, remat "full"
+TRACE = dict(arch="chatglm3-6b", mesh=(2, 4), B=8, S=2048)
+# the one-card mesh against the straight Trainer: the first TRAINS row's shape
+SHARD_REL = 1e-3
 
 
 def check(ok, msg):
@@ -735,6 +761,159 @@ def train_model(rt, spec):
     return {name: eval_launches["flash"][name] + train_launches[name] for name in train_launches}
 
 
+def link_table(events):
+    """{(semantic, kind, link): [multiplicity, operand bytes, modelled s]} over sites."""
+    table = {}
+    for e in events:
+        row = table.setdefault((e.semantic, e.kind, e.link_class), [0, 0, 0.0])
+        row[0] += e.multiplicity
+        row[1] += e.operand_bytes * e.multiplicity
+        row[2] += e.est_time_s * e.multiplicity
+    return table
+
+
+def trace_phase(rt):
+    """The capture of the sharded train step at full width (see the module's
+    docstring).  Returns its launches (every count 0)."""
+    torch, api, sh, core = rt.torch, rt.api, rt.sharding, rt.core
+    cfg = rt.get_config(TRACE["arch"])
+    mesh, spec = rt.make_host_mesh(TRACE["mesh"], ("data", "model"), backend="fake",
+                                   device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    params = sh.init_params(cfg, 0, mesh)
+    oc = rt.adamw.AdamWConfig()
+    opt = rt.adamw.init(oc, params)
+    B, S = TRACE["B"], TRACE["S"]
+    shape = rt.ShapeSpec("trace", "train", S, B)
+    placements = {k: sh.placements_for(s, mesh)
+                  for k, s in sh.batch_pspecs(cfg, shape, mesh).items()}
+    batch = rt.shard_batch(rt.SyntheticTokens(cfg, rt.DataConfig(B, S, seed=0)).batch_at(0),
+                           mesh, placements)
+    step = rt.make_train_step(cfg, oc, rt.StepSettings(accum=2, remat="full"))
+    local_gb = sum(t.to_local().numel() * 4 for t in rt.leaves(params)) * 3 / 1e9
+    print(f"[trace] {cfg.name}: {api.param_count(cfg) / 1e9:.3f}B params, rank 0 of "
+          f"{TRACE['mesh']} (data, model) under the fake process group; {local_gb:.2f} GB of "
+          f"local fp32 params and moments; global batch {B} x {S}, accum 2, remat full")
+
+    def timed(capture):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with rt.activation_sharding(mesh):
+            tr = (core.trace_step(step, (params, opt, batch), mesh, spec, label=cfg.name)
+                  if capture else step(params, opt, batch))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, tr
+
+    zero_counts(rt.counters)
+    warm_ms, _ = timed(False)
+    runs = {"off": [], "on": []}
+    for mode in ("on", "off", "off", "on"):
+        ms, out = timed(mode == "on")
+        runs[mode].append(ms)
+        if mode == "on":
+            tr = out
+    launches = read_counts(rt.counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(n == 0 for n in launches.values()), f"traced steps launched kernels {launches}")
+    check(tr.sites > 0, "no collective captured")
+    table = link_table(tr.events)
+    sems = {k[0] for k in table}
+    check({"grad_sync", "attention"} <= sems, f"semantics {sorted(sems)}")
+    check(any(k[0] == "grad_sync" and k[2] == "nvlink.data" for k in table),
+          "no grad_sync on nvlink.data")
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    rule = 0
+    for p, s in zip(rt.leaves(params), rt.leaves(sh.param_pspecs(cfg, mesh))):
+        axes = [a for e in s if e for a in ((e,) if isinstance(e, str) else e)]
+        rule += p.numel() * 4 // math.prod(sizes[a] for a in axes if a != "data")
+    synced = sum(e.operand_bytes * e.multiplicity for e in tr.events
+                 if e.semantic == "grad_sync" and e.link_class.endswith(".data")
+                 and "optimizer" not in e.op_name)
+    check(synced == rule, f"grad_sync bytes over data {synced} != data-replicated "
+                          f"gradient bytes {rule}")
+    ib_store = tr.store.annotation_clone()
+    rt.costmodel.annotate_store(ib_store, rt.MeshSpec(spec.shape, spec.axes, axis_kind={
+        "data": "ib", "model": "nvlink"}), rt.H100)
+    ib_table = link_table(ib_store.rows())
+    tokens = B * S
+    rf = rt.roofline(tr, rt.H100, model_flops=6 * api.flops_param_count(cfg) * tokens)
+    print(f"[trace] {tr.sites} sites; (semantic, kind, link): multiplicity, operand bytes, "
+          f"H100 model ms (NVLink), the same with data on InfiniBand")
+    for key in sorted(table):
+        mult, nbytes, secs = table[key]
+        ib_key = (key[0], key[1], key[2].replace("nvlink.data", "ib.data"))
+        print(f"[trace]   {'/'.join(key)}: {mult}, {nbytes}, {secs * 1e3:.4f}; "
+              f"{ib_key[2]} {ib_table.get(ib_key, [0, 0, 0.0])[2] * 1e3:.4f}")
+    res = dict(arch=cfg.name, mesh=list(TRACE["mesh"]), B=B, S=S, sites=tr.sites,
+               multiplicity=sum(r[0] for r in table.values()),
+               collective_bytes=tr.total_collective_bytes(),
+               model_ms_nvlink=tr.total_est_time_s() * 1e3,
+               model_ms_data_ib=float(ib_store.total_est_time_s()) * 1e3,
+               grad_sync_data_bytes=synced, rule_bytes=rule,
+               step_ms_capture_on=runs["on"], step_ms_capture_off=runs["off"],
+               warm_up_ms=warm_ms, capture_overhead=(sum(runs["on"]) / sum(runs["off"]) - 1),
+               peak_gb=peak_gb, rank_gflop=tr.hlo_flops / 1e9, roofline=rf.row(),
+               launches=launches)
+    print("[trace] result " + json.dumps(res))
+    del params, opt, batch, tr
+    torch.cuda.empty_cache()
+    rt.dist.destroy_process_group()
+    return launches
+
+
+def shard_phase(rt):
+    """Trainer on a one-card nccl mesh against the straight Trainer (see the
+    module's docstring), and the witness: the straight Trainer with the mesh's
+    vocab-parallel loss formulation on plain tensors, which must give the
+    mesh's readings bit for bit when that formulation is the whole of the
+    difference.  Returns its launches (every count 0)."""
+    torch, spec, losses = rt.torch, TRAINS[0], rt.losses
+    cfg = rt.get_config(spec.arch)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0", WORLD_SIZE="1")
+    settings = rt.StepSettings(accum=2, remat="dots")
+    logs = {}
+    plain_pick = losses._lse_and_target
+    zero_counts(rt.counters)
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, mesh in (("straight", None), ("mesh 1x1", (1, 1)), ("witness", None)):
+            if name == "witness":
+                losses._lse_and_target = losses._lse_and_target_vocab_parallel
+            tr = rt.Trainer(cfg, steps=2, batch=spec.B, seq=spec.S, settings=settings,
+                            log_every=1, mesh=mesh)
+            logs[name] = tr.run()
+            del tr
+            torch.cuda.empty_cache()
+    finally:
+        losses._lse_and_target = plain_pick
+        torch.use_deterministic_algorithms(False)
+    launches = read_counts(rt.counters)
+    check(rt.dist.get_backend() == "nccl" and rt.dist.get_world_size() == 1,
+          "the mesh did not run on a one-rank nccl group")
+    rt.dist.destroy_process_group()
+
+    def same(a, b):
+        return all(x["loss"] == y["loss"] and x["grad_norm"] == y["grad_norm"]
+                   for x, y in zip(a, b))
+    pairs = list(zip(logs["straight"], logs["mesh 1x1"]))
+    worst = max(max(abs(a[k] - b[k]) / abs(a[k]) for k in ("loss", "grad_norm"))
+                for a, b in pairs)
+    res = dict(arch=cfg.name, B=spec.B, S=spec.S, steps=2, accum=2, remat="dots",
+               **{k.replace(" ", "_"): [(m["loss"], m["grad_norm"], m["sec"] * 1e3)
+                                         for m in v] for k, v in logs.items()},
+               bitwise=same(logs["straight"], logs["mesh 1x1"]), max_rel=worst,
+               witness_bitwise_to_mesh=same(logs["witness"], logs["mesh 1x1"]),
+               launches=launches)
+    print("[shard] result " + json.dumps(res))
+    check(all(n == 0 for n in launches.values()), f"sharded steps launched kernels {launches}")
+    check(pairs[0][0]["loss"] == pairs[0][1]["loss"], "step-0 losses differ")
+    check(worst < SHARD_REL, f"mesh 1x1 vs straight: {worst}")
+    return launches
+
+
 def ring_cache(rt):
     """The windowed ring cache at full width: h2o-danube-3-4b with its window cut to
     RING's, fp32 compute and fp32 caches, one ring of `window` slots against one full
@@ -788,12 +967,20 @@ def main() -> int:
     from repro_torch.kernels import ref
     from repro_torch.launch.presets import StepSettings
     from repro_torch.launch.serve import BatchedServer, Request
-    from repro_torch import checkpoint
-    from repro_torch.data.pipeline import to_device
+    import torch.distributed as dist
+    from repro_torch import checkpoint, core
+    from repro_torch.core import costmodel
+    from repro_torch.core.roofline import roofline
+    from repro_torch.core.topology import H100, MeshSpec
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens, shard_batch, to_device
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.autoshard import activation_sharding
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import adamw
     from repro_torch.launch.steps import (make_decode_step, make_eval_step, make_prefill_step,
                                           make_train_step)
     from repro_torch.launch.train import Trainer
-    from repro_torch.models import api, transformer
+    from repro_torch.models import api, losses, transformer
     from repro_torch.models.meta import leaves
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -806,8 +993,12 @@ def main() -> int:
                          BatchedServer=BatchedServer, Request=Request, counters=counters,
                          ShapeSpec=ShapeSpec, transformer=transformer, Trainer=Trainer,
                          make_eval_step=make_eval_step, make_train_step=make_train_step,
-                         to_device=to_device,
-                         checkpoint=checkpoint, leaves=leaves)
+                         to_device=to_device, checkpoint=checkpoint, leaves=leaves,
+                         dist=dist, core=core, costmodel=costmodel, roofline=roofline,
+                         H100=H100, MeshSpec=MeshSpec, DataConfig=DataConfig,
+                         SyntheticTokens=SyntheticTokens, shard_batch=shard_batch,
+                         sharding=sharding, activation_sharding=activation_sharding,
+                         make_host_mesh=make_host_mesh, adamw=adamw, losses=losses)
 
     # 1. device
     smi = nvidia_smi()
@@ -877,8 +1068,14 @@ def main() -> int:
         for kname, n in train_model(rt, spec).items():
             main_launches[kname] += n
 
-    # 15. results: launches are the main paths' (every MODELS row's two prefills, each
-    # train phase's flash eval and straight run)
+    # 15-16. the sharded train step: its capture, and one card's mesh against the
+    # straight Trainer
+    for phase in (trace_phase, shard_phase):
+        for kname, n in phase(rt).items():
+            main_launches[kname] += n
+
+    # 17. results: launches are the main paths' (every MODELS row's two prefills, each
+    # train phase's flash eval and straight run; the sharded steps launch none)
     print(f"[done] main-path launches {main_launches}")
     variants = {v: dict(launches=main_launches[f"flash_attention/{v}"],
                         at={where: dict(case=r["case"], max_abs_err=r["max_abs_err"],

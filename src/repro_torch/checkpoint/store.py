@@ -13,8 +13,13 @@ Trees are nested dicts and lists of tensors; a leaf's key is its path
 ("params/layers/0/attn/wq").  A step is written to `step_xxx.tmp/` and
 renamed, and LATEST is replaced atomically, so a crash mid-write never
 corrupts what `restore` reads.  bf16 leaves are stored as their raw bytes
-(numpy has no bf16).  The reference's elastic restore onto another mesh
-waits for the sharding slice.
+(numpy has no bf16).
+
+On a mesh every leaf is saved whole: each rank gathers each DTensor leaf
+(`full_tensor`, a collective), rank 0 writes, and the ranks meet at a
+barrier before `save` returns.  `restore` distributes each whole leaf with
+the placements of its counterpart in `tree_like`, so a checkpoint restores
+onto any mesh shape (the reference's elastic restore).
 """
 from __future__ import annotations
 
@@ -26,7 +31,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
+from repro_torch.distributed.sharding import full_tensor
 from repro_torch.models.meta import tree_map
 
 
@@ -47,18 +55,32 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of a process group, or the only one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save(ckpt_dir: str, step: int, tree, extra: Optional[Dict] = None) -> str:
-    """Atomically write a checkpoint. Returns the final directory."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Atomically write a checkpoint. Returns the final directory.  Every rank of
+    a process group calls it (DTensor leaves are gathered); rank 0 writes."""
+    leaves = [(key, full_tensor(leaf).detach().cpu()) for key, leaf in _flatten_with_paths(tree)]
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if _writer():
+        _write(ckpt_dir, final, step, leaves, extra)
+    if dist.is_initialized():
+        dist.barrier()
+    return final
+
+
+def _write(ckpt_dir: str, final: str, step: int, leaves, extra) -> None:
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
 
     manifest = {"step": step, "extra": extra or {}, "leaves": []}
-    for i, (key, leaf) in enumerate(_flatten_with_paths(tree)):
-        t = leaf.detach().cpu()
+    for i, (key, t) in enumerate(leaves):
         fname = f"arr_{i:05d}.npy"
         if t.dtype == torch.bfloat16:
             # numpy has no bf16: the raw bytes, [..., 2] uint8; the manifest's dtype
@@ -79,7 +101,6 @@ def save(ckpt_dir: str, step: int, tree, extra: Optional[Dict] = None) -> str:
     with open(latest_tmp, "w") as f:
         f.write(os.path.basename(final))
     os.replace(latest_tmp, os.path.join(ckpt_dir, "LATEST"))
-    return final
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -96,7 +117,8 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 def restore(ckpt_dir: str, tree_like, step: Optional[int] = None) -> Tuple[Any, Dict]:
     """Restore into the structure of `tree_like` (which may name a part of what was
     saved; only its leaves are read): each leaf takes the dtype and device of its
-    counterpart there; a leaf of another shape is refused."""
+    counterpart there, and a DTensor counterpart's mesh and placements; a leaf
+    of another shape is refused."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -117,7 +139,10 @@ def restore(ckpt_dir: str, tree_like, step: Optional[int] = None) -> Tuple[Any, 
         if tuple(t.shape) != tuple(like.shape):
             raise ValueError(f"leaf {key!r}: checkpoint shape {tuple(t.shape)} != "
                              f"{tuple(like.shape)}")
-        out.append(t.to(device=like.device, dtype=like.dtype))
+        t = t.to(device=like.device, dtype=like.dtype)
+        if isinstance(like, DTensor):
+            t = distribute_tensor(t, like.device_mesh, like.placements, src_data_rank=None)
+        out.append(t)
     it = iter(out)
     return tree_map(lambda _: next(it), tree_like), manifest["extra"]
 
@@ -159,7 +184,7 @@ class AsyncCheckpointer:
 
 
 def prune_old(ckpt_dir: str, keep: int = 3) -> None:
-    if not os.path.isdir(ckpt_dir):
+    if not _writer() or not os.path.isdir(ckpt_dir):
         return
     steps = sorted(n for n in os.listdir(ckpt_dir)
                    if n.startswith("step_") and not n.endswith(".tmp"))

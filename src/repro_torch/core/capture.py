@@ -1,0 +1,225 @@
+"""Collective capture of one sharded step: the port's replacement for the
+reference's HLO parsing (`core/hlo_parser.py`) and its tracer
+(`core/tracer.py`).
+
+The reference compiles the step and reads the collectives out of XLA's HLO.
+The port runs the step once, eagerly, on a `torch.distributed` DeviceMesh
+and records each collective that the step actually dispatches:
+
+  (1) run the step once under two modes:
+      * a `TorchDispatchMode` that lets DTensor desugar its ops (it returns
+        `NotImplemented` for DTensor arguments, as `CommDebugMode` does) and
+        then sees the `_c10d_functional` collectives on the local shards,
+        with their bytes, dtype and process group ("recording UCT");
+      * a `TorchFunctionMode` that tags each autograd node with the scope
+        path open when forward created it (`repro_torch.scope`), so that a
+        collective in backward, which runs outside forward's scopes, is
+        attributed to the scope of the node that issued it;
+  (2) resolve each group onto the mesh (global ranks, and every group of
+      that layout across the mesh: the replica groups);
+  (3) fold identical sites (scope path, kind, groups, bytes, dtype) into
+      `multiplicity`: the Python loop over layers and the micro-batch loop
+      repeat each site;
+  (4) build a `TraceStore`, price it (`costmodel.annotate_store`) and
+      attribute it (`attribution.attribute_store`), as the reference's
+      `tracer.trace_from_hlo` does.
+
+Each event's `op_name` is written in the reference's form, so that the
+copied `attribution` rules read it unchanged: `scope/.../op`, the scope path
+from `repro_torch.scope` and `op` the c10d op's name
+(`_c10d_functional.all_reduce`, which becomes `jax_prim`).  A backward
+collective's `op_name` starts with `transpose(jvp)/`, the marker that
+`attribution.is_backward` reads; a collective of a forward recomputed in
+backward (remat) is a forward one, as in the reference.
+
+`Trace.hlo_flops` is the rank's FLOP count of the step (forward, recompute
+and backward), counted on the local shards by the table that
+`torch.utils.flop_counter.FlopCounterMode` reads.  Fields with no
+counterpart stay 0: `hlo_bytes` (no bytes-accessed analysis of an eager
+step) and `output_bytes`.  `argument_bytes` is the local bytes of the
+step's tensor arguments; `per_device_memory_bytes` the card's peak
+allocation over the step (0 on the CPU).
+"""
+from __future__ import annotations
+
+from collections import defaultdict
+from typing import Callable, Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+from torch.overrides import TorchFunctionMode
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+from torch.utils.flop_counter import flop_registry
+
+from repro_torch import scope as scope_mod
+from repro_torch.core import attribution, costmodel
+from repro_torch.core.events import CollectiveEvent, HloOpStats, Trace
+from repro_torch.core.store import TraceStore
+from repro_torch.core.topology import H100, Hardware, MeshSpec
+
+# `_c10d_functional` op name -> collective kind (the reference's HLO names)
+KINDS: Dict[str, str] = {
+    "all_reduce": "all-reduce",
+    "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "broadcast": "collective-broadcast",
+}
+_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd")
+BACKWARD_MARKER = "transpose(jvp)"
+
+
+def _nbytes(x) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(x)
+               if isinstance(t, torch.Tensor))
+
+
+def _shape_only(args) -> bool:
+    """Whether an op runs on meta or fake tensors (DTensor's sharding
+    propagation infers shapes that way on an op's first call): no FLOPs."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    t = next((a for a in tree_leaves(args) if isinstance(a, torch.Tensor)), None)
+    return t is not None and (t.is_meta or isinstance(t, FakeTensor))
+
+
+def _tag(node, names: Tuple[str, ...]) -> None:
+    """Record `names` on `node` and on every untagged node behind it."""
+    todo = [node]
+    while todo:
+        n = todo.pop()
+        if n is None or scope_mod.NODE_KEY in n.metadata:
+            continue
+        n.metadata[scope_mod.NODE_KEY] = names
+        todo.extend(f for f, _ in n.next_functions)
+
+
+class _ScopeTagger(TorchFunctionMode):
+    """Tags the autograd nodes forward creates with the open scope path."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if torch.is_grad_enabled():
+            names = scope_mod.current()
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor) and t.grad_fn is not None:
+                    _tag(t.grad_fn, names)
+        return out
+
+
+class _Recorder(TorchDispatchMode):
+    """Records each collective on local tensors and counts local FLOPs."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls: List[tuple] = []
+        self.flops = 0
+        self.flops_by_scope: Dict[str, float] = defaultdict(float)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if isinstance(func, torch._ops.HigherOrderOperator):
+            return func(*args, **(kwargs or {}))
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented       # let DTensor run, then see its local ops
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if func.namespace in _NAMESPACES and func._opname in KINDS:
+            self.calls.append(self._collective(func, args, kwargs, out))
+        elif func._overloadpacket in flop_registry and not _shape_only(args):
+            f = flop_registry[func._overloadpacket](*args, **kwargs, out_val=out)
+            self.flops += f
+            self.flops_by_scope["/".join(scope_mod.current())] += f
+        return out
+
+    @staticmethod
+    def _collective(func, args, kwargs, out) -> tuple:
+        names = scope_mod.current()
+        node = torch._C._current_autograd_node()
+        # in backward with no scope open on this thread: a backward node's own
+        # collective (scopes open in backward belong to a remat recompute)
+        backward = node is not None and not names
+        if backward:
+            names = node.metadata.get(scope_mod.NODE_KEY, ())
+        group = kwargs.get("group_name", args[-1])
+        tensors = [t for t in tree_leaves(args) if isinstance(t, torch.Tensor)]
+        return (func._opname, f"{func.namespace}.{func._opname}", names, backward, group,
+                _nbytes(args), _nbytes(out), str(tensors[0].dtype).replace("torch.", ""))
+
+
+def replica_groups(ranks: Sequence[int], mesh_ranks: np.ndarray) -> List[List[int]]:
+    """Every group of the layout `ranks` belongs to: the mesh's ranks split
+    along the mesh dims that vary inside `ranks` (row-major within a group)."""
+    coords = np.argwhere(np.isin(mesh_ranks, list(ranks)))
+    varying = [d for d in range(mesh_ranks.ndim) if len(np.unique(coords[:, d])) > 1]
+    if not varying:
+        return [[int(r)] for r in mesh_ranks.reshape(-1)]
+    fixed = [d for d in range(mesh_ranks.ndim) if d not in varying]
+    size = int(np.prod([mesh_ranks.shape[d] for d in varying]))
+    return mesh_ranks.transpose(fixed + varying).reshape(-1, size).tolist()
+
+
+def _op_name(names: Tuple[str, ...], prim: str, backward: bool) -> str:
+    path = "/".join(names + (prim,))
+    return f"{BACKWARD_MARKER}/{path}" if backward else path
+
+
+def _events(calls, mesh, label: str) -> List[CollectiveEvent]:
+    """Fold the recorded calls into sites, first-seen order."""
+    mesh_ranks = mesh.mesh.cpu().numpy()
+    groups_of: Dict[str, List[List[int]]] = {}
+    sites: Dict[tuple, CollectiveEvent] = {}
+    for opname, prim, names, backward, group, ob, rb, dtype in calls:
+        if group not in groups_of:
+            pg = dist.distributed_c10d._resolve_process_group(group)
+            groups_of[group] = replica_groups(dist.get_process_group_ranks(pg), mesh_ranks)
+        groups = groups_of[group]
+        op_name = _op_name(names, prim, backward)
+        kind = KINDS[opname]
+        key = (op_name, kind, group, ob, rb, dtype)
+        ev = sites.get(key)
+        if ev is None:
+            sites[key] = CollectiveEvent(
+                name=f"%{kind}.{len(sites)}", kind=kind, async_start=False,
+                operand_bytes=ob, result_bytes=rb, dtype=dtype,
+                replica_groups=groups, group_size=len(groups[0]), num_groups=len(groups),
+                op_name=op_name, computation=label)
+        else:
+            ev.multiplicity += 1
+    return list(sites.values())
+
+
+def trace_step(fn: Callable, args, mesh, mesh_spec: MeshSpec, *, label: str = "step",
+               hw: Hardware = H100) -> Trace:
+    """Run `fn(*args)` once on `mesh` (a DeviceMesh) and return the `Trace` of
+    the collectives it dispatched, priced on `mesh_spec` by `hw`.
+
+    The caller opens `distributed.autoshard.activation_sharding(mesh)` around
+    the call as it would around the step.  `fn` runs for real: a train step
+    updates its params and moments in place, as any step does.
+    """
+    recorder, tagger = _Recorder(), _ScopeTagger()
+    on_card = mesh.device_type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    with tagger, recorder:
+        fn(*args)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    events = _events(recorder.calls, mesh, label)
+    store = TraceStore.from_events(events)
+    costmodel.annotate_store(store, mesh_spec, hw)
+    attribution.attribute_store(store)
+    stats = HloOpStats(flops=float(recorder.flops),
+                       flops_by_scope=dict(recorder.flops_by_scope))
+    local = [t.to_local() if isinstance(t, DTensor) else t for t in tree_leaves(args)
+             if isinstance(t, torch.Tensor)]
+    return Trace.from_store(label, mesh_spec.shape, mesh_spec.axes, mesh_spec.num_devices,
+                            store, op_stats=stats, hlo_flops=float(recorder.flops),
+                            per_device_memory_bytes=float(peak),
+                            argument_bytes=float(_nbytes(local)))

@@ -5,7 +5,7 @@ An infinite, seekable stream: the batch of each step derives from the seed
 and the step alone, through the same numpy `SeedSequence([seed, step])`
 draws as the reference's, so both packages give bitwise-equal batches and a
 restart at step N reproduces the batch.  Batches are numpy arrays;
-`to_device` makes tensors of them.
+`to_device` makes tensors of them, and `shard_batch` DTensors on a mesh.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from typing import Dict, Iterator
 
 import numpy as np
 import torch
+from torch.distributed.tensor import distribute_tensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.api import n_image_patches
@@ -72,6 +73,19 @@ class SyntheticTokens:
         while True:
             yield self.batch_at(step)
             step += 1
+
+
+def shard_batch(batch: Dict[str, np.ndarray], mesh, placements) -> Dict[str, torch.Tensor]:
+    """A host batch as DTensors on `mesh`, each leaf with its `placements[key]`
+    (`sharding.placements_for` of `sharding.batch_pspecs`); with no
+    placements, plain tensors on the mesh's device.  Every rank draws the same
+    host batch from the seed, so each keeps its own rows and nothing is
+    communicated."""
+    if placements is None:
+        return to_device(batch, mesh.device_type)
+    return {k: distribute_tensor(torch.from_numpy(v).to(mesh.device_type), mesh,
+                                 placements[k], src_data_rank=None)
+            for k, v in batch.items()}
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:

@@ -32,13 +32,15 @@ def mamba_scan_ref(a_bar, bx, c, *, return_state=False):
     """Sequential scan: h_t = a_t * h_{t-1} + bx_t from h_0 = 0; y_t[d] = <h_t[d], c_t>.
 
     a_bar/bx [B,S,Di,N] fp32, c [B,S,N] fp32 -> y [B,S,Di] fp32, and with
-    `return_state` also h_S [B,Di,N].  Differentiable (autograd records the
-    writes into y): training runs it.
+    `return_state` also h_S [B,Di,N].  Differentiable: training runs it (on a
+    mesh too, where the steps' outputs are stacked, not written into a buffer).
     """
     B, S, Di, N = a_bar.shape
     h = torch.zeros((B, Di, N), dtype=torch.float32, device=a_bar.device)
-    y = torch.empty((B, S, Di), dtype=torch.float32, device=a_bar.device)
+    ys = []
     for t in range(S):
         h = a_bar[:, t] * h + bx[:, t]
-        y[:, t] = torch.einsum("bdn,bn->bd", h, c[:, t])
+        ys.append(torch.einsum("bdn,bn->bd", h, c[:, t]))
+    y = (torch.stack(ys, dim=1) if ys
+         else torch.zeros((B, 0, Di), dtype=torch.float32, device=a_bar.device))
     return (y, h) if return_state else y

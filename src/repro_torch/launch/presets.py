@@ -1,9 +1,11 @@
 """Per-step execution settings (from the reference `launch/presets.py`).
 
-The reference's `StepSettings` also carries sharding and MoE fields
-(sequence sharding, MoE group size and dispatch, FSDP/HSDP placement);
-nothing on one card reads them, so they come back with the sharding slice.
-`attn_impl` takes the port's names: auto | naive | blocked | flash.
+`attn_impl` takes the port's names: auto | naive | blocked | flash.  Of
+the reference's sharding fields the port has `seq_shard`, which `Trainer`
+passes to `activation_sharding`.  The MoE group size and dispatch are the
+config's (`cfg.moe_group_size`, `cfg.moe_dispatch`, which `models.moe`
+reads); serving placement (`serve_fsdp`) and HSDP come with the slices
+that read them.
 """
 from __future__ import annotations
 
@@ -17,11 +19,12 @@ class StepSettings:
     attn_impl: str = "auto"        # auto | naive | blocked | flash
     opt_state_dtype: str = "float32"
     accum_dtype: str = "float32"   # gradient-accumulator dtype
+    seq_shard: bool = False        # Megatron-SP residual sequence sharding
     grad_compression: str = "none"   # none | bf16: a bf16 round trip of the gradient
 
 
-# train_4k accumulation per arch, the reference's table (sized there for 16 GB
-# TPU v5e chips under sharding; the sharding slice derives the card's own)
+# train_4k accumulation per arch, the reference's table (sized there for its
+# chips under sharding; the dry-run slice derives the card's own)
 _TRAIN_ACCUM = {
     "llama3-405b": 16,
     "mixtral-8x22b": 16,

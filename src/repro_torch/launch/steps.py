@@ -6,17 +6,27 @@ plain callables that run eagerly.  Serving and eval run under
 `torch.no_grad`; the train step takes gradients with `torch.autograd.grad`
 with respect to detached views of the params, and `adamw.update` then
 writes params and moments in place.
+
+On a mesh (params as DTensors, the step run inside
+`autoshard.activation_sharding`) the same code runs sharded: DTensor leaves
+a weight's gradient partial over the axes its batch was split on, the
+micro-batches' partial gradients add up locally, and one redistribution to
+the params' placements under the `grad_sync` scope is the gradient
+synchronisation (a reduce-scatter for a sharded weight, an all-reduce for a
+replicated one).
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.launch.presets import StepSettings
 from repro_torch.models import api as model_api
 from repro_torch.models.meta import leaves, tree_map
 from repro_torch.optim import adamw
+from repro_torch.scope import scope
 
 
 def _split_micro(batch: Dict[str, torch.Tensor], accum: int) -> List[Dict[str, torch.Tensor]]:
@@ -38,7 +48,8 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, st: StepSettings):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state, metrics),
     metrics {"loss", "grad_norm", "lr"} as 0-dim tensors.  With accum > 1 the
     gradient is the sum over micro-batches of g / accum, each term cast to
-    `accum_dtype` before it is added, and the loss the mean of theirs."""
+    `accum_dtype` before it is added, and the loss the mean of theirs.
+    DTensor gradients are synchronised once, after the sum."""
     def loss_and_grads(params, micro):
         live = tree_map(lambda t: t.detach().requires_grad_(), params)
         loss = model_api.loss_fn(cfg, live, micro, attn_impl=st.attn_impl, remat=st.remat,
@@ -49,16 +60,18 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, st: StepSettings):
     def train_step(params, opt_state, batch):
         if st.accum > 1:
             acc_dt = getattr(torch, st.accum_dtype)
-            grads = [torch.zeros(p.shape, dtype=acc_dt, device=p.device) for p in leaves(params)]
-            loss = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+            grads, loss = None, 0.0
             for micro in _split_micro(batch, st.accum):
                 l, g = loss_and_grads(params, micro)
-                for acc, gi in zip(grads, g):
-                    acc.add_((gi / st.accum).to(acc_dt))
+                g = [(gi / st.accum).to(acc_dt) for gi in g]
+                # the first term as it is: 0 + x is x, and a DTensor term keeps
+                # its partial placement for the one synchronisation below
+                grads = g if grads is None else [a + gi for a, gi in zip(grads, g)]
                 loss = loss + l
             loss = loss / st.accum
         else:
             loss, grads = loss_and_grads(params, batch)
+        grads = _sync_grads(grads, leaves(params))
         if st.grad_compression == "bf16":
             grads = [g.to(torch.bfloat16).float() for g in grads]
         it = iter(grads)
@@ -68,6 +81,28 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, st: StepSettings):
         return params, opt_state, metrics
 
     return train_step
+
+
+def _sync_grads(grads, params):
+    """Each DTensor gradient redistributed to its param's placements (the
+    gradient synchronisation); plain tensors as they are.  A whole gradient is
+    first cut locally where the param is sharded, then the mesh dims are
+    reduced one at a time, the innermost (`model`) first, so that the
+    reduction over `data` moves only what the param keeps of it."""
+    def sync(g, p):
+        if not isinstance(g, DTensor):
+            return g
+        target = list(p.placements)
+        steps = [[t if c.is_replicate() and t.is_shard() else c
+                  for c, t in zip(g.placements, target)]]
+        for d in reversed(range(len(target))):
+            steps.append(steps[-1][:d] + [target[d]] + steps[-1][d + 1:])
+        for placements in steps:
+            if tuple(placements) != tuple(g.placements):
+                g = g.redistribute(p.device_mesh, placements)
+        return g
+    with scope("grad_sync"):
+        return [sync(g, p) for g, p in zip(grads, params)]
 
 
 def make_eval_step(cfg, st: StepSettings):

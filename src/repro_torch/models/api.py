@@ -24,17 +24,18 @@ def model_meta(cfg):
     return _family(cfg).model_meta(cfg)
 
 
-def init_params(cfg, seed: int = 0, *, device=None, dtype=None):
+def init_params(cfg, seed: int = 0, *, device=None, dtype=None, place=None):
     """Random params from `seed`, stored in `dtype` (default: the compute dtype;
     leaves the reference reads in fp32 stay fp32, see `ParamMeta.dtype`).
 
     The reference keeps fp32 params and casts them to the compute dtype at
     each use; casting once here gives the same bits at every use.  Training
     passes `dtype=torch.float32` for fp32 master weights, which every layer
-    casts at its use as the reference does.
+    casts at its use as the reference does.  `place` maps each leaf as it is
+    made (`meta.materialize`; `sharding.init_params` shards it).
     """
     dtype = dtype or getattr(torch, cfg.compute_dtype)
-    return meta_mod.materialize(model_meta(cfg), seed, resolve_device(device), dtype)
+    return meta_mod.materialize(model_meta(cfg), seed, resolve_device(device), dtype, place)
 
 
 def param_count(cfg) -> int:
@@ -92,6 +93,22 @@ def decode_step(cfg, params, cache, tokens, pos: int, *, positions=None):
 def n_image_patches(cfg, seq_len: int) -> int:
     """Patch count of the vlm family's stub frontend for a sequence of `seq_len`."""
     return min(1024, max(1, seq_len // 4))
+
+
+def batch_specs(cfg, shape):
+    """The train/prefill batch's layout for a `ShapeSpec`, as `CacheSpec`s
+    (shape, dtype), keyed as `demo_batch` and the data pipeline key it."""
+    B, S = shape.global_batch, shape.seq_len
+    spec, i32, f32 = transformer.CacheSpec, torch.int32, torch.float32
+    if cfg.family == "encdec":
+        return {"frame_embeds": spec((B, cfg.source_len, cfg.d_model), f32),
+                "tokens": spec((B, S), i32)}
+    if cfg.family == "vlm":
+        n_img = n_image_patches(cfg, S)
+        return {"patch_embeds": spec((B, n_img, cfg.d_model), f32),
+                "tokens": spec((B, S - n_img), i32),
+                "positions": spec((3, B, S), i32)}
+    return {"tokens": spec((B, S), i32)}
 
 
 def cache_specs(cfg, shape, dtype=torch.bfloat16):

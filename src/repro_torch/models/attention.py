@@ -10,14 +10,24 @@ Three compute paths, as in the reference `repro.models.attention`:
 reference.  Keys are cached post-RoPE.  The encoder-decoder adds a
 bidirectional self-attention and cross-attention against the encoder
 memory's K/V, computed once (`encode_memory_kv`) and cached for decode.
+
+On a mesh (DTensor q/k/v), the softmax core runs on each rank's own batch
+rows and heads (`_attend_local`, through `local_map`): attention does not
+mix them, so the core needs no collective, and DTensor's einsum, which
+flattens batch and head dims into one, cannot take both sharded in every
+torch the port runs on.
 """
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
+from torch.distributed.tensor import DTensor, Partial
+from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.distributed.autoshard import (constrain, constrain_residual, current_axes,
+                                               current_mesh)
 from repro_torch.models.layers import apply_rope, rms_norm_head
 from repro_torch.models.meta import ParamMeta
+from repro_torch.scope import mark, scope
 
 NEG_INF = -1e30
 
@@ -45,15 +55,23 @@ def attention_meta(cfg):
     return m
 
 
+def _heads(t, n_heads: int, dh: int):
+    """[B, S, n_heads * dh] -> [B, S, n_heads, dh].  On a mesh whose `model`
+    axis does not divide the heads (chatglm3-6b: 2 kv heads on 4), the
+    projection's columns are split inside a head; they are gathered over
+    `model` first (the fallback to replication the rules intend)."""
+    if isinstance(t, DTensor) and n_heads % (current_axes() or {}).get("model", 1):
+        t = constrain(t, ("batch", None, None))
+    return t.reshape(*t.shape[:2], n_heads, dh)
+
+
 def project_qkv(cfg, p, x_q, x_kv, positions_q, positions_kv):
     """Project and rope. x_q [B,Sq,D], x_kv [B,Skv,D] -> q[B,Sq,H,Dh], k/v[B,Skv,K,Dh]."""
     dt = x_q.dtype
-    B, Sq, _ = x_q.shape
-    Skv = x_kv.shape[1]
     H, K, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x_q @ p["wq"].to(dt)).reshape(B, Sq, H, Dh)
-    k = (x_kv @ p["wk"].to(dt)).reshape(B, Skv, K, Dh)
-    v = (x_kv @ p["wv"].to(dt)).reshape(B, Skv, K, Dh)
+    q = _heads(x_q @ p["wq"].to(dt), H, Dh)
+    k = _heads(x_kv @ p["wk"].to(dt), K, Dh)
+    v = _heads(x_kv @ p["wv"].to(dt), K, Dh)
     if cfg.qk_norm:
         q = rms_norm_head(q, p["q_norm"])
         k = rms_norm_head(k, p["k_norm"])
@@ -131,8 +149,46 @@ def attend_blocked(cfg, q, k, v, *, causal=True, window=0, q_offset=0,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dh).to(q.dtype)
 
 
+def _local_heads(k, n_q_heads: int, group: int, model_rank: int):
+    """This rank's kv heads when q's heads are split over `model` and k's are
+    whole (K does not divide the axis): the heads of q's local groups."""
+    if k.shape[2] * group == n_q_heads:
+        return k
+    if group % n_q_heads:
+        raise ValueError(f"{n_q_heads} local q heads straddle GQA groups of {group}")
+    first = model_rank * n_q_heads // group
+    return k[:, :, first:first + 1]
+
+
+def _attend_local(cfg, q, k, v, **kw):
+    """`attend` on each rank's batch rows and heads of DTensor q/k/v: q and k/v
+    are constrained to (batch, -, heads over `model`, -) (k/v whole over
+    `model` when K does not divide it) and the core runs on the local shards."""
+    roles = ("batch", None, "model", None)
+    q, k, v = constrain(q, roles), constrain(k, roles), constrain(v, roles)
+    mesh = current_mesh() or q.device_mesh
+    rank = mesh.get_local_rank("model") if "model" in mesh.mesh_dim_names else 0
+    group = cfg.num_heads // cfg.num_kv_heads
+
+    def core(ql, kl, vl):
+        kl, vl = (_local_heads(t, ql.shape[2], group, rank) for t in (kl, vl))
+        return attend(cfg, ql, kl, vl, **kw)
+
+    # where k/v are whole over a dim that splits q's heads, each rank reads only
+    # its own kv heads: their gradient there is a partial sum over that dim
+    kv_grad = [Partial() if kp.is_replicate() and qp.is_shard() else kp
+               for kp, qp in zip(k.placements, q.placements)]
+    return mark(local_map(core, out_placements=list(q.placements),
+                          in_placements=(q.placements, k.placements, v.placements),
+                          in_grad_placements=(q.placements, kv_grad, kv_grad),
+                          device_mesh=mesh)(q, k, v))
+
+
 def attend(cfg, q, k, v, *, causal=True, window=0, q_offset=0, impl="auto",
            kv_valid_len=None):
+    if isinstance(q, DTensor):
+        return _attend_local(cfg, q, k, v, causal=causal, window=window, q_offset=q_offset,
+                             impl=impl, kv_valid_len=kv_valid_len)
     if impl == "auto":
         big = q.shape[1] * k.shape[1] > (1 << 22) or k.shape[1] > 2048
         impl = "blocked" if big and kv_valid_len is None else "naive"
@@ -151,22 +207,22 @@ def attend(cfg, q, k, v, *, causal=True, window=0, q_offset=0, impl="auto",
 
 def apply_attention(cfg, p, x, positions, *, causal=True, window=0, impl="auto"):
     """Self-attention over x [B,S,D] (the encoder's, bidirectional with causal=False)."""
-    with record_function("attn"):
+    with scope("attn"):
         q, k, v = project_qkv(cfg, p, x, x, positions, positions)
         out = attend(cfg, q, k, v, causal=causal, window=window, impl=impl)
-        return out.reshape(*out.shape[:2], -1) @ p["wo"].to(x.dtype)
+        return constrain_residual(out.reshape(*out.shape[:2], -1) @ p["wo"].to(x.dtype))
 
 
 def apply_cross_attention(cfg, p, x, memory_kv):
     """Queries from x [B,Sq,D] against the encoder memory's (k, v) [B,Sm,K,Dh],
     unmasked; the attention is always `auto`, as in the reference."""
-    with record_function("cross_attn"):
+    with scope("cross_attn"):
         dt = x.dtype
         B, Sq, _ = x.shape
         q = (x @ p["wq"].to(dt)).reshape(B, Sq, cfg.num_heads, cfg.head_dim)
         k, v = memory_kv
         out = attend(cfg, q, k, v, causal=False, window=0, impl="auto")
-        return out.reshape(B, Sq, -1) @ p["wo"].to(dt)
+        return constrain_residual(out.reshape(B, Sq, -1) @ p["wo"].to(dt))
 
 
 def encode_memory_kv(cfg, p, memory):
@@ -205,7 +261,7 @@ def decode_attention(cfg, p, x, cache_k, cache_v, pos: int, *, window=0,
     (`pos % Sc` for the ring; the reference returns updated copies and
     donates the old buffers) and returns (out [B,1,D], cache_k, cache_v).
     """
-    with record_function("attn_decode"):
+    with scope("attn_decode"):
         dt = x.dtype
         B, Sc = x.shape[0], cache_k.shape[1]
         if positions is None:

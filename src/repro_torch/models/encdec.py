@@ -20,11 +20,12 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
+from repro_torch.distributed.autoshard import constrain_residual
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
+from repro_torch.scope import scope
 
 
 def encoder_block_meta(cfg):
@@ -52,28 +53,30 @@ def model_meta(cfg) -> Dict[str, Any]:
 # --------------------------------------------------------------------------
 
 def _encoder_block(cfg, p, x):
+    x = constrain_residual(x)
     h = L.apply_norm(cfg, p["norm1"], x)
     x = x + attn_mod.apply_attention(cfg, p["attn"], h, None, causal=False)
-    return x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["norm2"], x))
+    return constrain_residual(x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["norm2"], x)))
 
 
 def encode(cfg, params, frame_embeds, *, remat="none"):
     """Encoder over stub frame embeddings [B, Sm, D] -> memory [B, Sm, D]."""
-    with record_function("encoder"):
+    with scope("encoder"):
         x = frame_embeds.to(getattr(torch, cfg.compute_dtype))
         x = x + params["embed"]["pos_table"][:x.shape[1]].to(x.dtype)
         block = transformer.remat_fn(_encoder_block, remat)
         for p in params["enc_layers"]:
-            with record_function("layer"):
+            with scope("layer"):
                 x = block(cfg, p, x)
         return L.apply_norm(cfg, params["enc_norm"], x)
 
 
 def _decoder_block(cfg, p, x, memory, collect_cache):
     """One decoder layer. Returns (x, {k, v, cross_k, cross_v} or None)."""
+    x = constrain_residual(x)
     h = L.apply_norm(cfg, p["norm1"], x)
     q, k, v = attn_mod.project_qkv(cfg, p["attn"], h, h, None, None)
-    with record_function("self_attn"):
+    with scope("self_attn"):
         out = attn_mod.attend(cfg, q, k, v, causal=True)
         x = x + out.reshape(*out.shape[:2], -1) @ p["attn"]["wo"].to(x.dtype)
     mem_kv = attn_mod.encode_memory_kv(cfg, p["cross"], memory)
@@ -94,7 +97,7 @@ def _decoder(cfg, params, tokens, memory, *, remat="none", collect_cache=False):
     block = transformer.remat_fn(_decoder_block, remat)
     caches = []
     for p in params["layers"]:
-        with record_function("layer"):
+        with scope("layer"):
             x, cache = block(cfg, p, x, memory, collect_cache)
         caches.append(cache)
     return x, caches
@@ -110,7 +113,7 @@ def forward_hidden(cfg, params, batch, *, attn_impl="auto", remat="none", scan_i
     `auto`, as in the reference) and so is `scan_impl` (no SSM)."""
     memory = encode(cfg, params, batch["frame_embeds"], remat=remat)
     x, _ = _decoder(cfg, params, batch["tokens"], memory, remat=remat)
-    return (L.apply_norm(cfg, params["final_norm"], x),
+    return (transformer._final_norm(cfg, params, x),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
@@ -142,7 +145,7 @@ def decode_step(cfg, params, cache, tokens, pos: int):
     pos_ids = torch.full((B, 1), pos + cfg.source_len, dtype=torch.int32, device=tokens.device)
     x = L.embed_tokens(cfg, params["embed"], tokens, positions=pos_ids)
     for p, entry in zip(params["layers"], cache):
-        with record_function("layer"):
+        with scope("layer"):
             h = L.apply_norm(cfg, p["norm1"], x)
             a, _, _ = attn_mod.decode_attention(cfg, p["attn"], h, entry["k"], entry["v"], pos)
             x = x + a

@@ -5,9 +5,9 @@ Conventions (as in the reference `repro.models.layers`):
   * the residual stream is `compute_dtype`; norm statistics and softmax in fp32.
   * learned matrices are `ParamMeta` with logical axes, kept `[in, out]` so
     every projection is `x @ w`.
-  * the reference's sharding constraints are no-ops on one card and are not
-    copied; its `jax.named_scope`s become `record_function` ranges of the same
-    names, for the profiler slice to attribute.
+  * the reference's sharding constraints are `distributed.autoshard` calls at
+    the same sites (no-ops without a mesh); its `jax.named_scope`s become
+    `repro_torch.scope` ranges of the same names, which the capture reads.
 """
 from __future__ import annotations
 
@@ -15,9 +15,10 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
+from repro_torch.distributed.autoshard import constrain_logits, constrain_residual
 from repro_torch.models.meta import ParamMeta
+from repro_torch.scope import scope
 
 
 # --------------------------------------------------------------------------
@@ -131,13 +132,16 @@ def act(cfg, x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_mlp(cfg, p, x: torch.Tensor) -> torch.Tensor:
-    with record_function("mlp"):
+    with scope("mlp"):
         dt = x.dtype
         if cfg.glu:
             h = act(cfg, x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
         else:
             h = act(cfg, x @ p["w_up"].to(dt))
-        return h @ p["w_down"].to(dt)
+        # on a mesh: the row-parallel product's partial sum is reduced here
+        # (an all-reduce over `model`, as GSPMD chooses); DTensor alone would
+        # reduce-scatter it into the residual and gather it back later
+        return constrain_residual(h @ p["w_down"].to(dt))
 
 
 # --------------------------------------------------------------------------
@@ -160,12 +164,15 @@ def embed_meta(cfg):
 def embed_tokens(cfg, p, tokens: torch.Tensor, positions=None) -> torch.Tensor:
     """Gather path: rows of the table, cast to the compute dtype; with learned
     positions and `positions` given, plus those rows of the position table."""
-    with record_function("embed"):
+    with scope("embed"):
         cdt = getattr(torch, cfg.compute_dtype)
-        x = p["in_table"][tokens].to(cdt)
+        # the embedding op, not indexing: on a mesh DTensor leaves the table's
+        # gradient partial over the batch's axes, synchronised with every other
+        # gradient (indexing's strategy gathers the output gradient over `data`)
+        x = F.embedding(tokens, p["in_table"]).to(cdt)
         if cfg.rope == "learned" and positions is not None:
-            x = x + p["pos_table"][positions].to(cdt)
-        return x
+            x = x + F.embedding(positions, p["pos_table"]).to(cdt)
+        return constrain_residual(x)
 
 
 def head_table(cfg, p) -> torch.Tensor:
@@ -174,5 +181,5 @@ def head_table(cfg, p) -> torch.Tensor:
 
 
 def logits_head(cfg, p, x: torch.Tensor) -> torch.Tensor:
-    with record_function("logits"):
-        return x @ head_table(cfg, p).to(x.dtype)
+    with scope("logits"):
+        return constrain_logits(x @ head_table(cfg, p).to(x.dtype))

@@ -7,17 +7,36 @@ the LM head into each chunk and recomputes the chunk's logits in backward.
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.autoshard import constrain
 from repro_torch.models import layers as L
+from repro_torch.scope import scope
+
+
+def _lse_and_target(lf, targets):
+    """(logsumexp over the vocab, the target's logit) of fp32 logits [B,C,V]."""
+    return torch.logsumexp(lf, dim=-1), lf.gather(-1, targets[..., None].long())[..., 0]
+
+
+def _lse_and_target_vocab_parallel(lf, targets):
+    """The same, vocab-parallel on a mesh, as GSPMD partitions it: the max and
+    the sum of exponentials reduce over the vocab shards (two all-reduces over
+    `model`; torch.logsumexp would gather the logits).  DTensor cannot gather
+    along a sharded dim in this torch (its masked-partial result fails to
+    reduce); a one-hot product picks the same value exactly."""
+    m = lf.amax(dim=-1, keepdim=True).detach()
+    lse = (m + torch.log(torch.exp(lf - m).sum(dim=-1, keepdim=True)))[..., 0]
+    vocab = torch.arange(lf.shape[-1], device=targets.device)
+    return lse, (lf * (targets.long()[..., None] == vocab).to(lf.dtype)).sum(-1)
 
 
 def _xent_block(logits, targets, mask):
     """logits [B,C,V] (any float), targets [B,C] int, mask [B,C] -> (nll sum, count)."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    tgt = lf.gather(-1, targets[..., None].long())[..., 0]
+    pick = _lse_and_target_vocab_parallel if isinstance(lf, DTensor) else _lse_and_target
+    lse, tgt = pick(lf, targets)
     return ((lse - tgt) * mask).sum(), mask.sum()
 
 
@@ -25,7 +44,7 @@ def cross_entropy(logits, targets, mask=None, chunk: int = 512):
     """Mean token NLL. logits [B,S,V], targets [B,S]."""
     B, S, V = logits.shape
     mask = (torch.ones((B, S), device=logits.device) if mask is None else mask).float()
-    with record_function("loss"):
+    with scope("loss"):
         if S * V <= (1 << 23) or S % chunk:
             tot, cnt = _xent_block(logits, targets, mask)
         else:
@@ -38,8 +57,8 @@ def cross_entropy(logits, targets, mask=None, chunk: int = 512):
 
 
 def _head_xent(table, x_c, t_c, m_c):
-    with record_function("logits"):
-        logits = x_c @ table.to(x_c.dtype)
+    with scope("logits"):
+        logits = constrain(x_c @ table.to(x_c.dtype), ("batch", None, "model"))
     return _xent_block(logits, t_c, m_c)
 
 
@@ -53,7 +72,7 @@ def fused_lm_head_loss(cfg, embed_params, hidden, targets, mask=None, chunk: int
     chunk = min(chunk, S)
     while S % chunk:
         chunk //= 2
-    with record_function("loss"):
+    with scope("loss"):
         tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
         for s in range(0, S, chunk):
             t, c = checkpoint(_head_xent, table, hidden[:, s:s + chunk],
@@ -64,10 +83,12 @@ def fused_lm_head_loss(cfg, embed_params, hidden, targets, mask=None, chunk: int
 
 
 def _next_token_targets(tokens):
-    """Targets rolled (not sliced) by one, the last position masked out."""
+    """Targets rolled (not sliced) by one, the last position masked out.  The
+    roll is written as a concatenation, which DTensor shards in every torch
+    the port runs on."""
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
     mask[:, -1] = 0.0
-    return torch.roll(tokens, -1, dims=1), mask
+    return torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1), mask
 
 
 def _with_aux(cfg, loss, aux):

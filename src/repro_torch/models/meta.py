@@ -73,8 +73,11 @@ def _fold_path(seed: int, path: Tuple[str, ...]) -> int:
     return (h ^ (seed * 0x9E3779B1)) & 0xFFFFFFFF
 
 
-def materialize(tree, seed: int, device: torch.device, dtype: torch.dtype):
+def materialize(tree, seed: int, device: torch.device, dtype: torch.dtype, place=None):
     """Initialize a params tree from a meta tree.
+
+    `place(path, tensor)`, when given, maps each leaf as soon as it exists
+    (on a mesh: to its shard), so no more than one whole leaf is held.
 
     Each normal leaf is drawn in fp32 from its own `torch.Generator` on
     `device`, seeded by `_fold_path(seed, path)`, then cast to `dtype` (or
@@ -103,7 +106,9 @@ def materialize(tree, seed: int, device: torch.device, dtype: torch.dtype):
         w = torch.randn(m.shape, generator=gen, dtype=torch.float32, device=device)
         return (w * scale).to(dt)
 
-    return tree_map_meta(init_one, tree)
+    if place is None:
+        return tree_map_meta(init_one, tree)
+    return tree_map_meta(lambda path, m: place(path, init_one(path, m)), tree)
 
 
 def leaf_dtype(m: ParamMeta, dtype: torch.dtype) -> torch.dtype:

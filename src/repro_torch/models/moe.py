@@ -7,9 +7,10 @@ SwiGLU on its `capacity` slots, and a combine table weighted by the
 renormalised gates brings the results back.  Overflow past an expert's
 capacity is dropped, in the GShard priority order: choice rank first, then
 token order.  The reference's sort dispatch (`distributed/moe_ep.py`) runs
-only under a device mesh, and without one falls through to this path; on
-one card the port has no mesh, so `cfg.moe_dispatch` does not change what
-runs here.
+only under a device mesh, and without one falls through to this path.  The
+port has not ported it yet: under a mesh `cfg.moe_dispatch="sort"` raises
+(ROADMAP queue 1), and the einsum dispatch runs with the expert dim
+constrained onto `model`, as the reference's does without "sort".
 """
 from __future__ import annotations
 
@@ -18,9 +19,10 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
+from repro_torch.distributed.autoshard import constrain, current_mesh
 from repro_torch.models.meta import ParamMeta
+from repro_torch.scope import scope
 
 
 def moe_meta(cfg):
@@ -76,21 +78,28 @@ def router_dispatch(cfg, probs: torch.Tensor, cap: int):
 
 def apply_moe(cfg, p, x: torch.Tensor, *, group_size: int = 0):
     """MoE FFN. x [B,S,D] -> ([B,S,D], aux_loss)."""
-    with record_function("moe"):
+    if cfg.moe_dispatch == "sort" and current_mesh() is not None:
+        raise NotImplementedError("the sort dispatch (distributed/moe_ep.py) is not "
+                                  "ported yet (ROADMAP queue 1, item 1)")
+    with scope("moe"):
         dt = x.dtype
         tdt = getattr(torch, cfg.moe_table_dtype)
         B, S, D = x.shape
         xg, sg = _group(x, group_size or cfg.moe_group_size)     # [G,Sg,D]
-        with record_function("router"):
+        with scope("router"):
             probs = torch.softmax(xg.float() @ p["router"].float(), dim=-1)
             dispatch, combine, aux = router_dispatch(cfg, probs, capacity(cfg, sg))
             dispatch, combine = dispatch.to(tdt), combine.to(tdt)
-        with record_function("dispatch"):
+        with scope("dispatch"):
             x_e = torch.einsum("gsec,gsd->gecd", dispatch.to(dt), xg)
-        with record_function("experts"):
+            # expert dim onto the model axis (EP); replicated when E does not
+            # divide it (mixtral: experts TP'd on moe_mlp)
+            x_e = constrain(x_e, ("batch", "model", None, None))
+        with scope("experts"):
             g = torch.einsum("gecd,edf->gecf", x_e, p["w_gate"].to(dt))
             u = torch.einsum("gecd,edf->gecf", x_e, p["w_up"].to(dt))
             y_e = torch.einsum("gecf,efd->gecd", F.silu(g) * u, p["w_down"].to(dt))
-        with record_function("combine"):
-            y = torch.einsum("gsec,gecd->gsd", combine.to(dt), y_e)
+        with scope("combine"):
+            y = constrain(torch.einsum("gsec,gecd->gsd", combine.to(dt), y_e),
+                          ("batch", None, None))
         return y.reshape(B, S, D), aux

@@ -17,11 +17,11 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import mamba_scan_ref
 from repro_torch.models.meta import ParamMeta
+from repro_torch.scope import scope
 
 
 def dt_rank(cfg) -> int:
@@ -90,7 +90,7 @@ def apply_ssm(cfg, p, x, *, return_state=False, scan_impl="kernel"):
     if scan_impl not in ("kernel", "plain"):
         raise ValueError(f"scan_impl {scan_impl!r} not in kernel|plain")
     scan_fn = kops.mamba_scan if scan_impl == "kernel" else mamba_scan_ref
-    with record_function("ssm"):
+    with scope("ssm"):
         dt = x.dtype
         x_in, z = (x @ p["in_proj"].to(dt)).chunk(2, dim=-1)
         xc = F.silu(_conv1d_causal(cfg, p, x_in))
@@ -121,7 +121,7 @@ def decode_ssm(cfg, p, x, state):
     `state` ({"conv", "ssm"}) is not modified; the caller writes the new state
     where it keeps it.
     """
-    with record_function("ssm_decode"):
+    with scope("ssm_decode"):
         dt = x.dtype
         x_in, z = (x @ p["in_proj"].to(dt)).chunk(2, dim=-1)     # [B,1,di]
         xc = F.silu(_conv1d_causal(cfg, p, x_in, conv_state=state["conv"]))

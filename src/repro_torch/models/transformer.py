@@ -23,14 +23,15 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.distributed.autoshard import constrain_residual
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.scope import scope
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")   # encdec: models/encdec.py
 
@@ -125,10 +126,12 @@ def apply_block(cfg, p, x, positions, window: int, *, attn_impl="auto",
     if cfg.family == "ssm":
         return x + _ssm(cfg, p["ssm"], h, cache, scan_impl), None, cache
     q, k, v = attn_mod.project_qkv(cfg, p["attn"], h, h, positions, positions)
-    with record_function("attn"):
+    with scope("attn"):
         out = attn_mod.attend(cfg, q, k, v, causal=True, window=window,
                               impl=attn_impl)
-        attn_out = out.reshape(*out.shape[:2], -1) @ p["attn"]["wo"].to(x.dtype)
+        # the row-parallel partial sum reduced here, as in `layers.apply_mlp`
+        attn_out = constrain_residual(out.reshape(*out.shape[:2], -1)
+                                      @ p["attn"]["wo"].to(x.dtype))
     if collect_cache:
         cache.update(k=k, v=v)
     if cfg.family == "hybrid":
@@ -153,6 +156,14 @@ def _ffn(cfg, p, h):
     return L.apply_mlp(cfg, p["mlp"], h), None
 
 
+def _layer(cfg, p, x, *args, **kw):
+    """apply_block in the `layer` scope with the residual stream constrained on
+    entry and exit: the reference's layer body, which a remat recomputes whole."""
+    with scope("layer"):
+        x, aux, cache = apply_block(cfg, p, constrain_residual(x), *args, **kw)
+        return constrain_residual(x), aux, cache
+
+
 def apply_layers(cfg, layers, x, positions, *, attn_impl="auto", scan_impl="kernel",
                  remat="none", collect_cache=False):
     """Loop over layers, each under the `remat` policy. Returns (x, aux summed over
@@ -160,11 +171,10 @@ def apply_layers(cfg, layers, x, positions, *, attn_impl="auto", scan_impl="kern
     [L,B,d_conv-1,Di], ssm: [L,B,Di,N]}."""
     entries = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    block = remat_fn(apply_block, remat)
+    block = remat_fn(_layer, remat)
     for p, window in zip(layers, cfg.layer_windows()):
-        with record_function("layer"):
-            x, a, entry = block(cfg, p, x, positions, window, attn_impl=attn_impl,
-                                scan_impl=scan_impl, collect_cache=collect_cache)
+        x, a, entry = block(cfg, p, x, positions, window, attn_impl=attn_impl,
+                            scan_impl=scan_impl, collect_cache=collect_cache)
         if a is not None:
             aux = aux + a
         entries.append(entry)
@@ -181,7 +191,7 @@ def embed_inputs(cfg, params, batch):
     if cfg.family == "vlm":
         patches = batch["patch_embeds"].to(getattr(torch, cfg.compute_dtype))
         tok_x = L.embed_tokens(cfg, params["embed"], tokens)
-        with record_function("vision_stub"):
+        with scope("vision_stub"):
             x = torch.cat([patches, tok_x], dim=1)
         return x, batch["positions"]
     B, S = tokens.shape
@@ -198,7 +208,15 @@ def forward_hidden(cfg, params, batch, *, attn_impl="auto", remat="none", scan_i
     x, positions = embed_inputs(cfg, params, batch)
     x, aux, _ = apply_layers(cfg, params["layers"], x, positions, attn_impl=attn_impl,
                              scan_impl=scan_impl, remat=remat)
-    return L.apply_norm(cfg, params["final_norm"], x), aux
+    return _final_norm(cfg, params, x), aux
+
+
+def _final_norm(cfg, params, x):
+    """The final norm, its output constrained: on a mesh the head's chunks hand
+    back the hidden states' gradient in DTensor's own layouts, brought to the
+    residual layout (and reduced over `model`) before the norm's backward."""
+    with scope("final_norm"):
+        return constrain_residual(L.apply_norm(cfg, params["final_norm"], x))
 
 
 def forward(cfg, params, batch, *, attn_impl="auto"):
@@ -282,8 +300,9 @@ def decode_step(cfg, params, cache, tokens, pos: int, *, positions=None):
         entries = cache
         rings = [w > 0 and "k" in e and e["k"].shape[1] == w for e, w in zip(cache, windows)]
     for p, entry, window, ring in zip(params["layers"], entries, windows, rings):
-        with record_function("layer"):
-            x = _decode_block(cfg, p, x, entry, pos, window, positions, ring)
+        with scope("layer"):
+            x = _decode_block(cfg, p, constrain_residual(x), entry, pos, window, positions,
+                              ring)
     x = L.apply_norm(cfg, params["final_norm"], x)
     return L.logits_head(cfg, params["embed"], x), cache
 

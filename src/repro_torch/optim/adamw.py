@@ -14,9 +14,9 @@ from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.models.meta import leaves, tree_map
+from repro_torch.scope import scope
 
 
 @dataclass(frozen=True)
@@ -44,11 +44,12 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 def init(cfg: AdamWConfig, params) -> Dict[str, Any]:
-    """Zero moments in `state_dtype` and an int32 step count, on the params' device."""
+    """Zero moments in `state_dtype` (with a DTensor param's placements) and an int32
+    step count, on the params' device."""
     dt = getattr(torch, cfg.state_dtype)
     device = next(leaves(params)).device
-    return {"m": tree_map(lambda p: torch.zeros(p.shape, dtype=dt, device=p.device), params),
-            "v": tree_map(lambda p: torch.zeros(p.shape, dtype=dt, device=p.device), params),
+    return {"m": tree_map(lambda p: torch.zeros_like(p, dtype=dt), params),
+            "v": tree_map(lambda p: torch.zeros_like(p, dtype=dt), params),
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
@@ -61,7 +62,7 @@ def global_norm(tree) -> torch.Tensor:
 def update(cfg: AdamWConfig, grads, state, params) -> Tuple[Any, Dict[str, Any], Dict]:
     """One AdamW step, written into `params` and `state` in place. Returns
     (params, state, {"grad_norm", "lr"})."""
-    with record_function("optimizer"):
+    with scope("optimizer"):
         count = state["count"] + 1
         gnorm = global_norm(grads)
         scale = (torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)

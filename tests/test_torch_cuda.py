@@ -319,3 +319,89 @@ def test_smoke_train_step_on_card_launches_no_kernel(arch):
 def _param_leaves(tree):
     from repro_torch.models.meta import leaves
     return list(leaves(tree))
+
+
+def _run_on_card(code: str) -> str:
+    """A snippet in its own process (a process group lives for the whole
+    process); returns its output."""
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": os.path.join(repo, "src"),
+           "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    return res.stdout
+
+
+@pytest.mark.cuda
+def test_nccl_one_card_mesh_trains_as_the_straight_trainer():
+    """`Trainer(mesh=(1, 1))` on a real nccl group of world size 1: two steps'
+    losses and grad norms within 1e-3 of the straight `Trainer`'s (the first
+    loss equal), under deterministic algorithms."""
+    import socket
+    _need_card()
+    with socket.socket() as s:            # a free port for the rendezvous
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out = _run_on_card(r'''
+import os, torch, torch.distributed as dist
+torch.use_deterministic_algorithms(True)
+os.environ.update(MASTER_ADDR="localhost", MASTER_PORT="@PORT@", RANK="0", WORLD_SIZE="1")
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.launch.presets import StepSettings
+from repro_torch.launch.train import Trainer
+cfg = smoke_config(get_config("qwen2-vl-2b"))
+st = StepSettings(accum=2, remat="dots")
+a = Trainer(cfg, steps=2, batch=4, seq=64, settings=st).run()
+b = Trainer(cfg, steps=2, batch=4, seq=64, settings=st, mesh=(1, 1)).run()
+assert dist.get_world_size() == 1 and dist.get_backend() == "nccl"
+for x, y in zip(a, b):
+    print("PAIR", x["loss"], y["loss"], x["grad_norm"], y["grad_norm"])
+dist.destroy_process_group()
+'''.replace("@PORT@", str(port)))
+    pairs = [[float(v) for v in l.split()[1:]] for l in out.splitlines() if l.startswith("PAIR")]
+    assert len(pairs) == 2 and pairs[0][0] == pairs[0][1]
+    for la, lb, ga, gb in pairs:
+        assert abs(la - lb) <= 1e-3 * abs(la) and abs(ga - gb) <= 1e-3 * abs(ga)
+
+
+@pytest.mark.cuda
+def test_fake_pg_capture_on_card():
+    """The capture of a 2x4 smoke train step as rank 0 under the fake process
+    group, with the tensors on the card: sites, grad_sync on data, attention,
+    FLOPs and a peak allocation."""
+    _need_card()
+    out = _run_on_card(r'''
+import torch
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.core import trace_step
+from repro_torch.data.pipeline import shard_batch
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.autoshard import activation_sharding
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.presets import StepSettings
+from repro_torch.launch.steps import make_train_step
+from repro_torch.models import api
+from repro_torch.optim import adamw
+cfg = smoke_config(get_config("chatglm3-6b"))
+mesh, spec = make_host_mesh((2, 4), ("data", "model"), backend="fake", device="cuda")
+params = sh.distribute_params(api.init_params(cfg, 0, dtype=torch.float32), mesh,
+                              sh.param_placements(cfg, mesh))
+oc = adamw.AdamWConfig()
+opt = adamw.init(oc, params)
+host = {k: v.cpu().numpy() for k, v in api.demo_batch(cfg, 8, 64).items()}
+specs = sh.batch_pspecs(cfg, type("S", (), {"global_batch": 8, "seq_len": 64})(), mesh)
+batch = shard_batch(host, mesh, {k: sh.placements_for(s, mesh) for k, s in specs.items()})
+with activation_sharding(mesh):
+    tr = trace_step(make_train_step(cfg, oc, StepSettings(accum=2, remat="full")),
+                    (params, opt, batch), mesh, spec)
+sems = {(e.semantic, e.link_class) for e in tr.events}
+assert tr.sites > 0 and ("grad_sync", "nvlink.data") in sems, sems
+assert any(s == "attention" for s, _ in sems)
+assert tr.hlo_flops > 0 and tr.per_device_memory_bytes > 0
+print("SITES", tr.sites)
+''')
+    assert "SITES" in out

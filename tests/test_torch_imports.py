@@ -35,6 +35,21 @@ def test_every_module_imports_without_jax_or_repro():
     assert int(n) >= 15 and bad == "[]", res.stdout
 
 
+def test_scan_covers_the_sharding_and_profiler_modules():
+    """The walk above reaches the sharding slice's modules, and the store copy
+    no longer reaches the reference's HLO parser."""
+    mods = _modules()
+    for name in ("repro_torch.scope", "repro_torch.launch.mesh",
+                 "repro_torch.distributed.sharding", "repro_torch.distributed.autoshard",
+                 "repro_torch.core.capture", "repro_torch.core.events",
+                 "repro_torch.core.topology", "repro_torch.core.store",
+                 "repro_torch.core.costmodel", "repro_torch.core.attribution",
+                 "repro_torch.core.roofline", "repro_torch.core.commcheck",
+                 "repro_torch.core.detect"):
+        assert name in mods, name
+    assert "hlo_parser" not in (PKG / "core" / "store.py").read_text()
+
+
 def test_sources_have_no_jax_or_repro_import():
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) >= 15

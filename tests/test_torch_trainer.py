@@ -298,9 +298,23 @@ def test_grad_compression_still_trains():
     assert np.isfinite([m["loss"] for m in tr.run()]).all()
 
 
-def test_mesh_waits_for_the_sharding_slice():
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 4"):
-        Trainer(CFG, mesh=(2, 4), device="cpu")
+def test_mesh_waits_for_the_sharding_slice(monkeypatch):
+    """`Trainer(mesh=...)` runs since the sharding slice (tests/test_torch_dist.py
+    trains on 8 gloo ranks); the MoE sort dispatch still waits: a config with
+    `moe_dispatch="sort"` is refused by name under a mesh, and runs the einsum
+    dispatch without one, as the reference's does."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import api, moe
+    mcfg = smoke_config(get_config("mixtral-8x22b")).replace(
+        moe_dispatch="sort", compute_dtype="float32")
+    layer = api.init_params(mcfg, 0, dtype=torch.float32, device="cpu")["layers"][0]["moe"]
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 8, mcfg.d_model)).astype(np.float32))
+    y, _ = moe.apply_moe(mcfg, layer, x)
+    assert y.shape == x.shape and torch.isfinite(y).all()
+    monkeypatch.setattr(moe, "current_mesh", lambda: "a mesh")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 1"):
+        moe.apply_moe(mcfg, layer, x)
 
 
 def test_watchdog_flags_stragglers():
