@@ -86,7 +86,29 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                third, straight run with the mesh's vocab-parallel loss formulation
                (the one mesh-only difference in the model's maths), reported
                against the mesh run bit for bit
-  17. a JSON line of every ported kernel (K1 also by kernel: the tensor-core one at
+  17. moe     — one qwen3-moe-235b-a22b MoE layer at full width (d_model 4096, 128
+               experts, top-8, moe_d_ff 1536), fp32, no-drop capacity factor 16, x of
+               2 x 1024 from seed 0, on a one-rank nccl mesh: apply_moe with the sort
+               dispatch against the einsum dispatch, output relative 1e-4, aux 1e-5, and
+               after a backward of mean(y^2) + 0.01 * aux every gradient finite, non-zero
+               and within a relative 1e-4; no kernel launched; each one's forward +
+               backward ms (CUDA events) and the peak GB it adds
+  18. moe-trace — qwen3-moe-235b-a22b at full width, 2 of its 94 layers, as rank 0
+               of (2, 4) under the fake process group: fp32 master weights and moments,
+               accum 2, remat "full", global batch 8 x 2048, captured once with each
+               dispatch (a warm-up step, the captured step, a step with the capture
+               off); checks: a moe_combine all-reduce on nvlink.model in the sort's
+               trace, no all-to-all in either, grad_sync in both, no launch
+  19. session — the back half on the card's own traces: one TraceSession of [trace]'s
+               chatglm3-6b trace, the same re-priced with `data` on InfiniBand and the
+               two [moe-trace] captures, saved as json, npz and uncompressed npz under
+               build/chip_smoke_session/ and reloaded (the last with mmap) with equal
+               labels, totals, table and site counts; einsum diffed against sort by
+               (semantic, kind, link); commcheck and the detectors over all four (the
+               IB re-pricing raises cross_node_bulk with the saving `ib_saving` gives);
+               the what-if sweep (ib-2x only for the IB variant); HTML and JSON reports;
+               host seconds of each step and the files' sizes
+  20. a JSON line of every ported kernel (K1 also by kernel: the tensor-core one at
                chatglm3-6b's and gemma3-4b's global shapes, the CUDA-core one at
                gemma3-4b's fp32 check's), then the JSON result line.
 Each model's weights are freed before the next model is built.  Without a CUDA
@@ -202,6 +224,18 @@ N_DECODE = 16
 TRACE = dict(arch="chatglm3-6b", mesh=(2, 4), B=8, S=2048)
 # the one-card mesh against the straight Trainer: the first TRAINS row's shape
 SHARD_REL = 1e-3
+# one qwen3-moe-235b-a22b MoE layer at full width (d_model 4096, 128 experts, top-8,
+# moe_d_ff 1536), fp32, at the no-drop capacity E/k, on a one-rank nccl mesh: the
+# sort dispatch against the einsum dispatch.  Its sort buffer [E*C + 1, D] with
+# C = k*T*16/E = T = 2048 is 262145 x 4096 fp32, 4.29 GB, as is y_e [E, C, D];
+# the einsum dispatch's [G, Sg, k, E, C] slot table is 4 x 512 x 8 x 128 x 512,
+# 4.29 GB in fp32 (8.59 GB as one_hot's int64)
+MOE = dict(arch="qwen3-moe-235b-a22b", B=2, S=1024, rel=1e-4, aux=1e-5, grad_rel=1e-4)
+# the sharded train step of qwen3-moe-235b-a22b at full width and 2 of its 94
+# layers, captured with each dispatch as rank 0 of (2, 4) under the fake group
+MOE_TRACE = dict(arch="qwen3-moe-235b-a22b", layers=2, mesh=(2, 4), B=8, S=2048)
+# the back half's files, under the git-ignored build/
+SESSION_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_session"
 
 
 def check(ok, msg):
@@ -774,7 +808,8 @@ def link_table(events):
 
 def trace_phase(rt):
     """The capture of the sharded train step at full width (see the module's
-    docstring).  Returns its launches (every count 0)."""
+    docstring).  Keeps the trace for the session phase in `rt.kept`.  Returns
+    its launches (every count 0)."""
     torch, api, sh, core = rt.torch, rt.api, rt.sharding, rt.core
     cfg = rt.get_config(TRACE["arch"])
     mesh, spec = rt.make_host_mesh(TRACE["mesh"], ("data", "model"), backend="fake",
@@ -855,10 +890,17 @@ def trace_phase(rt):
                peak_gb=peak_gb, rank_gflop=tr.hlo_flops / 1e9, roofline=rf.row(),
                launches=launches)
     print("[trace] result " + json.dumps(res))
+    rt.kept["trace"] = (tr, spec)
     del params, opt, batch, tr
     torch.cuda.empty_cache()
     rt.dist.destroy_process_group()
     return launches
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
 
 
 def shard_phase(rt):
@@ -869,10 +911,8 @@ def shard_phase(rt):
     difference.  Returns its launches (every count 0)."""
     torch, spec, losses = rt.torch, TRAINS[0], rt.losses
     cfg = rt.get_config(spec.arch)
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0", WORLD_SIZE="1")
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(free_port()), RANK="0",
+                      WORLD_SIZE="1")
     settings = rt.StepSettings(accum=2, remat="dots")
     logs = {}
     plain_pick = losses._lse_and_target
@@ -912,6 +952,255 @@ def shard_phase(rt):
     check(pairs[0][0]["loss"] == pairs[0][1]["loss"], "step-0 losses differ")
     check(worst < SHARD_REL, f"mesh 1x1 vs straight: {worst}")
     return launches
+
+
+def moe_phase(rt):
+    """One qwen3-moe-235b-a22b MoE layer at full width on a one-rank nccl mesh
+    (see MOE): `apply_moe` with the sort dispatch against the einsum dispatch,
+    both on the mesh's DTensors from the same seed-0 fp32 weights and x; the
+    output, the aux loss and, after a backward of mean(y^2) + 0.01 * aux, every
+    gradient.  Forward + backward ms (CUDA events, the second of two runs) and
+    peak GB of each.  Returns its launches (every count 0)."""
+    torch, sh, moe = rt.torch, rt.sharding, rt.moe
+    cfg = rt.get_config(MOE["arch"])
+    cfg = cfg.replace(capacity_factor=cfg.num_experts / cfg.top_k)
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(free_port()), RANK="0",
+                      WORLD_SIZE="1")
+    backend = "nccl" if rt.device == "cuda" else "gloo"
+    mesh, _ = rt.make_host_mesh((1, 1), ("data", "model"), backend=backend)
+    sizes = sh.mesh_axis_sizes(mesh)
+    placements = {}
+    rt.tree_map_meta(lambda path, m: placements.__setitem__(path[-1], sh.placements_for(
+        sh.spec_for(m.shape, m.logical, sh.TRAIN_RULES, sizes), mesh)), moe.moe_meta(cfg))
+    gen = torch.Generator(device=rt.device).manual_seed(0)
+    x_full = torch.randn(MOE["B"], MOE["S"], cfg.d_model, generator=gen, device=rt.device)
+    T = MOE["B"] * MOE["S"]
+    cap = math.ceil(cfg.top_k * T * cfg.capacity_factor / cfg.num_experts)
+    print(f"[moe] {cfg.name} MoE layer: d_model {cfg.d_model}, {cfg.num_experts} experts, "
+          f"top-{cfg.top_k}, moe_d_ff {cfg.moe_d_ff}, fp32, capacity factor "
+          f"{cfg.capacity_factor:g} (no drops); x {MOE['B']} x {MOE['S']} x {cfg.d_model}; one-rank "
+          f"{backend} mesh (1, 1); sort buffer {(cfg.num_experts * cap + 1) * cfg.d_model * 4 / 1e9:.2f} GB")
+
+    def run(dispatch):
+        """One forward + backward; its outputs, gradients (the sort's kept on the
+        host while the einsum runs: 9.7 GB of expert gradients), ms, and the peak
+        GB it added to what was allocated before it."""
+        params = rt.materialize(moe.moe_meta(cfg), 0, torch.device(rt.device), torch.float32,
+                                place=lambda path, t: rt.distribute_tensor(
+                                    t, mesh, placements[path[-1]]).requires_grad_())
+        x = rt.distribute_tensor(x_full, mesh, [rt.Shard(0), rt.Replicate()]).requires_grad_()
+        c = cfg.replace(moe_dispatch=dispatch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        with rt.activation_sharding(mesh):
+            y, aux = moe.apply_moe(c, params, x)
+            ((y.float() ** 2).mean() + 0.01 * aux).backward()
+        end.record()
+        torch.cuda.synchronize()
+        out = dict(y=y.full_tensor().detach(), aux=float(aux.full_tensor().detach()),
+                   grads={k: t.grad.full_tensor() for k, t in [("x", x)] + sorted(params.items())},
+                   ms=start.elapsed_time(end),
+                   peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9)
+        del params, x, y, aux
+        return out
+
+    zero_counts(rt.counters)
+    res = {}
+    for dispatch in ("sort", "einsum"):
+        first_ms = run(dispatch)["ms"]
+        torch.cuda.empty_cache()
+        res[dispatch] = run(dispatch)                   # warm: the second run's readings
+        res[dispatch]["ms_first"] = first_ms
+        if dispatch == "sort":
+            res[dispatch]["grads"] = {k: g.cpu() for k, g in res[dispatch]["grads"].items()}
+        torch.cuda.empty_cache()
+    launches = read_counts(rt.counters)
+    s, e = res["sort"], res["einsum"]
+    y_rel = rel(torch, s["y"], e["y"])
+    aux_err = abs(s["aux"] - e["aux"])
+    grad_rel = {k: rel(torch, g.to(e["grads"][k].device), e["grads"][k])
+                for k, g in s["grads"].items()}
+    finite = all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+                 for g in s["grads"].values())
+    summary = dict(arch=cfg.name, B=MOE["B"], S=MOE["S"], capacity=cap, y_rel=y_rel,
+                   aux_sort=s["aux"], aux_einsum=e["aux"], aux_abs_err=aux_err,
+                   grad_rel=grad_rel, grads_finite_nonzero=finite,
+                   fwd_bwd_ms={k: res[k]["ms"] for k in res},
+                   fwd_bwd_ms_first={k: res[k]["ms_first"] for k in res},
+                   peak_gb={k: res[k]["peak_gb"] for k in res}, launches=launches)
+    print(f"[moe] sort vs einsum: y rel {y_rel:.3e} (limit {MOE['rel']}), aux {s['aux']:.7f} vs "
+          f"{e['aux']:.7f} (limit {MOE['aux']}), grads rel "
+          + ", ".join(f"{k} {v:.3e}" for k, v in grad_rel.items()) + f" (limit {MOE['grad_rel']})")
+    print(f"[moe] forward + backward ms (second run; first in brackets): sort {s['ms']:.2f} "
+          f"[{s['ms_first']:.2f}], einsum {e['ms']:.2f} [{e['ms_first']:.2f}]; peak GB sort "
+          f"{s['peak_gb']:.2f}, einsum {e['peak_gb']:.2f}")
+    print("[moe] result " + json.dumps(summary))
+    check(rt.dist.get_backend() == backend and rt.dist.get_world_size() == 1,
+          f"the MoE mesh did not run on a one-rank {backend} group")
+    rt.dist.destroy_process_group()
+    del res, s, e, x_full
+    torch.cuda.empty_cache()
+    check(all(n == 0 for n in launches.values()), f"the MoE layer launched kernels {launches}")
+    check(y_rel < MOE["rel"], f"sort vs einsum output {y_rel}")
+    check(aux_err < MOE["aux"], f"sort vs einsum aux {aux_err}")
+    check(finite, "a sort-dispatch gradient is not finite or is all zero")
+    check(all(v < MOE["grad_rel"] for v in grad_rel.values()), f"gradients {grad_rel}")
+    return launches
+
+
+def moe_trace_phase(rt):
+    """The sharded train step of qwen3-moe-235b-a22b (see MOE_TRACE) captured
+    with the sort and with the einsum dispatch: each a warm-up step, a captured
+    step and a step with the capture off.  Keeps both traces for the session
+    phase.  Returns its launches (every count 0)."""
+    torch, sh, core = rt.torch, rt.sharding, rt.core
+    cfg = rt.get_config(MOE_TRACE["arch"]).replace(num_layers=MOE_TRACE["layers"])
+    mesh, spec = rt.make_host_mesh(MOE_TRACE["mesh"], ("data", "model"), backend="fake",
+                                   device=rt.device)
+    B, S = MOE_TRACE["B"], MOE_TRACE["S"]
+    shape = rt.ShapeSpec("moe-trace", "train", S, B)
+    placements = {k: sh.placements_for(s, mesh)
+                  for k, s in sh.batch_pspecs(cfg, shape, mesh).items()}
+    oc = rt.adamw.AdamWConfig()
+    zero_counts(rt.counters)
+    out = {}
+    for dispatch in ("sort", "einsum"):
+        c = cfg.replace(moe_dispatch=dispatch)
+        torch.cuda.reset_peak_memory_stats()
+        params = sh.init_params(c, 0, mesh)
+        opt = rt.adamw.init(oc, params)
+        batch = rt.shard_batch(rt.SyntheticTokens(c, rt.DataConfig(B, S, seed=0)).batch_at(0),
+                               mesh, placements)
+        step = rt.make_train_step(c, oc, rt.StepSettings(accum=2, remat="full"))
+        if dispatch == "sort":
+            local_gb = sum(t.to_local().numel() * 4 for t in rt.leaves(params)) * 3 / 1e9
+            print(f"[moe-trace] {c.name}, {c.num_layers} of 94 layers: "
+                  f"{rt.api.param_count(c) / 1e9:.3f}B params, rank 0 of {MOE_TRACE['mesh']} "
+                  f"(data, model) under the fake process group; {local_gb:.2f} GB of local fp32 "
+                  f"params and moments; global batch {B} x {S}, accum 2, remat full")
+        ms = {}
+        for mode in ("warm", "on", "off"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with rt.activation_sharding(mesh):
+                if mode == "on":
+                    tr = core.trace_step(step, (params, opt, batch), mesh, spec,
+                                         label=f"{c.name} {dispatch}")
+                else:
+                    step(params, opt, batch)
+            torch.cuda.synchronize()
+            ms[mode] = (time.perf_counter() - t0) * 1e3
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        table = link_table(tr.events)
+        print(f"[moe-trace] {dispatch}: {tr.sites} sites; step ms warm-up {ms['warm']:.1f}, "
+              f"capture on {ms['on']:.1f}, off {ms['off']:.1f}; peak {peak_gb:.2f} GB; "
+              f"(semantic, kind, link): multiplicity, operand bytes, H100 model ms")
+        for key in sorted(table):
+            mult, nbytes, secs = table[key]
+            print(f"[moe-trace]   {'/'.join(key)}: {mult}, {nbytes}, {secs * 1e3:.4f}")
+        out[dispatch] = dict(trace=tr, table=table, ms=ms, peak_gb=peak_gb)
+        del params, opt, batch, step
+        torch.cuda.empty_cache()
+    launches = read_counts(rt.counters)
+    rt.dist.destroy_process_group()
+    res = {d: dict(sites=v["trace"].sites, model_ms=v["trace"].total_est_time_s() * 1e3,
+                   collective_bytes=v["trace"].total_collective_bytes(),
+                   step_ms=v["ms"], peak_gb=v["peak_gb"],
+                   table={"/".join(k): r for k, r in sorted(v["table"].items())})
+           for d, v in out.items()}
+    print("[moe-trace] result " + json.dumps(dict(arch=cfg.name, layers=cfg.num_layers, B=B, S=S,
+                                                   launches=launches, **res)))
+    check(all(n == 0 for n in launches.values()), f"traced MoE steps launched kernels {launches}")
+    check(("moe_combine", "all-reduce", "nvlink.model") in out["sort"]["table"],
+          "the sort trace has no moe_combine all-reduce on nvlink.model")
+    for d, v in out.items():
+        check(not any(k[1] == "all-to-all" for k in v["table"]), f"{d}: an all-to-all")
+        check(any(k[0] == "grad_sync" for k in v["table"]), f"{d}: no grad_sync")
+    rt.kept.update({f"moe {d}": (v["trace"], spec) for d, v in out.items()})
+    return launches
+
+
+def session_phase(rt):
+    """The back half on the card's own traces (host only): one TraceSession of
+    [trace]'s chatglm3-6b trace, the same re-priced with `data` on InfiniBand,
+    and the two [moe-trace] captures; saved as json, npz and uncompressed npz
+    under SESSION_DIR and reloaded (the last with mmap), diffed (einsum against
+    sort), linted, run through the detectors and the what-if sweep, and
+    rendered as HTML and JSON reports.  Host seconds of each step, file sizes."""
+    from repro_torch.core import commcheck, detect, whatif
+    from repro_torch.core.events import Trace
+    from repro_torch.core.session import TraceSession
+    secs = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    glm, glm_spec = rt.kept["trace"]
+    ib_mesh = rt.MeshSpec(glm_spec.shape, glm_spec.axes, {"data": "ib", "model": "nvlink"})
+    ib_store = timed("reannotate", lambda: whatif.reannotate(
+        glm.store, whatif.Scenario("data-ib", axis_kind={"data": "ib"}), glm_spec, rt.H100))
+    glm_ib = Trace.from_store(f"{glm.label} data on IB", glm.mesh_shape, glm.mesh_axes,
+                              glm.num_devices, ib_store, op_stats=glm.op_stats,
+                              hlo_flops=glm.hlo_flops,
+                              per_device_memory_bytes=glm.per_device_memory_bytes,
+                              argument_bytes=glm.argument_bytes)
+    sort, einsum = rt.kept["moe sort"][0], rt.kept["moe einsum"][0]
+    sess = TraceSession("chip-smoke", [glm, glm_ib, sort, einsum])
+    SESSION_DIR.mkdir(parents=True, exist_ok=True)
+    want = (sess.labels(), sess.totals(), sess.table())
+    sizes = {}
+    for name, compress, mmap in (("session.json", True, False), ("session.npz", True, False),
+                                 ("session_raw.npz", False, True)):
+        path = str(SESSION_DIR / name)
+        timed(f"save {name}", lambda: sess.save(path, compress=compress))
+        got = timed(f"load {name}", lambda: TraceSession.load(path, mmap=mmap))
+        sizes[name] = os.path.getsize(path)
+        check((got.labels(), got.totals(), got.table()) == want, f"{name} reloads differently")
+        check([t.store.n for t in got] == [t.store.n for t in sess]
+              and [int(t.store.multiplicity.sum()) for t in got]
+              == [int(t.store.multiplicity.sum()) for t in sess], f"{name}: site counts")
+    diff = timed("diff", lambda: sess.diff(einsum.label, sort.label, by="sem_kind_link"))
+    print("[session] diff einsum -> sort by (semantic, kind, link):")
+    for line in diff.splitlines():
+        print("[session]   " + line)
+    lint = timed("commcheck", lambda: {t.label: commcheck.check_trace(t) for t in sess})
+    found = timed("detect", lambda: {t.label: detect.run_all(t) for t in sess})
+    for label in sess.labels():
+        print(f"[session] {label}: commcheck {[f.detector for f in lint[label]]}; detectors "
+              f"{[(f.detector, f.severity, round(f.est_saved_s * 1e3, 4)) for f in found[label]]}")
+    xnode = [f for f in found[glm_ib.label] if f.detector == "cross_node_bulk"]
+    saving = whatif.ib_saving(glm_ib.store, ib_mesh, rt.H100)
+    check(len(xnode) == 1 and xnode[0].est_saved_s == saving > 0,
+          f"data on IB: cross_node_bulk {xnode}, ib_saving {saving}")
+    check(not any(f.detector == "cross_node_bulk" for f in found[glm.label]),
+          "cross_node_bulk on the NVLink trace")
+    sweeps = timed("whatif", lambda: {
+        "nvlink": whatif.sweep(glm.store, glm_spec), "ib": whatif.sweep(glm_ib.store, ib_mesh)})
+    names = {k: [r.scenario.name for r in v] for k, v in sweeps.items()}
+    check("ib-2x" in names["ib"] and "ib-2x" not in names["nvlink"], f"what-if tiers {names}")
+    for k, v in sweeps.items():
+        print(f"[session] what-if ({k}): " + ", ".join(
+            f"{r.scenario.name} {r.saved_s * 1e3:.3f} ms" for r in v))
+
+    def reports():
+        for i, t in enumerate(sess):
+            for fmt in ("html", "json"):
+                path = SESSION_DIR / f"report_{i}.{fmt}"
+                with open(path, "w") as fp:
+                    sess.report(t.label, fmt=fmt, fp=fp)
+                sizes[path.name] = os.path.getsize(path)
+    timed("reports", reports)
+    res = dict(labels=sess.labels(), totals=sess.totals(), file_bytes=sizes, host_s=secs,
+               ib_saving_ms=saving * 1e3, whatif=names,
+               lint={k: [f.detector for f in v] for k, v in lint.items()},
+               detect={k: [f.detector for f in v] for k, v in found.items()})
+    print("[session] result " + json.dumps(res))
 
 
 def ring_cache(rt):
@@ -980,14 +1269,16 @@ def main() -> int:
     from repro_torch.launch.steps import (make_decode_step, make_eval_step, make_prefill_step,
                                           make_train_step)
     from repro_torch.launch.train import Trainer
-    from repro_torch.models import api, losses, transformer
-    from repro_torch.models.meta import leaves
+    from repro_torch.models import api, losses, moe, transformer
+    from repro_torch.models.meta import leaves, materialize, tree_map_meta
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     counters = {"flash_attention": fa, "mamba_scan": ms}
-    rt = SimpleNamespace(torch=torch, np=np, api=api, get_config=get_config,
+    rt = SimpleNamespace(torch=torch, np=np, api=api, get_config=get_config, kept={},
+                         device="cuda",
                          make_prefill_step=make_prefill_step,
                          make_decode_step=make_decode_step, StepSettings=StepSettings,
                          BatchedServer=BatchedServer, Request=Request, counters=counters,
@@ -998,7 +1289,10 @@ def main() -> int:
                          H100=H100, MeshSpec=MeshSpec, DataConfig=DataConfig,
                          SyntheticTokens=SyntheticTokens, shard_batch=shard_batch,
                          sharding=sharding, activation_sharding=activation_sharding,
-                         make_host_mesh=make_host_mesh, adamw=adamw, losses=losses)
+                         make_host_mesh=make_host_mesh, adamw=adamw, losses=losses, moe=moe,
+                         materialize=materialize, tree_map_meta=tree_map_meta,
+                         distribute_tensor=distribute_tensor, Shard=Shard,
+                         Replicate=Replicate)
 
     # 1. device
     smi = nvidia_smi()
@@ -1068,14 +1362,18 @@ def main() -> int:
         for kname, n in train_model(rt, spec).items():
             main_launches[kname] += n
 
-    # 15-16. the sharded train step: its capture, and one card's mesh against the
-    # straight Trainer
-    for phase in (trace_phase, shard_phase):
+    # 15-18. the sharded train step: its capture, and one card's mesh against the
+    # straight Trainer; the MoE sort dispatch against the einsum dispatch, and
+    # the captures of a sharded MoE step with each
+    for phase in (trace_phase, shard_phase, moe_phase, moe_trace_phase):
         for kname, n in phase(rt).items():
             main_launches[kname] += n
 
-    # 17. results: launches are the main paths' (every MODELS row's two prefills, each
-    # train phase's flash eval and straight run; the sharded steps launch none)
+    # 19. the profiler's back half on the card's own traces
+    session_phase(rt)
+
+    # 20. results: launches are the main paths' (every MODELS row's two prefills, each
+    # train phase's flash eval and straight run; the sharded and MoE steps launch none)
     print(f"[done] main-path launches {main_launches}")
     variants = {v: dict(launches=main_launches[f"flash_attention/{v}"],
                         at={where: dict(case=r["case"], max_abs_err=r["max_abs_err"],

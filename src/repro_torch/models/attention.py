@@ -55,13 +55,35 @@ def attention_meta(cfg):
     return m
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient leaves contiguous.  On the card, the
+    attention core's backward can hand a projection a strided gradient
+    (qwen3-moe's k: [B, S, Dh] laid out [B, Dh, S]), and DTensor on torch
+    2.11 views it, where a reshape would copy, back to the matmul's
+    [B*S, n], which fails."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # a clone: a DTensor reports its global layout as contiguous, so
+        # `contiguous()` would leave the local tensor as it is
+        if isinstance(grad, DTensor) and not grad.to_local().is_contiguous():
+            return grad.clone(memory_format=torch.contiguous_format)
+        return grad
+
+
 def _heads(t, n_heads: int, dh: int):
     """[B, S, n_heads * dh] -> [B, S, n_heads, dh].  On a mesh whose `model`
     axis does not divide the heads (chatglm3-6b: 2 kv heads on 4), the
     projection's columns are split inside a head; they are gathered over
     `model` first (the fallback to replication the rules intend)."""
-    if isinstance(t, DTensor) and n_heads % (current_axes() or {}).get("model", 1):
-        t = constrain(t, ("batch", None, None))
+    if isinstance(t, DTensor):
+        t = mark(_ContiguousGrad.apply(t))
+        if n_heads % (current_axes() or {}).get("model", 1):
+            t = constrain(t, ("batch", None, None))
     return t.reshape(*t.shape[:2], n_heads, dh)
 
 

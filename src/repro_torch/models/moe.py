@@ -6,11 +6,14 @@ every kept (token, choice) to a slot of its expert, each expert runs its
 SwiGLU on its `capacity` slots, and a combine table weighted by the
 renormalised gates brings the results back.  Overflow past an expert's
 capacity is dropped, in the GShard priority order: choice rank first, then
-token order.  The reference's sort dispatch (`distributed/moe_ep.py`) runs
-only under a device mesh, and without one falls through to this path.  The
-port has not ported it yet: under a mesh `cfg.moe_dispatch="sort"` raises
-(ROADMAP queue 1), and the einsum dispatch runs with the expert dim
-constrained onto `model`, as the reference's does without "sort".
+token order.  The expert dim is constrained onto `model` between dispatch
+and the experts; when it is sharded there (EP), each rank runs its own
+experts and the combine under `local_map` (`_experts_and_combine`).
+
+`cfg.moe_dispatch == "sort"` takes the sort dispatch
+(`distributed/moe_ep.py`) under a current mesh whose `model` size divides
+the experts, as the reference's rule does; without a mesh, or with experts
+that `model` does not divide, it falls through to this path.
 """
 from __future__ import annotations
 
@@ -19,10 +22,12 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
-from repro_torch.distributed.autoshard import constrain, current_mesh
+from repro_torch.distributed.autoshard import constrain, current_axes, current_mesh
 from repro_torch.models.meta import ParamMeta
-from repro_torch.scope import scope
+from repro_torch.scope import mark, scope
 
 
 def moe_meta(cfg):
@@ -78,9 +83,12 @@ def router_dispatch(cfg, probs: torch.Tensor, cap: int):
 
 def apply_moe(cfg, p, x: torch.Tensor, *, group_size: int = 0):
     """MoE FFN. x [B,S,D] -> ([B,S,D], aux_loss)."""
-    if cfg.moe_dispatch == "sort" and current_mesh() is not None:
-        raise NotImplementedError("the sort dispatch (distributed/moe_ep.py) is not "
-                                  "ported yet (ROADMAP queue 1, item 1)")
+    mesh = current_mesh()
+    if (cfg.moe_dispatch == "sort" and mesh is not None
+            and cfg.num_experts % current_axes().get("model", 1) == 0):
+        from repro_torch.distributed.moe_ep import apply_moe_sort
+        with scope("moe"):
+            return apply_moe_sort(cfg, p, x, mesh)
     with scope("moe"):
         dt = x.dtype
         tdt = getattr(torch, cfg.moe_table_dtype)
@@ -96,10 +104,52 @@ def apply_moe(cfg, p, x: torch.Tensor, *, group_size: int = 0):
             # divide it (mixtral: experts TP'd on moe_mlp)
             x_e = constrain(x_e, ("batch", "model", None, None))
         with scope("experts"):
-            g = torch.einsum("gecd,edf->gecf", x_e, p["w_gate"].to(dt))
-            u = torch.einsum("gecd,edf->gecf", x_e, p["w_up"].to(dt))
-            y_e = torch.einsum("gecf,efd->gecd", F.silu(g) * u, p["w_down"].to(dt))
+            w = [p[n].to(dt) for n in ("w_gate", "w_up", "w_down")]
+        y = _experts_and_combine(x_e, combine.to(dt), *w)
         with scope("combine"):
-            y = constrain(torch.einsum("gsec,gecd->gsd", combine.to(dt), y_e),
-                          ("batch", None, None))
+            y = constrain(y, ("batch", None, None))
         return y.reshape(B, S, D), aux
+
+
+def _experts(x_e, combine, wg, wu, wd):
+    """The experts' SwiGLU on x_e [G,E,C,D] and the combine back to [G,Sg,D]."""
+    with scope("experts"):
+        g = torch.einsum("gecd,edf->gecf", x_e, wg)
+        u = torch.einsum("gecd,edf->gecf", x_e, wu)
+        y_e = torch.einsum("gecf,efd->gecd", F.silu(g) * u, wd)
+    with scope("combine"):
+        return torch.einsum("gsec,gecd->gsd", combine, y_e)
+
+
+_EP_PLACEMENTS = (Shard(0), Shard(1), Replicate())
+
+
+def _experts_and_combine(x_e, combine, wg, wu, wd):
+    """`_experts`; with the expert dim of a DTensor x_e sharded over a mesh axis
+    (EP), on each rank's own experts (`local_map`), as GSPMD partitions it.
+
+    Each rank runs its experts on its groups and contracts them in the
+    combine: its output is a partial sum over the expert axis, which the
+    combine's constraint reduces.  The weights are gathered over the other
+    axes first (FSDP), in the `experts` scope.  (DTensor's einsum would
+    flatten the sharded expert dim with the capacity dim, which torch 2.11
+    refuses.)"""
+    pl = getattr(x_e, "placements", ())
+    if Shard(1) not in pl or any(q not in _EP_PLACEMENTS for q in pl):
+        return _experts(x_e, combine, wg, wu, wd)
+    mesh = x_e.device_mesh
+
+    def per_axis(on_groups, on_experts):
+        return tuple(on_groups if q == Shard(0) else on_experts if q == Shard(1)
+                     else Replicate() for q in pl)
+    w_pl = per_axis(Replicate(), Shard(0))
+    with scope("experts"):
+        w = [mark(t.redistribute(mesh, w_pl)) for t in (wg, wu, wd)]
+    c_pl = per_axis(Shard(0), Shard(2))
+    combine = mark(combine.redistribute(mesh, c_pl))
+    # gradients: the weights' are partial over the axes that split the groups
+    w_grad = per_axis(Partial(), Shard(0))
+    return mark(local_map(_experts, out_placements=list(per_axis(Shard(0), Partial())),
+                          in_placements=(pl, c_pl, w_pl, w_pl, w_pl),
+                          in_grad_placements=(pl, c_pl, w_grad, w_grad, w_grad),
+                          device_mesh=mesh)(x_e, combine, *w))

@@ -1,12 +1,20 @@
-"""Ranks of a `gloo` process group for tests/test_torch_dist.py.
+"""Ranks of a `gloo` process group for tests/test_torch_dist.py and
+tests/test_torch_moe_ep.py.
 
-    python tests/_torch_dist_worker.py step OUT_DIR D M PORT
+    python tests/_torch_dist_worker.py MODE OUT_DIR D M PORT
 
 starts D*M processes (spawn), each rank r of a (D, M) ("data", "model")
-mesh.  Each loads the fp32 params, batch and settings the test wrote to
-OUT_DIR/inputs.pt, runs one sharded `make_train_step`, checks that
-`shard_batch` gave it its own rows, and rank 0 writes the whole params,
-moments and metrics to OUT_DIR/sharded.pt.
+mesh.  MODE is
+  * `step`: each rank loads the fp32 params, batch and settings the test
+    wrote to OUT_DIR/inputs.pt, runs one sharded `make_train_step`, checks
+    that `shard_batch` gave it its own rows, and rank 0 writes the whole
+    params, moments and metrics to OUT_DIR/sharded.pt;
+  * `moe`: each rank loads the MoE config, fp32 weights and x [B, S, D] from
+    OUT_DIR/moe_inputs.pt, places the weights by the training rules and x's
+    rows over `data`, and runs `models.moe.apply_moe` with each
+    (name, dispatch, dtype, backward) of `MOE_RUNS`: the backward is of
+    mean(y^2) + 0.01 * aux.  Rank 0 writes each run's whole y, aux and
+    gradients (x's and the weights') to OUT_DIR/moe.pt.
 """
 import os
 import sys
@@ -58,10 +66,55 @@ def step_rank(rank: int, out_dir: str, shape, port: int) -> None:
     dist.destroy_process_group()
 
 
+MOE_RUNS = (("sort", "sort", torch.float32, True), ("einsum", "einsum", torch.float32, True),
+            ("sort_bf16", "sort", torch.bfloat16, False))
+
+
+def moe_rank(rank: int, out_dir: str, shape, port: int) -> None:
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.autoshard import activation_sharding
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.meta import tree_map_meta
+    from repro_torch.models.moe import apply_moe, moe_meta
+
+    mesh, _ = make_host_mesh(shape, ("data", "model"), backend="gloo", rank=rank,
+                             init_method=f"tcp://localhost:{port}")
+    inp = torch.load(os.path.join(out_dir, "moe_inputs.pt"), weights_only=False)
+    cfg = inp["cfg"]
+    sizes = sharding.mesh_axis_sizes(mesh)
+    specs = tree_map_meta(lambda _p, m: sharding.spec_for(m.shape, m.logical,
+                                                          sharding.TRAIN_RULES, sizes),
+                          moe_meta(cfg))
+    out = {}
+    for name, dispatch, dtype, backward in MOE_RUNS:
+        params = {k: distribute_tensor(v, mesh, sharding.placements_for(specs[k], mesh),
+                                       src_data_rank=None).requires_grad_(backward)
+                  for k, v in inp["params"].items()}
+        x = distribute_tensor(inp["x"].to(dtype), mesh, [Shard(0), Replicate()],
+                              src_data_rank=None).requires_grad_(backward)
+        with activation_sharding(mesh):
+            y, aux = apply_moe(cfg.replace(moe_dispatch=dispatch), params, x)
+            if backward:
+                ((y.float() ** 2).mean() + 0.01 * aux).backward()
+            res = {"y": sharding.full_tensor(y).detach().float(),
+                   "aux": float(sharding.full_tensor(aux))}
+            if backward:
+                res["grads"] = {k: t.grad.full_tensor() for k, t in
+                                [("x", x)] + sorted(params.items())}
+        out[name] = res
+    if rank == 0:
+        torch.save(out, os.path.join(out_dir, "moe.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+MODES = {"step": step_rank, "moe": moe_rank}
+
 if __name__ == "__main__":
     mode, out_dir, d, m, port = sys.argv[1:6]
     shape = (int(d), int(m))
-    if mode != "step":
+    if mode not in MODES:
         raise SystemExit(f"unknown mode {mode!r}")
-    mp.start_processes(step_rank, args=(out_dir, shape, int(port)), nprocs=shape[0] * shape[1],
-                       start_method="spawn")
+    mp.start_processes(MODES[mode], args=(out_dir, shape, int(port)),
+                       nprocs=shape[0] * shape[1], start_method="spawn")

@@ -4,6 +4,8 @@ Imports no jax, so it runs on the GPU machine:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 Each test skips where torch.cuda.is_available() is false.
 """
+import json
+
 import pytest
 import torch
 
@@ -405,3 +407,115 @@ assert tr.hlo_flops > 0 and tr.per_device_memory_bytes > 0
 print("SITES", tr.sites)
 ''')
     assert "SITES" in out
+
+
+@pytest.mark.cuda
+def test_sort_dispatch_matches_einsum_on_card():
+    """The MoE sort dispatch on a one-rank nccl mesh against the einsum
+    dispatch without a mesh, on the card at the smoke size with the no-drop
+    capacity (E/k): output and aux in fp32, every gradient within 1e-4, and
+    no kernel launched."""
+    import socket
+    _need_card()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out = _run_on_card(r'''
+import torch
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.distributed.autoshard import activation_sharding
+from repro_torch.kernels import flash_attention as fa, mamba_scan as ms
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import moe
+cfg = smoke_config(get_config("qwen3-moe-235b-a22b")).replace(num_experts=8, top_k=2,
+                                                             capacity_factor=4.0)
+g = torch.Generator(device="cuda").manual_seed(0)
+params = {k: torch.randn(m.shape, generator=g, device="cuda") * 0.1
+          for k, m in moe.moe_meta(cfg).items()}
+x = torch.randn(2, 64, cfg.d_model, generator=g, device="cuda")
+launches = (fa.launches, ms.launches)
+
+def run(dispatch, mesh):
+    if mesh is None:
+        p = {k: v.clone().requires_grad_() for k, v in params.items()}
+        xx = x.clone().requires_grad_()
+        y, aux = moe.apply_moe(cfg.replace(moe_dispatch=dispatch), p, xx)
+        ((y ** 2).mean() + 0.01 * aux).backward()
+        return y.detach(), float(aux), {"x": xx.grad, **{k: t.grad for k, t in p.items()}}
+    with activation_sharding(mesh):
+        p = {k: distribute_tensor(v, mesh, [Replicate(), Replicate()]).requires_grad_()
+             for k, v in params.items()}
+        xx = distribute_tensor(x, mesh, [Shard(0), Replicate()]).requires_grad_()
+        y, aux = moe.apply_moe(cfg.replace(moe_dispatch=dispatch), p, xx)
+        ((y ** 2).mean() + 0.01 * aux).backward()
+        grads = {k: t.grad.full_tensor() for k, t in [("x", xx)] + list(p.items())}
+        return y.full_tensor().detach(), float(aux.full_tensor()), grads
+
+mesh, _ = make_host_mesh((1, 1), ("data", "model"), backend="nccl",
+                         init_method="tcp://localhost:@PORT@", rank=0)
+ys, auxs, gs = run("sort", mesh)
+ye, auxe, ge = run("einsum", None)
+rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+print("Y", rel(ys, ye), "AUX", abs(auxs - auxe))
+for k in gs:
+    print("G", k, rel(gs[k], ge[k]), bool(torch.isfinite(gs[k]).all()), float(gs[k].abs().max()))
+print("LAUNCHES", (fa.launches, ms.launches) == launches)
+torch.distributed.destroy_process_group()
+'''.replace("@PORT@", str(port)))
+    lines = out.splitlines()
+    y = next(l.split() for l in lines if l.startswith("Y"))
+    assert float(y[1]) < 2e-5 and float(y[3]) < 1e-6
+    grads = [l.split() for l in lines if l.startswith("G ")]
+    assert len(grads) == 5
+    for _, name, rel, finite, peak in grads:
+        assert float(rel) < 1e-4 and finite == "True" and float(peak) > 0, name
+    assert "LAUNCHES True" in out
+
+
+@pytest.mark.cuda
+def test_captured_trace_session_saves_and_loads_on_card(tmp_path):
+    """A capture on the card (the sort dispatch's forward and backward as
+    rank 0 of 2x4 under the fake process group) saved as a session in json,
+    npz and uncompressed npz, and loaded back (the last with mmap): the same
+    labels, totals and tables; the combine's sum over model is there."""
+    _need_card()
+    out = _run_on_card(r'''
+import json, sys
+import torch
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.core import trace_step
+from repro_torch.core.session import TraceSession
+from repro_torch.distributed.autoshard import activation_sharding
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import moe
+cfg = smoke_config(get_config("qwen3-moe-235b-a22b")).replace(num_experts=8, top_k=2,
+                                                             moe_dispatch="sort")
+mesh, spec = make_host_mesh((2, 4), ("data", "model"), backend="fake", device="cuda")
+p = {k: distribute_tensor(torch.randn(m.shape, device="cuda"), mesh,
+                          [Replicate(), Shard(0) if k != "router" else Replicate()],
+                          src_data_rank=None).requires_grad_()
+     for k, m in moe.moe_meta(cfg).items()}
+x = distribute_tensor(torch.randn(4, 32, cfg.d_model, device="cuda"), mesh,
+                      [Shard(0), Replicate()], src_data_rank=None)
+
+def step(p, x):
+    y, aux = moe.apply_moe(cfg, p, x)
+    ((y.float() ** 2).mean() + 0.01 * aux).backward()
+
+with activation_sharding(mesh):
+    tr = trace_step(step, (p, x), mesh, spec, label="moe-sort")
+sess = TraceSession("card", [tr])
+want = (sess.labels(), sess.totals(), sess.table(), sess.table(by="semantic", metric="time"))
+for path, kw in (("@DIR@/s.json", {}), ("@DIR@/s.npz", {}), ("@DIR@/u.npz", {"mmap": True})):
+    sess.save(path, compress=not kw)
+    got = TraceSession.load(path, **kw)
+    assert (got.labels(), got.totals(), got.table(),
+            got.table(by="semantic", metric="time")) == want, path
+print("KEYS", json.dumps(sorted({(e.semantic, e.kind, e.link_class) for e in tr.events})))
+'''.replace("@DIR@", str(tmp_path)))
+    keys = {tuple(k) for k in json.loads(next(l for l in out.splitlines()
+                                              if l.startswith("KEYS"))[5:])}
+    assert ("moe_combine", "all-reduce", "nvlink.model") in keys
+    assert not any(k[1] == "all-to-all" for k in keys)

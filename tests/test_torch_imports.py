@@ -36,8 +36,9 @@ def test_every_module_imports_without_jax_or_repro():
 
 
 def test_scan_covers_the_sharding_and_profiler_modules():
-    """The walk above reaches the sharding slice's modules, and the store copy
-    no longer reaches the reference's HLO parser."""
+    """The walk above reaches the sharding, MoE and profiler modules, and the
+    store, session and synth copies import none of the reference's HLO parser,
+    tracer or watch daemon."""
     mods = _modules()
     for name in ("repro_torch.scope", "repro_torch.launch.mesh",
                  "repro_torch.distributed.sharding", "repro_torch.distributed.autoshard",
@@ -45,13 +46,20 @@ def test_scan_covers_the_sharding_and_profiler_modules():
                  "repro_torch.core.topology", "repro_torch.core.store",
                  "repro_torch.core.costmodel", "repro_torch.core.attribution",
                  "repro_torch.core.roofline", "repro_torch.core.commcheck",
-                 "repro_torch.core.detect"):
+                 "repro_torch.core.detect", "repro_torch.distributed.moe_ep",
+                 "repro_torch.core.persist", "repro_torch.core.diff",
+                 "repro_torch.core.whatif", "repro_torch.core.synth",
+                 "repro_torch.core.report", "repro_torch.core.session"):
         assert name in mods, name
-    assert "hlo_parser" not in (PKG / "core" / "store.py").read_text()
+    for name in ("store", "session", "synth"):
+        text = (PKG / "core" / f"{name}.py").read_text()
+        assert not re.search(r"import .*(hlo_parser|tracer|watch)|(hlo_parser|tracer|watch) import",
+                             text), name
 
 
 def test_sources_have_no_jax_or_repro_import():
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                         REPO / "examples" / "torch_quickstart.py"]
     assert len(files) >= 15
     offenders = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
                  for f in files for m in FORBIDDEN.finditer(f.read_text())]

@@ -300,10 +300,13 @@ def test_grad_compression_still_trains():
 
 def test_mesh_waits_for_the_sharding_slice(monkeypatch):
     """`Trainer(mesh=...)` runs since the sharding slice (tests/test_torch_dist.py
-    trains on 8 gloo ranks); the MoE sort dispatch still waits: a config with
-    `moe_dispatch="sort"` is refused by name under a mesh, and runs the einsum
-    dispatch without one, as the reference's does."""
+    trains on 8 gloo ranks), and so does the MoE sort dispatch
+    (tests/test_torch_moe_ep.py): a config with `moe_dispatch="sort"` runs the
+    einsum dispatch without a mesh, and under a mesh takes
+    `distributed.moe_ep.apply_moe_sort` when `model` divides the experts and
+    the einsum dispatch otherwise, as the reference's rule does."""
     from repro_torch.configs import get_config, smoke_config
+    from repro_torch.distributed import moe_ep
     from repro_torch.models import api, moe
     mcfg = smoke_config(get_config("mixtral-8x22b")).replace(
         moe_dispatch="sort", compute_dtype="float32")
@@ -312,9 +315,14 @@ def test_mesh_waits_for_the_sharding_slice(monkeypatch):
         (2, 8, mcfg.d_model)).astype(np.float32))
     y, _ = moe.apply_moe(mcfg, layer, x)
     assert y.shape == x.shape and torch.isfinite(y).all()
+    calls = []
+    monkeypatch.setattr(moe_ep, "apply_moe_sort", lambda c, p, xx, mesh: calls.append(mesh) or
+                        (xx, torch.zeros(())))
     monkeypatch.setattr(moe, "current_mesh", lambda: "a mesh")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 1"):
+    for model, n in ((mcfg.num_experts, 1), (mcfg.num_experts - 1, 1)):
+        monkeypatch.setattr(moe, "current_axes", lambda m=model: {"data": 2, "model": m})
         moe.apply_moe(mcfg, layer, x)
+        assert len(calls) == n and calls[-1] == "a mesh"
 
 
 def test_watchdog_flags_stragglers():
