@@ -10,17 +10,21 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   3. kernels — each kernel against its plain PyTorch version on the card, at the
                reference's test shapes (the tests' tolerances) and at every serving
                path's shape; kernel, plain, library and bound times
-               K1 flash_attention: path-shape max abs error 1e-2 (chatglm3-6b's;
-               hymba-1.5b's with windows 1024 and 0; h2o-danube-3-4b's at head dim
-               120 and mixtral-8x22b's, both with window 4096; gemma3-4b's at head
-               dim 256 with windows 1024 and 0; qwen2-vl-2b's; head dim 192, which
-               TMA zero-pads to 256), bf16 outputs element by element within two
-               bf16 rounding steps; each case names the kernel that ran
-               (tensor_core: bf16; cuda_core: fp32, also at the shape of gemma3-4b's
-               fp32 check) and its achieved TFLOP/s; the plain version of the
-               largest shapes runs one (batch, KV head) slice at a time
+               K1 flash_attention: bf16 path shapes element by element within two
+               bf16 rounding steps (chatglm3-6b's; hymba-1.5b's with windows 1024
+               and 0, at 4 rows and at [dryrun]'s 2 rows of rank 0 of (2, 4);
+               h2o-danube-3-4b's at head dim 120 and mixtral-8x22b's, both with
+               window 4096; gemma3-4b's at head dim 256 with windows 1024 and 0;
+               qwen2-vl-2b's; head dim 192, which TMA zero-pads to 256); fp32 path
+               shapes max abs error 2e-5 (gemma3-4b's fp32 check, and hymba-1.5b's
+               with windows 1024 and 0 as [dryrun]'s fp32 mesh prefill runs them);
+               each case names the kernel that ran (tensor_core: bf16; cuda_core:
+               fp32) and its achieved TFLOP/s; the plain version of the largest
+               shapes runs one (batch, KV head) slice at a time
                K2 mamba_scan: max abs error 1e-4 for y and the final state, at the
-               reference's cases and falcon-mamba-7b's and hymba-1.5b's shapes
+               reference's cases and falcon-mamba-7b's and hymba-1.5b's shapes (and
+               hymba-1.5b's on rank 0 of (2, 4), 800 of its 3200 channels, as [dryrun]
+               runs it)
   4-11. the models at full width with seed-0 random bf16 weights, one table row
                each (MODELS): prefill through make_prefill_step(attn_impl="flash"),
                16 greedy make_decode_step steps (qwen2-vl-2b's with [3, B, 1] m-rope
@@ -108,7 +112,24 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                IB re-pricing raises cross_node_bulk with the saving `ib_saving` gives);
                the what-if sweep (ib-2x only for the IB variant); HTML and JSON reports;
                host seconds of each step and the files' sizes
-  20. a JSON line of every ported kernel (K1 also by kernel: the tensor-core one at
+  20. dryrun  — the dry-run (launch/dryrun.py) on the card: (a) fake against real:
+               [trace]'s chatglm3-6b step traced again by dryrun.trace_cell on fake
+               tensors, and hymba-1.5b's prefill (4 x 2048, bf16, attn "flash") as rank
+               0 of (2, 4) under the fake group, run for real (K1 and K2 launched once a
+               layer on the rank's shards) and on fake tensors (no launch): equal site
+               tables (op, kind, groups, operand bytes, dtype, multiplicity) and FLOPs;
+               each prints its fake peak beside the real max_memory_allocated and
+               analytic_memory_bytes (no limit); (b) the same prefill on a one-rank nccl
+               mesh (K1 and K2 under local_map) against the straight prefill, logits and
+               every cache leaf: fp32 relative FP32_TOL, bf16 max abs 1e-2 and two bf16
+               steps; (c) DRYRUN_CELLS on the production mesh, (32, 8) and llama3-405b
+               train_4k on (2, 32, 8), fake tensors on the card at full width and full
+               depth but llama3-405b's and qwen3-moe-235b-a22b's train_4k (2 layers, all
+               16 micro-batches), in DRYRUN_WORKERS processes: one line per cell
+               (fake-run seconds, collectives, bytes, the roofline's terms, dominant,
+               mfu_bound, the memory model against 80 GB, fake peak), no decode cell
+               gathering its cache, no launch, and a `[dryrun] result` line
+  21. a JSON line of every ported kernel (K1 also by kernel: the tensor-core one at
                chatglm3-6b's and gemma3-4b's global shapes, the CUDA-core one at
                gemma3-4b's fp32 check's), then the JSON result line.
 Each model's weights are freed before the next model is built.  Without a CUDA
@@ -124,7 +145,8 @@ import subprocess
 import sys
 import time
 from collections import namedtuple
-from concurrent.futures import ThreadPoolExecutor
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -134,24 +156,29 @@ FP32_TOL = 2e-5       # relative; the port's fp32 parity tolerance against the r
 # bf16 outputs, element by element: kernel and plain version both compute in fp32
 # and round once to bf16, so they may differ by one bf16 step, at most 2^-7 of the
 # value (plus the fp32 difference near zero, ~1e-6 in the fp32 cases); the limit
-# is two such steps
+# is two such steps.  This is the bf16 path shapes' limit: a max abs one cannot
+# be, since one step is 2^-6 at an output in [2, 4) (the first causal row's
+# output is its value row, |v| up to ~4 at these sizes)
 BF16_STEP, BF16_FLOOR, BF16_MAX_STEPS = 2.0 ** -7, 1e-5, 2.0
+PER_ELEMENT = None      # a case's tol: no max abs limit, the per-element one alone
 # B, H, K, S, D, causal, window, dtype, tol: the serving paths' shapes in the model
 # layout (chatglm3-6b's prefill of 4 x 1024; hymba-1.5b's of 4 x 2048 with its
 # windowed and global layers; h2o-danube-3-4b's 2 x 8192 at head dim 120 and
 # mixtral-8x22b's, both with a window of 4096; gemma3-4b's 4 x 2048 at head dim
-# 256, with its local and global layers; qwen2-vl-2b's 4 x 2048), and the reference's FLASH_CASES (tests/test_kernels.py) with their
-# tolerances.  The path shapes' max abs limit is set from their readings: error
-# 0.0039 (one bf16 step at values in [0.5, 1)) against a median |output| of
-# ~0.05 at chatglm3-6b's
-PATH_SHAPES = [(4, 32, 2, 1024, 128, True, 0, "bfloat16", 1e-2),
-               (4, 25, 5, 2048, 64, True, 1024, "bfloat16", 1e-2),
-               (4, 25, 5, 2048, 64, True, 0, "bfloat16", 1e-2),
-               (2, 32, 8, 8192, 120, True, 4096, "bfloat16", 1e-2),
-               (2, 48, 8, 8192, 128, True, 4096, "bfloat16", 1e-2),
-               (4, 8, 4, 2048, 256, True, 1024, "bfloat16", 1e-2),
-               (4, 8, 4, 2048, 256, True, 0, "bfloat16", 1e-2),
-               (4, 12, 2, 2048, 128, True, 0, "bfloat16", 1e-2)]
+# 256, with its local and global layers; qwen2-vl-2b's 4 x 2048; hymba-1.5b's on
+# rank 0 of (2, 4) in [dryrun]'s fidelity prefill, 2 rows, every head), limited per
+# element; and the reference's FLASH_CASES (tests/test_kernels.py) with their
+# tolerances
+PATH_SHAPES = [(4, 32, 2, 1024, 128, True, 0, "bfloat16", PER_ELEMENT),
+               (4, 25, 5, 2048, 64, True, 1024, "bfloat16", PER_ELEMENT),
+               (4, 25, 5, 2048, 64, True, 0, "bfloat16", PER_ELEMENT),
+               (2, 32, 8, 8192, 120, True, 4096, "bfloat16", PER_ELEMENT),
+               (2, 48, 8, 8192, 128, True, 4096, "bfloat16", PER_ELEMENT),
+               (4, 8, 4, 2048, 256, True, 1024, "bfloat16", PER_ELEMENT),
+               (4, 8, 4, 2048, 256, True, 0, "bfloat16", PER_ELEMENT),
+               (4, 12, 2, 2048, 128, True, 0, "bfloat16", PER_ELEMENT),
+               (2, 25, 5, 2048, 64, True, 1024, "bfloat16", PER_ELEMENT),
+               (2, 25, 5, 2048, 64, True, 0, "bfloat16", PER_ELEMENT)]
 # the plain version materialises [B, H, Sq, Skv] fp32 scores; above this many
 # bytes it runs one (batch, KV head) slice at a time
 PLAIN_SLICE_BYTES = 2 << 30
@@ -168,14 +195,19 @@ FLASH_CASES = [
 # 192 (TMA zero-pads it to 256 in shared memory) in the model layout, with S not a
 # multiple of 64 and a window edge inside a tile, at the path limit
 BF16_WIDE_CASE = (1, 4, 2, 256, 256, True, 0, "bfloat16", 3e-2)
-BF16_PAD_CASE = (2, 8, 4, 1000, 192, True, 300, "bfloat16", 1e-2)
-# fp32 runs the CUDA-core kernel: gemma3-4b's global layers at its fp32 check's 2 x 2048
-FP32_PATH_CASE = (2, 8, 4, 2048, 256, True, 0, "float32", 2e-5)
+BF16_PAD_CASE = (2, 8, 4, 1000, 192, True, 300, "bfloat16", PER_ELEMENT)
+# fp32 runs the CUDA-core kernel: gemma3-4b's global layers at its fp32 check's
+# 2 x 2048, and hymba-1.5b's layers with windows 1024 and 0 at 4 x 2048, as the
+# [dryrun] fp32 prefill on a one-rank nccl mesh runs them; max abs error 2e-5
+FP32_PATH_CASES = [(2, 8, 4, 2048, 256, True, 0, "float32", 2e-5),
+                   (4, 25, 5, 2048, 64, True, 1024, "float32", 2e-5),
+                   (4, 25, 5, 2048, 64, True, 0, "float32", 2e-5)]
 # K2: B, S, Di, N — the reference's MAMBA_CASES (tests/test_kernels.py:69) and the
 # shapes of the serving paths' prefills (falcon-mamba-7b 4 x 1024, hymba-1.5b
-# 4 x 2048); the reference's tolerance
+# 4 x 2048, and hymba-1.5b's on rank 0 of (2, 4): 2 rows, 800 of its 3200
+# channels); the reference's tolerance
 SCAN_CASES = [(1, 128, 64, 8), (2, 256, 128, 16), (1, 512, 256, 16), (1, 96, 64, 4)]
-SCAN_PATH_SHAPES = [(4, 1024, 8192, 16), (4, 2048, 3200, 16)]
+SCAN_PATH_SHAPES = [(4, 1024, 8192, 16), (4, 2048, 3200, 16), (2, 2048, 800, 16)]
 SCAN_TOL = 1e-4
 SCAN_NO_LIBRARY = ("no single PyTorch call computes a linear recurrence with a "
                    "per-step readout (h_t = a_t*h_{t-1} + bx_t, y_t = <h_t, c_t>)")
@@ -236,6 +268,32 @@ MOE = dict(arch="qwen3-moe-235b-a22b", B=2, S=1024, rel=1e-4, aux=1e-5, grad_rel
 MOE_TRACE = dict(arch="qwen3-moe-235b-a22b", layers=2, mesh=(2, 4), B=8, S=2048)
 # the back half's files, under the git-ignored build/
 SESSION_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_session"
+# [dryrun]: the fidelity prefill (hymba-1.5b, bf16, K1 and K2 on each rank's shards)
+# as rank 0 of (2, 4) under the fake group, and the same prefill on a one-rank nccl
+# mesh against the straight one-card prefill, in fp32 (relative FP32_TOL) and in
+# bf16 (max abs BF16_MESH_ABS and BF16_MAX_STEPS steps per element); K1 launches
+# once and K2 once per layer in each real prefill
+FIDELITY = dict(arch="hymba-1.5b", mesh=(2, 4), B=4, S=2048,
+                per_prefill={"flash_attention": 32, "flash_attention/tensor_core": 32,
+                             "mamba_scan": 32})
+BF16_MESH_ABS = 1e-2
+# the dry-run's cells on the production mesh (arch, shape, multi-pod, layers), full
+# width on fake tensors on the card, full depth but where layers are named: every
+# family and every shape kind, with llama3-405b and qwen3-moe-235b-a22b train_4k (all
+# 16 micro-batches) at 2 of their 126 and 94 layers, whose full depth takes tens of
+# minutes a cell (PERF.md); the full sweep is the CLI's.  DRYRUN_WORKERS processes
+# run them, each with its own fake process group
+DRYRUN_CELLS = [("llama3-405b", "train_4k", False, 2), ("qwen3-moe-235b-a22b", "train_4k", False, 2),
+                ("chatglm3-6b", "prefill_32k", False, None), ("chatglm3-6b", "decode_32k", False, None),
+                ("falcon-mamba-7b", "prefill_32k", False, None),
+                ("falcon-mamba-7b", "long_500k", False, None),
+                ("hymba-1.5b", "decode_32k", False, None), ("hymba-1.5b", "long_500k", False, None),
+                ("mixtral-8x22b", "decode_32k", False, None), ("gemma3-4b", "long_500k", False, None),
+                ("h2o-danube-3-4b", "long_500k", False, None),
+                ("qwen2-vl-2b", "decode_32k", False, None),
+                ("whisper-tiny", "train_4k", False, None), ("whisper-tiny", "decode_32k", False, None),
+                ("llama3-405b", "train_4k", True, 2)]
+DRYRUN_WORKERS = 4
 
 
 def check(ok, msg):
@@ -400,7 +458,8 @@ def flash_case(torch, F, fa, ref, case, seed, q_offset=0, layout="bhsd"):
     diff = (out.float() - plain.float()).abs()
     err = float(diff.max())
     check(torch.isfinite(out).all().item(), f"non-finite kernel output {case}")
-    check(err < tol, f"kernel vs plain {case} q_offset={q_offset}: {err} >= {tol}")
+    check(tol is PER_ELEMENT or err < tol,
+          f"kernel vs plain {case} q_offset={q_offset}: {err} >= {tol}")
     steps = None
     if dt == torch.bfloat16:
         steps = float((diff / (BF16_STEP * plain.float().abs() + BF16_FLOOR)).max())
@@ -1203,6 +1262,178 @@ def session_phase(rt):
     print("[session] result " + json.dumps(res))
 
 
+def site_table(trace):
+    """A trace's sites as comparable rows: (op_name, kind, replica groups, operand
+    bytes, dtype, multiplicity), sorted."""
+    return sorted((e.op_name, e.kind, str(e.replica_groups), e.operand_bytes, e.dtype,
+                   e.multiplicity) for e in trace.events)
+
+
+def fidelity(rt, name, real, fake, launches_fake, mem_model, secs):
+    """Check a fake trace against the real one (equal sites and FLOPs, no launch
+    in the fake run) and print both peaks beside the analytic memory model."""
+    same_sites = site_table(fake) == site_table(real)
+    same_flops = fake.hlo_flops == real.hlo_flops
+    res = dict(step=name, sites=fake.sites, multiplicity=sum(e.multiplicity for e in fake.events),
+               sites_equal=same_sites, rank_gflop=fake.hlo_flops / 1e9,
+               real_rank_gflop=real.hlo_flops / 1e9, flops_equal=same_flops,
+               gb_accessed=fake.hlo_bytes / 1e9, real_gb_accessed=real.hlo_bytes / 1e9,
+               fake_peak_gb=fake.per_device_memory_bytes / 1e9,
+               real_peak_gb=real.per_device_memory_bytes / 1e9,
+               mem_model_gb=mem_model / 1e9, fake_s=secs, launches_fake=launches_fake)
+    print(f"[dryrun] {name}: fake vs real: {fake.sites} sites, equal {same_sites}; "
+          f"{fake.hlo_flops / 1e9:.1f} GFLOP, equal {same_flops}; peak GB: fake "
+          f"{res['fake_peak_gb']:.2f}, real (max_memory_allocated) {res['real_peak_gb']:.2f}, "
+          f"analytic_memory_bytes {res['mem_model_gb']:.2f}; fake run {secs:.1f} s")
+    print("[dryrun] fidelity " + json.dumps(res))
+    if not same_sites:
+        for row in sorted(set(site_table(fake)) ^ set(site_table(real)))[:12]:
+            print(f"[dryrun]   differs: {'fake' if row in site_table(fake) else 'real'} {row}")
+    check(same_sites, f"{name}: fake and real site tables differ")
+    check(same_flops, f"{name}: fake {fake.hlo_flops} vs real {real.hlo_flops} FLOPs")
+    check(all(n == 0 for n in launches_fake.values()), f"{name}: the fake run launched "
+                                                       f"{launches_fake}")
+
+
+def dryrun_phase(rt):
+    """The dry-run (see the module's docstring): (a) fake against real, for
+    [trace]'s step and for the fidelity prefill; (b) the fidelity prefill on a
+    one-rank nccl mesh against the straight prefill; (c) DRYRUN_CELLS on the
+    production mesh.  Returns the launches of its real prefills."""
+    torch, dr, sh = rt.torch, rt.dryrun, rt.sharding
+    # (a) [trace]'s chatglm3-6b train step, its real capture against a fake one
+    real, _ = rt.kept["trace"]
+    cfg = rt.get_config(TRACE["arch"])
+    mesh, spec = rt.make_host_mesh(TRACE["mesh"], ("data", "model"), backend="fake",
+                                   device=rt.device)
+    shape = rt.ShapeSpec("trace", "train", TRACE["S"], TRACE["B"])
+    st = rt.StepSettings(accum=2, remat="full")
+    zero_counts(rt.counters)
+    fake, _, secs = dr.trace_cell(cfg, shape, st, mesh, spec, fake=True)
+    mem = dr.analytic_memory_bytes(cfg, shape, st, mesh, dr.cell_rules(cfg, shape, st, mesh))
+    fidelity(rt, f"{cfg.name} train {TRACE['B']} x {TRACE['S']}", real, fake,
+             read_counts(rt.counters), mem["total_with_slack"], secs)
+
+    # (a) the fidelity prefill: real (K1 and K2 on rank 0's shards) and fake
+    cfg = rt.get_config(FIDELITY["arch"])
+    shape = rt.ShapeSpec("fidelity", "prefill", FIDELITY["S"], FIDELITY["B"])
+    st = rt.StepSettings(accum=1, remat="none", attn_impl="flash")
+    zero_counts(rt.counters)
+    real, _, real_s = dr.trace_cell(cfg, shape, st, mesh, spec, fake=False)
+    torch.cuda.synchronize()
+    launches = read_counts(rt.counters)
+    torch.cuda.empty_cache()
+    zero_counts(rt.counters)
+    fake, _, secs = dr.trace_cell(cfg, shape, st, mesh, spec, fake=True)
+    mem = dr.analytic_memory_bytes(cfg, shape, st, mesh, dr.cell_rules(cfg, shape, st, mesh))
+    print(f"[dryrun] {cfg.name} prefill {shape.global_batch} x {shape.seq_len}, rank 0 of "
+          f"{FIDELITY['mesh']}: real run {real_s:.2f} s, launches {launches}")
+    fidelity(rt, f"{cfg.name} prefill {shape.global_batch} x {shape.seq_len}", real, fake,
+             read_counts(rt.counters), mem["total_with_slack"], secs)
+    for kname, n in FIDELITY["per_prefill"].items():
+        check(launches[kname] == n, f"fidelity prefill: {kname} {launches[kname]} != {n}")
+    rt.dist.destroy_process_group()
+
+    # (b) the same prefill on a one-rank nccl mesh against the straight one
+    mesh_launches = {k: 0 for k in launches}
+    for dtype in ("float32", "bfloat16"):
+        c = cfg.replace(compute_dtype=dtype)
+        B, S = FIDELITY["B"], FIDELITY["S"]
+        prefill = rt.make_prefill_step(c, rt.StepSettings(attn_impl="flash"))
+        batch = rt.api.demo_batch(c, B, S, seed=0)
+        logits, cache = prefill(rt.api.init_params(c, 0), batch)
+        os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(free_port()), RANK="0",
+                          WORLD_SIZE="1")
+        one, _ = rt.make_host_mesh((1, 1), ("data", "model"), backend="nccl")
+        params = sh.init_params(c, 0, one, dtype=getattr(torch, dtype),
+                                rules=sh.serve_rules_for(c, one))
+        bshape = rt.ShapeSpec("fidelity", "prefill", S, B)
+        mbatch = rt.shard_batch({k: v.cpu().numpy() for k, v in batch.items()}, one,
+                                {k: sh.placements_for(p, one)
+                                 for k, p in sh.batch_pspecs(c, bshape, one).items()})
+        zero_counts(rt.counters)
+        with rt.activation_sharding(one):
+            m_logits, m_cache = prefill(params, mbatch)
+        torch.cuda.synchronize()
+        got = read_counts(rt.counters)
+        kernel = "flash_attention/" + rt.counters["flash_attention"].kernel_for(
+            getattr(torch, dtype), c.head_dim)
+        per_layer = FIDELITY["per_prefill"]["flash_attention"]
+        check(got["flash_attention"] == got[kernel] == got["mamba_scan"] == per_layer,
+              f"mesh prefill {dtype}: launches {got}, {kernel} and K2 {per_layer} each")
+        for kname, n in got.items():
+            mesh_launches[kname] += n
+        pairs = [("logits", m_logits, logits)] + [(k, m_cache[k], cache[k]) for k in cache]
+        errs = {}
+        for name, a, b in pairs:
+            a = sh.full_tensor(a).float()
+            b = b.float()
+            diff = (a - b).abs()
+            errs[name] = dict(rel=float(diff.max() / (b.abs().max() + 1e-6)),
+                              max_abs=float(diff.max()),
+                              bf16_steps=float((diff / (BF16_STEP * b.abs() + BF16_FLOOR)).max()))
+        print(f"[dryrun] {c.name} prefill {B} x {S} {dtype} on a one-rank nccl mesh vs the "
+              f"straight prefill: " + json.dumps(errs))
+        check(rt.dist.get_backend() == "nccl", "the mesh prefill did not run on nccl")
+        rt.dist.destroy_process_group()
+        for name, e in errs.items():
+            if dtype == "float32":
+                check(e["rel"] < FP32_TOL, f"mesh prefill {name} fp32: {e['rel']}")
+            else:
+                check(e["max_abs"] < BF16_MESH_ABS and e["bf16_steps"] <= BF16_MAX_STEPS,
+                      f"mesh prefill {name} bf16: {e}")
+        del params, mbatch, m_logits, m_cache, logits, cache, batch
+        torch.cuda.empty_cache()
+
+    # (c) the cells on the production mesh, fake tensors on the card, in worker
+    # processes (each its own fake group; launches counted in each)
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(DRYRUN_WORKERS, mp_context=ctx) as pool:
+        rows = list(pool.map(dryrun_cell, DRYRUN_CELLS, [rt.device] * len(DRYRUN_CELLS)))
+    for r in rows:
+        depth = f" ({r['layers']} layers)" if r["layers"] else ""
+        print(f"[dryrun] {r['arch']} {r['shape']} {r['mesh']}{depth}: fake run {r['lower_s']} s, "
+              f"{r['n_collectives']} collectives ({r['sites']} sites), "
+              f"{r['collective_bytes_per_dev'] / 1e9:.3f} GB; compute {r['compute_ms']:.2f} / "
+              f"memory {r['memory_ms']:.2f} / collective {r['collective_ms']:.2f} ms, dominant "
+              f"{r['dominant']}, mfu_bound {r['mfu_bound']:.3f}; mem model "
+              f"{r['mem_model_gb']:.2f} GB, fits 80 GB {r['fits_hbm']}, fake peak "
+              f"{r['mem_gb_per_dev']:.2f} GB", flush=True)
+    print("[dryrun] result " + json.dumps(dict(cells=rows, sweep_s=time.perf_counter() - t0)))
+    for r in rows:
+        name = f"{r['arch']} {r['shape']} {r['mesh']}"
+        check(r["n_collectives"] > 0, f"{name}: no collective")
+        check(r["cache_gathers"] == 0, f"{name}: the decode cache is gathered")
+        check(all(n == 0 for n in r["launches"].values()), f"{name} launched {r['launches']}")
+    return {k: launches[k] + mesh_launches[k] for k in launches}
+
+
+def dryrun_cell(cell, device):
+    """One DRYRUN_CELLS row in a worker process: `dryrun.lower_cell` on the
+    production mesh; its row with its sites, GB accessed, launches and the
+    decode cache's gathers."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh_spec
+    arch, shape, multi_pod, layers = cell
+    cfg = get_config(arch)
+    over = {"num_layers": layers} if layers else None
+    counters = {"flash_attention": fa, "mamba_scan": ms}
+    zero_counts(counters)
+    r = dryrun.lower_cell(arch, shape, multi_pod=multi_pod, device=device, cfg_overrides=over)
+    tr = r.pop("trace")
+    gathers = dryrun.cache_gathers(tr, cfg.replace(**(over or {})), SHAPES[shape],
+                                   make_mesh_spec(multi_pod=multi_pod)) \
+        if SHAPES[shape].kind == "decode" else []
+    r.update(layers=layers, sites=tr.sites, gb_accessed=tr.hlo_bytes / 1e9,
+             cache_gathers=len(gathers), launches=read_counts(counters))
+    return r
+
+
 def ring_cache(rt):
     """The windowed ring cache at full width: h2o-danube-3-4b with its window cut to
     RING's, fp32 compute and fp32 caches, one ring of `window` slots against one full
@@ -1264,7 +1495,9 @@ def main() -> int:
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens, shard_batch, to_device
     from repro_torch.distributed import sharding
     from repro_torch.distributed.autoshard import activation_sharding
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh_spec
     from repro_torch.optim import adamw
     from repro_torch.launch.steps import (make_decode_step, make_eval_step, make_prefill_step,
                                           make_train_step)
@@ -1292,7 +1525,8 @@ def main() -> int:
                          make_host_mesh=make_host_mesh, adamw=adamw, losses=losses, moe=moe,
                          materialize=materialize, tree_map_meta=tree_map_meta,
                          distribute_tensor=distribute_tensor, Shard=Shard,
-                         Replicate=Replicate)
+                         Replicate=Replicate, dryrun=dryrun, configs=configs,
+                         make_mesh_spec=make_mesh_spec)
 
     # 1. device
     smi = nvidia_smi()
@@ -1322,8 +1556,9 @@ def main() -> int:
                               seed=101, layout="bshd"))
     results.append(flash_case(torch, F, fa, ref, BF16_WIDE_CASE, seed=105))
     results.append(flash_case(torch, F, fa, ref, BF16_PAD_CASE, seed=106, layout="bshd"))
-    fp32_path = flash_case(torch, F, fa, ref, FP32_PATH_CASE, seed=107, layout="bshd")
-    results.append(fp32_path)
+    fp32_paths = [flash_case(torch, F, fa, ref, case, seed=(107, 120, 121)[i], layout="bshd")
+                  for i, case in enumerate(FP32_PATH_CASES)]
+    results += fp32_paths
     results += [flash_case(torch, F, fa, ref, case, seed=102 + i, layout="bshd")
                 for i, case in enumerate(PATH_SHAPES)]
     print(f"[kernel] bounds use H100 SXM data-sheet rates: {PEAK_BYTES / 1e12} TB/s, "
@@ -1333,10 +1568,17 @@ def main() -> int:
         print("[kernel] " + json.dumps(r))
     path_results = dict(zip(PATH_SHAPES, results[-len(PATH_SHAPES):]))
     # the kernels' line reports the tensor-core K1 kernel at chatglm3-6b's and
-    # gemma3-4b's global shapes, the CUDA-core one (fp32 only) at gemma3-4b's fp32 check's
+    # gemma3-4b's global shapes and hymba-1.5b's rank shard, the CUDA-core one (fp32
+    # only) at gemma3-4b's fp32 check's and hymba-1.5b's fp32 mesh prefill's
     variant_path = {"tensor_core": {"chatglm3-6b": path_results[PATH_SHAPES[0]],
-                                    "gemma3-4b global": path_results[PATH_SHAPES[6]]},
-                    "cuda_core": {"gemma3-4b global, fp32 check": fp32_path}}
+                                    "gemma3-4b global": path_results[PATH_SHAPES[6]],
+                                    "hymba-1.5b rank shard, window 1024":
+                                        path_results[PATH_SHAPES[8]],
+                                    "hymba-1.5b rank shard, global":
+                                        path_results[PATH_SHAPES[9]]},
+                    "cuda_core": {"gemma3-4b global, fp32 check": fp32_paths[0],
+                                  "hymba-1.5b fp32 mesh prefill, window 1024": fp32_paths[1],
+                                  "hymba-1.5b fp32 mesh prefill, global": fp32_paths[2]}}
     path = variant_path["tensor_core"]["chatglm3-6b"]
     scans = [scan_case(torch, ms, ref, case, seed=200 + i)
              for i, case in enumerate(SCAN_CASES + SCAN_PATH_SHAPES)]
@@ -1372,8 +1614,13 @@ def main() -> int:
     # 19. the profiler's back half on the card's own traces
     session_phase(rt)
 
-    # 20. results: launches are the main paths' (every MODELS row's two prefills, each
-    # train phase's flash eval and straight run; the sharded and MoE steps launch none)
+    # 20. the dry-run: fake against real, the prefill on a mesh, the production cells
+    for kname, n in dryrun_phase(rt).items():
+        main_launches[kname] += n
+
+    # 21. results: launches are the main paths' (every MODELS row's two prefills, each
+    # train phase's flash eval and straight run, the dry-run's three real prefills on a
+    # mesh; the sharded, MoE and fake steps launch none)
     print(f"[done] main-path launches {main_launches}")
     variants = {v: dict(launches=main_launches[f"flash_attention/{v}"],
                         at={where: dict(case=r["case"], max_abs_err=r["max_abs_err"],

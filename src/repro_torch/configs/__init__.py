@@ -1,5 +1,6 @@
 """Architecture registry: the reference registry's 10 archs."""
-from repro_torch.configs.base import SHAPES, ModelConfig, ShapeSpec, smoke_config
+from repro_torch.configs.base import (SHAPE_ORDER, SHAPES, ModelConfig, ShapeSpec,
+                                      shape_applicable, smoke_config)
 from repro_torch.configs.chatglm3_6b import CONFIG as _chatglm3_6b
 from repro_torch.configs.falcon_mamba_7b import CONFIG as _falcon_mamba_7b
 from repro_torch.configs.gemma3_4b import CONFIG as _gemma3_4b
@@ -15,6 +16,8 @@ ARCHS = {cfg.name: cfg for cfg in (
     _whisper_tiny, _falcon_mamba_7b, _mixtral_8x22b, _qwen3_moe, _chatglm3_6b, _llama3_405b,
     _gemma3_4b, _h2o_danube3_4b, _hymba_1_5b, _qwen2_vl_2b)}
 
+ARCH_ORDER = tuple(ARCHS)
+
 
 def get_config(name: str) -> ModelConfig:
     if name not in ARCHS:
@@ -22,5 +25,5 @@ def get_config(name: str) -> ModelConfig:
     return ARCHS[name]
 
 
-__all__ = ["ARCHS", "SHAPES", "ModelConfig", "ShapeSpec", "get_config",
-           "smoke_config"]
+__all__ = ["ARCHS", "ARCH_ORDER", "SHAPES", "SHAPE_ORDER", "ModelConfig", "ShapeSpec",
+           "get_config", "shape_applicable", "smoke_config"]

@@ -138,6 +138,18 @@ SHAPES = {
     "long_500k": ShapeSpec("long_500k", "decode", 524288, 1, windowed_cache=True),
 }
 
+SHAPE_ORDER = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Whether a (config, shape) cell runs, and the reason when skipped."""
+    if shape.name == "long_500k" and not cfg.is_subquadratic:
+        if cfg.family == "encdec":
+            return False, ("enc-dec audio: source fixed at %d frames, decoder "
+                           "context <=448; 500k decode undefined" % cfg.source_len)
+        return False, "pure full-attention arch: unbounded KV at 500k ctx (skip per assignment)"
+    return True, ""
+
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
     """Reduced config of the same family for CPU smoke tests."""

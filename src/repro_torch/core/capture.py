@@ -34,23 +34,43 @@ backward (remat) is a forward one, as in the reference.
 
 `Trace.hlo_flops` is the rank's FLOP count of the step (forward, recompute
 and backward), counted on the local shards by the table that
-`torch.utils.flop_counter.FlopCounterMode` reads.  Fields with no
-counterpart stay 0: `hlo_bytes` (no bytes-accessed analysis of an eager
-step) and `output_bytes`.  `argument_bytes` is the local bytes of the
-step's tensor arguments; `per_device_memory_bytes` the card's peak
-allocation over the step (0 on the CPU).
+`torch.utils.flop_counter.FlopCounterMode` reads (the kernels' custom ops
+are in it, each counted as that table counts its plain version).
+`Trace.hlo_bytes` is the counterpart of XLA's "bytes accessed": the bytes
+that each local op other than a view, an allocation or a collective reads
+and writes (its tensor inputs and outputs).  Nothing is fused in an eager
+step, so it is an upper bound on what a fused program moves.
+`argument_bytes` is the local bytes of the step's tensor arguments;
+`output_bytes` stays 0.  `per_device_memory_bytes` is the card's peak
+allocation over a real step on the card (0 on the CPU), and over a step on
+fake tensors (`FakeTensorMode`, the dry-run's) the rank's peak of live
+storage bytes, the step's arguments included (`_LiveBytes`: each storage
+counted from the op that made it until it is freed).  torch's
+`MemTracker` reads the same peak, but asks each fake tensor for its device,
+a dispatch of its own, and took ~40% of a fake step for it.
+
+The step runs the same under `FakeTensorMode`: nothing is allocated and
+the fake process group moves nothing, yet every collective, FLOP and byte
+is recorded as in a real run.  DTensor infers an op's output layout by
+running the op once on fake tensors of the global shape (on its first call
+with that signature); those runs are hidden from the modes here
+(`_dtensor_bookkeeping_unseen`), so that they count neither in a real run
+nor in a fake one.
 """
 from __future__ import annotations
 
+import weakref
 from collections import defaultdict
+from contextlib import contextmanager
 from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensor, unset_fake_temporarily
 from torch.distributed.tensor import DTensor
 from torch.overrides import TorchFunctionMode
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import TorchDispatchMode, _disable_current_modes
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
@@ -81,12 +101,86 @@ def _nbytes(x) -> int:
                if isinstance(t, torch.Tensor))
 
 
-def _shape_only(args) -> bool:
-    """Whether an op runs on meta or fake tensors (DTensor's sharding
-    propagation infers shapes that way on an op's first call): no FLOPs."""
-    from torch._subclasses.fake_tensor import FakeTensor
-    t = next((a for a in tree_leaves(args) if isinstance(a, torch.Tensor)), None)
-    return t is not None and (t.is_meta or isinstance(t, FakeTensor))
+_DEVICE = torch.ops.prim.device.default
+# allocations: no bytes read or written
+_ALLOCATIONS = {torch.ops.aten.empty, torch.ops.aten.empty_like, torch.ops.aten.empty_strided,
+                torch.ops.aten.new_empty, torch.ops.aten.new_empty_strided}
+# DTensor's own bookkeeping that runs tensor ops, under the names the torch
+# version has: the sharding propagator's entry points, cached (the one an
+# eager step calls, a per-propagator `LocalLRUCache`) and uncached, whose
+# strategy choice may trace an op's decomposition on meta tensors
+# (`DecompShardingStrategy`); its run of an op on fake tensors of the global
+# shape, which other DTensor code also calls; and a strided shard's index
+# arithmetic
+_PROPAGATION = ("propagate_op_sharding", "propagate_op_sharding_non_cached",
+                "_propagate_tensor_meta_non_cached", "_propagate_tensor_meta")
+
+
+def _unseen(fn):
+    """`fn` run with every dispatch mode popped."""
+    def run(*args, **kwargs):
+        with _disable_current_modes():
+            return fn(*args, **kwargs)
+    return run
+
+
+def _not_tracing() -> bool:
+    return torch.compiler.is_compiling()
+
+
+@contextmanager
+def _dtensor_eager():
+    """DTensor takes other paths when it thinks it is traced (a fake mode
+    active: torch.compile's case, with symbolic shapes): uncached sharding
+    propagation and redistribution plans, other placements for some views.
+    A step on fake tensors has no symbolic shape, so here DTensor is told
+    what a real step tells it, and both run the same code."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import (_collective_utils, _decompositions, _dispatch,
+                                          _redistribute)
+    mods = [m for m in (funcol, _collective_utils, _decompositions, _dispatch, _redistribute)
+            if hasattr(m, "_are_we_tracing")]
+    saved = [m._are_we_tracing for m in mods]
+    for m in mods:
+        m._are_we_tracing = _not_tracing
+    try:
+        yield
+    finally:
+        for m, fn in zip(mods, saved):
+            m._are_we_tracing = fn
+
+
+@contextmanager
+def _dtensor_bookkeeping_unseen():
+    """Run DTensor's bookkeeping (`_PROPAGATION`, `_StridedShard`'s offsets) with
+    every dispatch mode popped: in a step on fake tensors it would otherwise
+    run in the step's own fake mode, where its index arithmetic cannot read
+    values and where the recorder would count its global-shape ops (FLOPs,
+    bytes, live bytes); in a real step it would count the same ops."""
+    from torch.distributed.tensor.placement_types import _StridedShard
+    prop = DTensor._op_dispatcher.sharding_propagator
+    names = [n for n in _PROPAGATION if hasattr(prop, n)]
+    if "propagate_op_sharding" not in names or not set(names) & set(_PROPAGATION[2:]):
+        raise RuntimeError(f"DTensor's sharding propagator lacks propagate_op_sharding or "
+                           f"all of {_PROPAGATION[2:]}")
+    # the instance's own attributes (the cache is one), restored as they were;
+    # a method is shadowed on the instance and the shadow then removed
+    own = {n: prop.__dict__[n] for n in names if n in prop.__dict__}
+    strided = _StridedShard.__dict__.get("local_shard_size_and_offset")
+    for n in names:
+        setattr(prop, n, _unseen(getattr(prop, n)))
+    if strided is not None:
+        _StridedShard.local_shard_size_and_offset = _unseen(strided)
+    try:
+        yield
+    finally:
+        for n in names:
+            if n in own:
+                setattr(prop, n, own[n])
+            else:
+                delattr(prop, n)
+        if strided is not None:
+            _StridedShard.local_shard_size_and_offset = strided
 
 
 def _tag(node, names: Tuple[str, ...]) -> None:
@@ -113,25 +207,67 @@ class _ScopeTagger(TorchFunctionMode):
         return out
 
 
+class _LiveBytes:
+    """The peak of live storage bytes over a step: each storage tracked is
+    counted once (views share it) until Python frees it."""
+
+    def __init__(self, tensors):
+        self.live = self.peak = 0
+        self._refs: Dict[int, weakref.ref] = {}
+        for t in tensors:
+            self.track(t)
+
+    def track(self, t) -> None:
+        st = t.untyped_storage()
+        key = st._cdata
+        if key in self._refs:
+            return
+        n = st.nbytes()
+        self._refs[key] = weakref.ref(st, lambda _ref, key=key, n=n: self._free(key, n))
+        self.live += n
+        self.peak = max(self.peak, self.live)
+
+    def _free(self, key: int, n: int) -> None:
+        if self._refs.pop(key, None) is not None:
+            self.live -= n
+
+
 class _Recorder(TorchDispatchMode):
     """Records each collective on local tensors and counts local FLOPs."""
 
-    def __init__(self):
+    def __init__(self, live: "_LiveBytes | None" = None):
         super().__init__()
+        self.live = live
         self.calls: List[tuple] = []
         self.flops = 0
+        self.bytes = 0
         self.flops_by_scope: Dict[str, float] = defaultdict(float)
+        self.bytes_by_scope: Dict[str, float] = defaultdict(float)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is _DEVICE and isinstance(args[0], FakeTensor):
+            return args[0].fake_device  # as FakeTensor answers it: the autograd
+            # engine asks it of every gradient, the commonest op of a fake step
         if isinstance(func, torch._ops.HigherOrderOperator):
             return func(*args, **(kwargs or {}))
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented       # let DTensor run, then see its local ops
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if func.namespace in _NAMESPACES and func._opname in KINDS:
-            self.calls.append(self._collective(func, args, kwargs, out))
-        elif func._overloadpacket in flop_registry and not _shape_only(args):
+        if func.namespace in _NAMESPACES:
+            if func._opname in KINDS:
+                self.calls.append(self._collective(func, args, kwargs, out))
+            return out
+        written = _nbytes(out)        # 0 for a query (sizes, device) as for no output
+        if written and not func.is_view and func._overloadpacket not in _ALLOCATIONS:
+            b = _nbytes((args, kwargs)) + written
+            self.bytes += b
+            self.bytes_by_scope["/".join(scope_mod.current())] += b
+        if written and self.live is not None:
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor):
+                    self.live.track(t)
+        if func._overloadpacket in flop_registry:
             f = flop_registry[func._overloadpacket](*args, **kwargs, out_val=out)
             self.flops += f
             self.flops_by_scope["/".join(scope_mod.current())] += f
@@ -200,26 +336,36 @@ def trace_step(fn: Callable, args, mesh, mesh_spec: MeshSpec, *, label: str = "s
     the collectives it dispatched, priced on `mesh_spec` by `hw`.
 
     The caller opens `distributed.autoshard.activation_sharding(mesh)` around
-    the call as it would around the step.  `fn` runs for real: a train step
-    updates its params and moments in place, as any step does.
+    the call as it would around the step, and `FakeTensorMode` around both
+    when `args` are fake.  `fn` runs for real: a train step updates its
+    params and moments in place, as any step does.
     """
-    recorder, tagger = _Recorder(), _ScopeTagger()
-    on_card = mesh.device_type == "cuda"
+    local = [t.to_local() if isinstance(t, DTensor) else t for t in tree_leaves(args)
+             if isinstance(t, torch.Tensor)]
+    fake = any(isinstance(t, FakeTensor) for t in local)
+    recorder, tagger = _Recorder(_LiveBytes(local) if fake else None), _ScopeTagger()
+    on_card = mesh.device_type == "cuda" and not fake
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    with tagger, recorder:
+    with _dtensor_eager(), _dtensor_bookkeeping_unseen(), tagger, recorder:
         fn(*args)
-    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    peak = (torch.cuda.max_memory_allocated() if on_card
+            else recorder.live.peak if fake else 0)
+    with unset_fake_temporarily():
+        return _trace(recorder, mesh, mesh_spec, label, hw, local, peak)
+
+
+def _trace(recorder, mesh, mesh_spec, label, hw, local, peak) -> Trace:
     events = _events(recorder.calls, mesh, label)
     store = TraceStore.from_events(events)
     costmodel.annotate_store(store, mesh_spec, hw)
     attribution.attribute_store(store)
-    stats = HloOpStats(flops=float(recorder.flops),
-                       flops_by_scope=dict(recorder.flops_by_scope))
-    local = [t.to_local() if isinstance(t, DTensor) else t for t in tree_leaves(args)
-             if isinstance(t, torch.Tensor)]
+    stats = HloOpStats(flops=float(recorder.flops), bytes_accessed=float(recorder.bytes),
+                       flops_by_scope=dict(recorder.flops_by_scope),
+                       bytes_by_scope=dict(recorder.bytes_by_scope))
     return Trace.from_store(label, mesh_spec.shape, mesh_spec.axes, mesh_spec.num_devices,
                             store, op_stats=stats, hlo_flops=float(recorder.flops),
+                            hlo_bytes=float(recorder.bytes),
                             per_device_memory_bytes=float(peak),
                             argument_bytes=float(_nbytes(local)))

@@ -23,7 +23,9 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import unset_fake_temporarily
 from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.scope import mark
@@ -62,6 +64,14 @@ def activation_sharding(mesh, *, seq_shard: bool = False):
         _ACTIVE = outer
 
 
+def local_shape_and_offset(global_shape, mesh, placements):
+    """This rank's shard of a tensor of `global_shape` placed by `placements`:
+    (its shape, the global index of its first element), from the mesh's
+    coordinate, outside any fake mode (the rank table is a plain tensor)."""
+    with unset_fake_temporarily():
+        return compute_local_shape_and_global_offset(global_shape, mesh, tuple(placements))
+
+
 def current_mesh():
     return _ACTIVE["mesh"] if _ACTIVE else None
 
@@ -96,31 +106,61 @@ class _Constrain(torch.autograd.Function):
         return grad.redistribute(ctx.mesh, ctx.placements), None, None
 
 
-def constrain(x, roles: Sequence[Optional[str]]):
-    """Redistribute a DTensor to the per-dim roles' placements (a no-op
-    outside `activation_sharding` and on a plain tensor)."""
+def role_placements(shape: Sequence[int], roles: Sequence[Optional[str]]):
+    """The placements, one per dim of the active mesh, that the per-dim roles
+    give a tensor of `shape`: Shard(d) on the axes picked for dim d, Replicate
+    elsewhere.  None outside `activation_sharding` or when no role applies."""
     ctx = _ACTIVE
-    if not ctx or not isinstance(x, DTensor):
-        return x
+    if not ctx:
+        return None
     sizes, mesh = ctx["sizes"], ctx["mesh"]
     used: set = set()
     dim_of = {}
-    for d, (size, role) in enumerate(zip(x.shape, roles)):
+    for d, (size, role) in enumerate(zip(shape, roles)):
         cand = _pick(size, role, sizes, used)
         if cand:
             used |= set(cand)
             dim_of.update({a: d for a in cand})
-    if not dim_of:          # no role applies: left unconstrained, as in the reference
+    if not dim_of:
+        return None
+    return tuple(Shard(dim_of[a]) if a in dim_of else Replicate()
+                 for a in mesh.mesh_dim_names)
+
+
+def constrain_to(x, placements):
+    """Redistribute a DTensor to `placements` on the active mesh, and its
+    gradient too (`_Constrain`)."""
+    return mark(_Constrain.apply(x, _ACTIVE["mesh"], tuple(placements)))
+
+
+def constrain_or_whole(x, roles: Sequence[Optional[str]]):
+    """`constrain`, but where no role applies x is made whole on every axis
+    (`constrain` would leave it as it is)."""
+    if not _ACTIVE or not isinstance(x, DTensor):
         return x
-    placements = tuple(Shard(dim_of[a]) if a in dim_of else Replicate()
-                       for a in mesh.mesh_dim_names)
-    return mark(_Constrain.apply(x, mesh, placements))
+    return constrain_to(x, role_placements(x.shape, roles)
+                        or [Replicate()] * len(_ACTIVE["mesh"].mesh_dim_names))
+
+
+def constrain(x, roles: Sequence[Optional[str]]):
+    """Redistribute a DTensor to the per-dim roles' placements (a no-op
+    outside `activation_sharding` and on a plain tensor)."""
+    if not _ACTIVE or not isinstance(x, DTensor):
+        return x
+    placements = role_placements(x.shape, roles)
+    if placements is None:  # no role applies: left unconstrained, as in the reference
+        return x
+    return constrain_to(x, placements)
 
 
 def constrain_residual(x):
-    """[B, S, D] activations (+ optional SP sequence sharding)."""
+    """[B, S, D] activations (+ optional SP sequence sharding).  Where no role
+    applies (a batch that `data` does not divide: decode's single row, a
+    micro-batch smaller than `data`) the residual stream is whole on every
+    rank: left to itself it drifts into whatever layout each product leaves,
+    which torch 2.11's DTensor cannot always add (a partial sum to a split)."""
     seq_role = "seq" if (_ACTIVE and _ACTIVE["seq_shard"]) else None
-    return constrain(x, ("batch", seq_role, None))
+    return constrain_or_whole(x, ("batch", seq_role, None))
 
 
 def constrain_logits(x):

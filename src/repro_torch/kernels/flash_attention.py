@@ -15,6 +15,13 @@ breaks that raises here, with the reason, rather than run the other kernel.
 CUDA tensor to the kernel; it never falls back from one to the other.  It is
 forward only, and raises when autograd would record it (grad mode on and an
 input that requires grad) rather than return an output without a gradient.
+
+The kernel is the custom op `repro_torch::flash_attention_fwd`: its CUDA
+implementation is the launch, and its fake implementation gives the output's
+shape, dtype and layout, so that a step on fake tensors (`FakeTensorMode`,
+the dry-run's, on any device) runs through it with no launch counted.  Its
+FLOPs are counted as `torch.utils.flop_counter` counts the plain version's
+two products, 4·B·H·Sq·Skv·D.
 """
 from __future__ import annotations
 
@@ -22,6 +29,8 @@ import ctypes
 import functools
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.ref import flash_attention_ref
@@ -90,7 +99,6 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0, scale=None):
     KV head of query head h is h // (H/K); causal masks k > q + q_offset; a
     window > 0 masks q - k >= window; `scale` defaults to D**-0.5.
     """
-    global launches
     _check(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_attention has no backward (neither has the reference's "
@@ -100,11 +108,21 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0, scale=None):
     window = int(window) if window else 0
     if q_offset < 0 or window < 0:
         raise ValueError(f"q_offset {q_offset} and window {window} must be >= 0")
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not isinstance(q, FakeTensor):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, scale=scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
+    return torch.ops.repro_torch.flash_attention_fwd(q, k, v, bool(causal), window,
+                                                     int(q_offset), float(scale))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def _flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                         window: int, q_offset: int, scale: float) -> torch.Tensor:
+    """The launch: one of the two kernels (`kernel_for`) on the current stream."""
+    global launches
     B, H, Sq, D = q.shape
     K, Skv = k.shape[1], k.shape[2]
     kernel = kernel_for(q.dtype, D)
@@ -122,9 +140,21 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0, scale=None):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
             B, H, K, Sq, Skv, D,
             *(t.stride(i) for t in (q, k, v, out) for i in (0, 2, 1)),
-            int(bool(causal)), window, int(q_offset), float(scale), stream)
+            int(causal), window, q_offset, scale, stream)
     if err != 0:
         raise RuntimeError(f"flash attention {kernel} kernel launch failed: cudaError {err}")
     launches += 1
     kernel_launches[kernel] += 1
     return out
+
+
+@_flash_attention_fwd.register_fake
+def _(q, k, v, causal, window, q_offset, scale):
+    B, H, Sq, D = q.shape
+    return q.new_empty((B, Sq, H, D)).transpose(1, 2)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _flops(q_shape, k_shape, *_args, **_kwargs) -> int:
+    B, H, Sq, D = q_shape
+    return 4 * B * H * Sq * k_shape[2] * D

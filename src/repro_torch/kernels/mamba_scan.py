@@ -9,6 +9,13 @@ checkout the package runs from and loaded with ctypes (`build.py`).
 tensor to the kernel; it never falls back from one to the other.  It is
 forward only, and raises when autograd would record it (grad mode on and an
 input that requires grad) rather than return an output without a gradient.
+
+The kernel is the custom op `repro_torch::mamba_scan`: its CUDA
+implementation is the launch, and its fake implementation gives y and, when
+asked, h_S, so that a step on fake tensors (`FakeTensorMode`, the dry-run's,
+on any device) runs through it with no launch counted.  Its FLOPs are
+counted as `torch.utils.flop_counter` counts the plain version (its readout
+products, 2·B·S·Di·N; the recurrence is elementwise).
 """
 from __future__ import annotations
 
@@ -16,6 +23,8 @@ import ctypes
 import functools
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.ref import mamba_scan_ref
@@ -56,22 +65,31 @@ def mamba_scan(a_bar, bx, c, *, return_state=False):
     h_t = a_t * h_{t-1} + bx_t from h_0 = 0;  y_t[d] = sum_n h_t[d,n] * c_t[n].
     Non-contiguous inputs are copied to contiguous ones first.
     """
-    global launches
     _check(a_bar, bx, c)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (a_bar, bx, c)):
         raise RuntimeError("mamba_scan has no backward: its output would carry no gradient; "
                            "train with apply_ssm(scan_impl='plain')")
-    if a_bar.device.type == "cpu":
+    if a_bar.device.type == "cpu" and not isinstance(a_bar, FakeTensor):
         return mamba_scan_ref(a_bar, bx, c, return_state=return_state)
-    if a_bar.device.type != "cuda":
+    if a_bar.device.type not in ("cpu", "cuda"):
         raise ValueError(f"mamba_scan runs on cpu or cuda, not {a_bar.device}")
+    y, h = torch.ops.repro_torch.mamba_scan(a_bar, bx, c, bool(return_state))
+    return (y, h) if return_state else y
+
+
+@torch.library.custom_op("repro_torch::mamba_scan", mutates_args=(), device_types="cuda")
+def _mamba_scan(a_bar: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
+                return_state: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The launch on the current stream.  Returns (y, h_S), h_S empty [0] when
+    `return_state` is False (the kernel then writes no state)."""
+    global launches
     B, S, Di, N = a_bar.shape
     a_bar, bx, c = a_bar.contiguous(), bx.contiguous(), c.contiguous()
     y = torch.empty((B, S, Di), dtype=torch.float32, device=a_bar.device)
-    h = torch.empty((B, Di, N), dtype=torch.float32, device=a_bar.device) \
-        if return_state else None
+    h = torch.empty((B, Di, N) if return_state else (0,), dtype=torch.float32,
+                    device=a_bar.device)
     if B == 0 or Di == 0:
-        return (y, h) if return_state else y
+        return y, h
     with torch.cuda.device(a_bar.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().repro_mamba_scan_fwd(
@@ -80,4 +98,17 @@ def mamba_scan(a_bar, bx, c, *, return_state=False):
     if err != 0:
         raise RuntimeError(f"mamba scan kernel launch failed: cudaError {err}")
     launches += 1
-    return (y, h) if return_state else y
+    return y, h
+
+
+@_mamba_scan.register_fake
+def _(a_bar, bx, c, return_state):
+    B, S, Di, N = a_bar.shape
+    return (a_bar.new_empty((B, S, Di)),
+            a_bar.new_empty((B, Di, N) if return_state else (0,)))
+
+
+@register_flop_formula(torch.ops.repro_torch.mamba_scan)
+def _flops(a_shape, *_args, **_kwargs) -> int:
+    B, S, Di, N = a_shape
+    return 2 * B * S * Di * N

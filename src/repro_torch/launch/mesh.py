@@ -12,6 +12,12 @@
 The process group is created here when none exists; `gloo` and `nccl` read
 the rank, world size and rendezvous address from the caller (arguments, or
 the `RANK`/`WORLD_SIZE`/`MASTER_ADDR`/`MASTER_PORT` environment).
+
+`make_production_mesh` is the dry-run's H100 production mesh under the fake
+group: (32, 8) ("data", "model") over 256 cards, 32 DGX nodes with their 8
+GPUs on `model` (NVLink) and `data` across nodes (InfiniBand), or (2, 32, 8)
+("pod", "data", "model") over 512.  Not the reference's TPU (16, 16): the
+port's production cells are its own (`core.topology.MeshSpec.single_pod`).
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
 from repro_torch.core.topology import MeshSpec
+from repro_torch.device import resolve_device
 
 BACKEND_DEVICE = {"fake": None, "gloo": "cpu", "nccl": "cuda"}
 
@@ -53,6 +60,25 @@ def make_host_mesh(shape=(2, 4), axes=("data", "model"), *, backend: str = "fake
     _init_group(backend, math.prod(shape), rank, init_method)
     mesh = init_device_mesh(device, shape, mesh_dim_names=axes)
     return mesh, MeshSpec(shape, axes)
+
+
+def make_mesh_spec(*, multi_pod: bool = False) -> MeshSpec:
+    return MeshSpec.multi_pod() if multi_pod else MeshSpec.single_pod()
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """The production DeviceMesh under the fake process group, this process
+    standing as rank 0, on `device` (the card unless "cpu" is asked for).  A
+    fake group of another size is replaced; any other group raises."""
+    spec = make_mesh_spec(multi_pod=multi_pod)
+    if dist.is_initialized() and dist.get_world_size() != spec.num_devices:
+        if dist.get_backend() != "fake":
+            raise ValueError(f"a {dist.get_backend()} group of {dist.get_world_size()} ranks "
+                             f"is open; the production mesh needs a fake one")
+        dist.destroy_process_group()
+    mesh, _ = make_host_mesh(spec.shape, spec.axes, backend="fake",
+                             device=resolve_device(device).type)
+    return mesh
 
 
 def parse_mesh(text: str):

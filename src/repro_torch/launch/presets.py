@@ -1,11 +1,16 @@
 """Per-step execution settings (from the reference `launch/presets.py`).
 
-`attn_impl` takes the port's names: auto | naive | blocked | flash.  Of
-the reference's sharding fields the port has `seq_shard`, which `Trainer`
-passes to `activation_sharding`.  The MoE group size and dispatch are the
-config's (`cfg.moe_group_size`, `cfg.moe_dispatch`, which `models.moe`
-reads); serving placement (`serve_fsdp`) and HSDP come with the slices
-that read them.
+`attn_impl` takes the port's names: auto | naive | blocked | flash.  The
+reference's sharding fields: `seq_shard`, which `Trainer` and the dry-run
+pass to `activation_sharding`; `serve_fsdp` and `hsdp`, which the dry-run
+reads to pick the rule table (`launch/dryrun.py`, set by its `--serve-fsdp`
+and `--hsdp` flags or by a caller's `settings`).  The MoE group size and
+dispatch are the config's (`cfg.moe_group_size`, `cfg.moe_dispatch`, which
+`models.moe` reads).
+
+`settings_for` is the reference's table, sized there for its 16 GB chips;
+the dry-run holds the same steps against the H100's 80 GB, so each cell is
+the same step in both packages.
 """
 from __future__ import annotations
 
@@ -21,10 +26,15 @@ class StepSettings:
     accum_dtype: str = "float32"   # gradient-accumulator dtype
     seq_shard: bool = False        # Megatron-SP residual sequence sharding
     grad_compression: str = "none"   # none | bf16: a bf16 round trip of the gradient
+    # serving weight placement: None = auto (FSDP iff the weights do not fit
+    # replicated over data), True/False forces it
+    serve_fsdp: "bool | None" = None
+    # HSDP: shard params within the pod, replicate across pods (multi-pod only)
+    hsdp: bool = False
 
 
 # train_4k accumulation per arch, the reference's table (sized there for its
-# chips under sharding; the dry-run slice derives the card's own)
+# chips under sharding)
 _TRAIN_ACCUM = {
     "llama3-405b": 16,
     "mixtral-8x22b": 16,

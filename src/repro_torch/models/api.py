@@ -11,8 +11,10 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.autoshard import local_shape_and_offset
 from repro_torch.models import encdec, transformer
 from repro_torch.models import meta as meta_mod
+from repro_torch.models.meta import tree_map
 from repro_torch.models.losses import fused_next_token_loss
 
 
@@ -36,6 +38,17 @@ def init_params(cfg, seed: int = 0, *, device=None, dtype=None, place=None):
     """
     dtype = dtype or getattr(torch, cfg.compute_dtype)
     return meta_mod.materialize(model_meta(cfg), seed, resolve_device(device), dtype, place)
+
+
+def abstract_params(cfg, dtype=None):
+    """The params tree as `CacheSpec`s (shape, dtype): what `init_params(cfg,
+    dtype=dtype)` would make, with no tensor made."""
+    dtype = dtype or getattr(torch, cfg.compute_dtype)
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    return meta_mod.tree_map_meta(
+        lambda _path, m: transformer.CacheSpec(tuple(m.shape), meta_mod.leaf_dtype(m, dtype)),
+        model_meta(cfg))
 
 
 def param_count(cfg) -> int:
@@ -120,6 +133,41 @@ def cache_specs(cfg, shape, dtype=torch.bfloat16):
         return encdec.cache_specs(cfg, shape.global_batch, shape.seq_len, dtype=dtype)
     return transformer.cache_specs(cfg, shape.global_batch, shape.seq_len,
                                    windowed=shape.windowed_cache, dtype=dtype)
+
+
+def decode_input_specs(cfg, shape):
+    """A decode step's inputs for a `ShapeSpec`, as the reference's: the cache,
+    tokens [B, 1] int32, pos () int32, and for the vlm family positions
+    [3, B, 1] int32 (the port's `decode_step` takes pos as a Python int)."""
+    B, spec, i32 = shape.global_batch, transformer.CacheSpec, torch.int32
+    specs = {"cache": cache_specs(cfg, shape), "tokens": spec((B, 1), i32),
+             "pos": spec((), i32)}
+    if cfg.family == "vlm":
+        specs["positions"] = spec((3, B, 1), i32)
+    return specs
+
+
+def input_specs(cfg, shape):
+    """Every input of the (cfg, shape) cell's step but the params."""
+    if shape.kind in ("train", "prefill"):
+        return {"batch": batch_specs(cfg, shape)}
+    return decode_input_specs(cfg, shape)
+
+
+def empty_dtensors(specs, mesh, placements):
+    """A tree of `CacheSpec`s as DTensors on `mesh` with the matching tree of
+    placements, each rank's shard allocated with `torch.empty` and not
+    written: no numbers are drawn.  Under `FakeTensorMode` nothing is
+    allocated (the dry-run's params, moments, batches and caches)."""
+    from torch.distributed.tensor import DTensor
+
+    def one(spec, pl):
+        pl = tuple(pl)
+        local, _ = local_shape_and_offset(spec.shape, mesh, pl)
+        t = torch.empty(local, dtype=spec.dtype, device=mesh.device_type)
+        return DTensor.from_local(t, mesh, pl, run_check=False, shape=torch.Size(spec.shape),
+                                  stride=torch.empty(spec.shape, device="meta").stride())
+    return tree_map(one, specs, placements)
 
 
 def demo_batch(cfg, batch_size: int, seq_len: int, seed: int = 0, *, device=None):

@@ -16,15 +16,26 @@ rows and heads (`_attend_local`, through `local_map`): attention does not
 mix them, so the core needs no collective, and DTensor's einsum, which
 flattens batch and head dims into one, cannot take both sharded in every
 torch the port runs on.
+
+Decode on a mesh reads a cache whose sequence dim is sharded (over `model`,
+and over `data` too when the batch is 1: `sharding.cache_pspecs`).  The new
+key and value are written by the rank whose shard holds the slot, in its
+local tensor, with no collective (`_write_slot`); each rank attends over its
+own keys, and the partial softmaxes are combined across the axes that split
+the sequence by all-reduces of their max, sums and weighted values
+(`_decode_attend_local`).  Neither gathers the cache.
 """
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor, Partial
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
-from repro_torch.distributed.autoshard import (constrain, constrain_residual, current_axes,
-                                               current_mesh)
+from repro_torch.distributed.autoshard import (constrain, constrain_or_whole,
+                                               constrain_residual, current_axes,
+                                               current_mesh, local_shape_and_offset,
+                                               role_placements)
 from repro_torch.models.layers import apply_rope, rms_norm_head
 from repro_torch.models.meta import ParamMeta
 from repro_torch.scope import mark, scope
@@ -76,15 +87,39 @@ class _ContiguousGrad(torch.autograd.Function):
 
 
 def _heads(t, n_heads: int, dh: int):
-    """[B, S, n_heads * dh] -> [B, S, n_heads, dh].  On a mesh whose `model`
-    axis does not divide the heads (chatglm3-6b: 2 kv heads on 4), the
-    projection's columns are split inside a head; they are gathered over
-    `model` first (the fallback to replication the rules intend)."""
+    """[B, S, n_heads * dh] -> [B, S, n_heads, dh].  On a mesh, the projection's
+    columns may only be split over `model`, and only when it divides the heads:
+    where it does not (chatglm3-6b: 2 kv heads on 4) they are gathered over
+    `model` first (the fallback to replication the rules intend), and where
+    another axis splits them (a micro-batch too small for `data`, whose
+    product DTensor then splits on its columns over `data`) they are brought
+    to heads over `model`."""
     if isinstance(t, DTensor):
         t = mark(_ContiguousGrad.apply(t))
-        if n_heads % (current_axes() or {}).get("model", 1):
-            t = constrain(t, ("batch", None, None))
+        whole = n_heads % (current_axes() or {}).get("model", 1)
+        elsewhere = any(pl.is_shard(2) and axis != "model"
+                        for pl, axis in zip(t.placements, t.device_mesh.mesh_dim_names))
+        if whole or elsewhere:
+            t = constrain_or_whole(t, ("batch", None, None if whole else "model"))
     return t.reshape(*t.shape[:2], n_heads, dh)
+
+
+def merge_heads(out):
+    """[B, S, H, dh] -> [B, S, H * dh].  On a mesh the merged gradient that comes
+    back from the output projection must split into heads again, which it can
+    only do split over `model` where that divides the heads.  Where `model`
+    does not (whisper-tiny: 6 on 8), `out` is whole over it while the
+    projection's rows are split; where the batch is whole over `data` (a
+    micro-batch smaller than it), DTensor splits that gradient over `data`.
+    In both cases the gradient is brought back to `out`'s layout first (a
+    constraint that is a no-op in forward)."""
+    merged = out.reshape(*out.shape[:2], -1)
+    if isinstance(out, DTensor):
+        whole = out.shape[2] % (current_axes() or {}).get("model", 1)
+        rows = role_placements(merged.shape, ("batch", None, None))
+        if whole or rows is None:
+            merged = constrain_or_whole(merged, ("batch", None, None if whole else "model"))
+    return merged
 
 
 def project_qkv(cfg, p, x_q, x_kv, positions_q, positions_kv):
@@ -232,7 +267,7 @@ def apply_attention(cfg, p, x, positions, *, causal=True, window=0, impl="auto")
     with scope("attn"):
         q, k, v = project_qkv(cfg, p, x, x, positions, positions)
         out = attend(cfg, q, k, v, causal=causal, window=window, impl=impl)
-        return constrain_residual(out.reshape(*out.shape[:2], -1) @ p["wo"].to(x.dtype))
+        return constrain_residual(merge_heads(out) @ p["wo"].to(x.dtype))
 
 
 def apply_cross_attention(cfg, p, x, memory_kv):
@@ -241,20 +276,17 @@ def apply_cross_attention(cfg, p, x, memory_kv):
     with scope("cross_attn"):
         dt = x.dtype
         B, Sq, _ = x.shape
-        q = (x @ p["wq"].to(dt)).reshape(B, Sq, cfg.num_heads, cfg.head_dim)
+        q = _heads(x @ p["wq"].to(dt), cfg.num_heads, cfg.head_dim)
         k, v = memory_kv
         out = attend(cfg, q, k, v, causal=False, window=0, impl="auto")
-        return constrain_residual(out.reshape(B, Sq, -1) @ p["wo"].to(dt))
+        return constrain_residual(merge_heads(out) @ p["wo"].to(dt))
 
 
 def encode_memory_kv(cfg, p, memory):
     """Cross-attention (k, v) [B,Sm,K,Dh] from the encoder output [B,Sm,D]."""
     dt = memory.dtype
-    B, Sm, _ = memory.shape
     K, Dh = cfg.num_kv_heads, cfg.head_dim
-    k = (memory @ p["wk"].to(dt)).reshape(B, Sm, K, Dh)
-    v = (memory @ p["wv"].to(dt)).reshape(B, Sm, K, Dh)
-    return k, v
+    return _heads(memory @ p["wk"].to(dt), K, Dh), _heads(memory @ p["wv"].to(dt), K, Dh)
 
 
 # --------------------------------------------------------------------------
@@ -290,18 +322,96 @@ def decode_attention(cfg, p, x, cache_k, cache_v, pos: int, *, window=0,
             positions = decode_positions(cfg, B, pos, x.device)
         q, k_new, v_new = project_qkv(cfg, p, x, x, positions, positions)
         slot = pos % Sc if windowed_cache else pos
-        cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
-        cache_v[:, slot] = v_new[:, 0].to(cache_v.dtype)
-        if windowed_cache:
-            # ring buffer: once warm every slot holds a key inside the window
-            # (keys carry their rope, so slot order does not matter); before
-            # that, the slots past pos are masked as not yet written
-            out = attend_naive(cfg, q, cache_k.to(dt), cache_v.to(dt), causal=False,
-                               window=None, kv_valid_len=min(pos + 1, Sc))
+        if isinstance(cache_k, DTensor):
+            _write_slot(cache_k, k_new[:, 0], slot)
+            _write_slot(cache_v, v_new[:, 0], slot)
+            out = _decode_attend_local(cfg, q, cache_k, cache_v, pos, window=window,
+                                       ring=windowed_cache)
         else:
-            # slot index == absolute position, so causal + window masking
-            # with q_offset=pos covers validity too (k_idx <= pos)
-            out = attend_naive(cfg, q, cache_k.to(dt), cache_v.to(dt),
-                               causal=True, window=window, q_offset=pos)
+            cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
+            cache_v[:, slot] = v_new[:, 0].to(cache_v.dtype)
+            if windowed_cache:
+                # ring buffer: once warm every slot holds a key inside the window
+                # (keys carry their rope, so slot order does not matter); before
+                # that, the slots past pos are masked as not yet written
+                out = attend_naive(cfg, q, cache_k.to(dt), cache_v.to(dt), causal=False,
+                                   window=None, kv_valid_len=min(pos + 1, Sc))
+            else:
+                # slot index == absolute position, so causal + window masking
+                # with q_offset=pos covers validity too (k_idx <= pos)
+                out = attend_naive(cfg, q, cache_k.to(dt), cache_v.to(dt),
+                                   causal=True, window=window, q_offset=pos)
         y = out.reshape(B, 1, -1) @ p["wo"].to(dt)
         return y, cache_k, cache_v
+
+
+def _seq_shard(cache):
+    """(global offset, length) of this rank's keys in a DTensor cache [B, Sc, K, Dh],
+    and the mesh dims that split the sequence."""
+    local, offset = local_shape_and_offset(cache.shape, cache.device_mesh, cache.placements)
+    dims = [d for d, pl in enumerate(cache.placements) if pl.is_shard(1)]
+    return offset[1], local[1], dims
+
+
+def _batch_placements(cache):
+    """A per-row tensor's placements beside the cache: its batch split as the
+    cache's, whole on every other mesh dim."""
+    return tuple(Shard(0) if pl.is_shard(0) else Replicate() for pl in cache.placements)
+
+
+def _write_slot(cache, new, slot: int):
+    """Write new [B, K, Dh] at sequence position `slot` of the DTensor cache
+    [B, Sc, K, Dh], in place, on the rank whose shard holds the slot; the
+    other ranks write nothing.  `new` is first made whole on every rank that
+    shares the cache's rows (a gather of its heads over `model`: one key,
+    not the cache)."""
+    lo, n, _ = _seq_shard(cache)
+    pl = _batch_placements(cache)
+    new = new.to(cache.dtype).redistribute(cache.device_mesh, pl)
+
+    def write(cl, nl):
+        if lo <= slot < lo + n:
+            cl[:, slot - lo] = nl
+        return cl
+    local_map(write, out_placements=list(cache.placements), in_placements=(cache.placements, pl),
+              device_mesh=cache.device_mesh)(cache, new)
+
+
+def _decode_attend_local(cfg, q, cache_k, cache_v, pos: int, *, window=0, ring=False):
+    """One query token q [B,1,H,Dh] (a DTensor) against the DTensor cache, per
+    rank over its own keys: the masks of `decode_attention` (a ring's valid
+    slots, or causal + window at q_offset pos) on the keys' global positions,
+    a local softmax in fp32, then the max, the sums and the weighted values
+    all-reduced over the mesh dims that split the sequence.  Returns
+    [B,1,H,Dh] in q's dtype, its batch split as the cache's."""
+    mesh, dt = cache_k.device_mesh, q.dtype
+    lo, n, seq_dims = _seq_shard(cache_k)
+    pl = _batch_placements(cache_k)
+    q = q.redistribute(mesh, pl)
+    scale = cfg.head_dim ** -0.5
+
+    def core(ql, kl, vl):
+        B, _, H, Dh = ql.shape
+        K = kl.shape[2]
+        k_idx = (torch.arange(n, device=ql.device) + lo)[None, :]
+        if ring:
+            bias = torch.where(k_idx < min(pos + 1, cache_k.shape[1]), 0.0, NEG_INF)
+        else:
+            bias = _mask_bias(torch.tensor([[pos]], device=ql.device), k_idx, causal=True,
+                              window=window)
+        qg = ql.reshape(B, 1, K, H // K, Dh).float()
+        s = torch.einsum("bskgd,btkd->bkgst", qg, kl.float()) * scale + bias.float()
+        m = s.amax(dim=-1, keepdim=True)
+        for d in seq_dims:
+            m = funcol.all_reduce(m, "max", (mesh, d))
+        e = torch.exp(s - m)
+        den = e.sum(dim=-1, keepdim=True)
+        num = torch.einsum("bkgst,btkd->bkgsd", e, vl.float())
+        for d in seq_dims:
+            den = funcol.all_reduce(den, "sum", (mesh, d))
+            num = funcol.all_reduce(num, "sum", (mesh, d))
+        out = (num / den).permute(0, 3, 1, 2, 4).reshape(B, 1, H, Dh)
+        return out.to(dt)
+    return local_map(core, out_placements=list(pl), in_placements=(pl, cache_k.placements,
+                                                             cache_v.placements),
+                     device_mesh=mesh)(q, cache_k, cache_v)

@@ -78,7 +78,7 @@ def _decoder_block(cfg, p, x, memory, collect_cache):
     q, k, v = attn_mod.project_qkv(cfg, p["attn"], h, h, None, None)
     with scope("self_attn"):
         out = attn_mod.attend(cfg, q, k, v, causal=True)
-        x = x + out.reshape(*out.shape[:2], -1) @ p["attn"]["wo"].to(x.dtype)
+        x = x + attn_mod.merge_heads(out) @ p["attn"]["wo"].to(x.dtype)
     mem_kv = attn_mod.encode_memory_kv(cfg, p["cross"], memory)
     x = x + attn_mod.apply_cross_attention(cfg, p["cross"], L.apply_norm(cfg, p["norm2"], x),
                                            mem_kv)

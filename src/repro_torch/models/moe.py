@@ -22,10 +22,11 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
-from repro_torch.distributed.autoshard import constrain, current_axes, current_mesh
+from repro_torch.distributed.autoshard import (constrain, constrain_to, current_axes,
+                                               current_mesh, role_placements)
 from repro_torch.models.meta import ParamMeta
 from repro_torch.scope import mark, scope
 
@@ -55,6 +56,12 @@ def _group(x: torch.Tensor, group_size: int) -> Tuple[torch.Tensor, int]:
     return x.reshape(B * (S // sg), sg, D), sg
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """F.one_hot(idx, n) as fp32, by comparison: no range check reads the
+    indices (one_hot's does, which a step on fake tensors cannot)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(torch.float32)
+
+
 def router_dispatch(cfg, probs: torch.Tensor, cap: int):
     """GShard top-k dispatch. probs [G,Sg,E] fp32.
 
@@ -64,14 +71,14 @@ def router_dispatch(cfg, probs: torch.Tensor, cap: int):
     k = cfg.top_k
     gates, idx = torch.topk(probs, k, dim=-1)                    # [G,Sg,k], descending
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)  # renormalise the chosen
-    onehot = F.one_hot(idx, E).to(torch.float32)                 # [G,Sg,k,E]
+    onehot = _one_hot(idx, E)                                    # [G,Sg,k,E]
     # priority: choice rank first, then token order
     flat = onehot.transpose(1, 2).reshape(G, k * Sg, E)
     pos_flat = flat.cumsum(dim=1) - flat                         # position within expert
     pos = pos_flat.reshape(G, k, Sg, E).transpose(1, 2)          # [G,Sg,k,E]
     keep = (pos < cap).to(torch.float32) * onehot                # drop overflow
     pos = pos.clamp(max=cap - 1).to(torch.int64)
-    slot = F.one_hot(pos, cap).to(torch.float32) * keep[..., None]
+    slot = _one_hot(pos, cap) * keep[..., None]
     dispatch = slot.sum(dim=2)                                   # [G,Sg,E,C]
     combine = (slot * gates[..., None, None]).sum(dim=2)         # [G,Sg,E,C]
     # load-balancing aux loss (Switch): E * sum_e f_e * p_e
@@ -94,6 +101,14 @@ def apply_moe(cfg, p, x: torch.Tensor, *, group_size: int = 0):
         tdt = getattr(torch, cfg.moe_table_dtype)
         B, S, D = x.shape
         xg, sg = _group(x, group_size or cfg.moe_group_size)     # [G,Sg,D]
+        # the groups split as the batch rows they come from, in forward and in
+        # backward (whole where the rows are: a micro-batch smaller than
+        # `data`), so that they fold back into [B, S, D]
+        rows = None
+        if isinstance(x, DTensor):
+            rows = (role_placements((B, S, D), ("batch", None, None))
+                    or [Replicate()] * x.device_mesh.ndim)
+            xg = constrain_to(xg, rows)
         with scope("router"):
             probs = torch.softmax(xg.float() @ p["router"].float(), dim=-1)
             dispatch, combine, aux = router_dispatch(cfg, probs, capacity(cfg, sg))
@@ -107,7 +122,8 @@ def apply_moe(cfg, p, x: torch.Tensor, *, group_size: int = 0):
             w = [p[n].to(dt) for n in ("w_gate", "w_up", "w_down")]
         y = _experts_and_combine(x_e, combine.to(dt), *w)
         with scope("combine"):
-            y = constrain(y, ("batch", None, None))
+            if rows is not None:
+                y = constrain_to(y, rows)
         return y.reshape(B, S, D), aux
 
 

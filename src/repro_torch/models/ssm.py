@@ -6,7 +6,17 @@ to direct calls; here the full-sequence path (`apply_ssm`) launches the scan
 kernel once per call on the whole sequence (`kernels.ops.mamba_scan`: the
 CUDA kernel on the card, its plain version on the CPU), and takes the final
 state for the decode cache from that same launch.  Training passes
-`scan_impl="plain"` for the kernel's differentiable plain version.
+`scan_impl="plain"` for a differentiable scan in plain PyTorch, chunked
+as the reference's (`scan_chunked`: an associative scan within chunks of
+256 steps, the state carried from chunk to chunk, each chunk recomputed in
+backward), not the kernel's sequential plain version, whose S Python steps
+a step on a mesh would dispatch one by one.
+
+On a mesh (DTensor inputs) the scan runs per rank under `local_map`
+(`_scan_local`): a_bar, bx and the state are sharded on the channel dim
+`di` over `model`, as `in_proj` and the `ssm` cache shard it, and c is
+whole over `model`.  The recurrence is independent per (b, d, n), so each
+rank's scan of its own channels is exact and needs no collective.
 
 Decode carries (conv_state [B, d_conv-1, d_inner] fp32, ssm_state
 [B, d_inner, N] fp32).
@@ -17,9 +27,13 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor.experimental import local_map
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.autoshard import (constrain_or_whole, constrain_to, current_mesh,
+                                               role_placements)
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ref import mamba_scan_ref
 from repro_torch.models.meta import ParamMeta
 from repro_torch.scope import scope
 
@@ -52,6 +66,11 @@ def _ssm_inputs(cfg, p, xc):
     """
     r, n = dt_rank(cfg), cfg.ssm_state
     proj = xc @ p["x_proj"].to(xc.dtype)
+    if isinstance(proj, DTensor):
+        # the row-parallel product's partial sum over `model` reduced here, as
+        # GSPMD does: torch 2.11's DTensor cannot add a channel-split tensor to
+        # what comes of a partial one
+        proj = constrain_or_whole(proj, ("batch", None, None))
     dt_raw, b_ssm, c_ssm = proj.split([r, n, n], dim=-1)
     delta = F.softplus((dt_raw @ p["dt_w"].to(xc.dtype)).float()
                        + p["dt_bias"].float())                   # [B,S,di]
@@ -77,25 +96,90 @@ def _conv1d_causal(cfg, p, x, conv_state=None):
     return out + p["conv_b"].to(x.dtype)
 
 
+SCAN_CHUNK = 256          # the reference's `apply_ssm(chunk=256)`
+
+
+def _chunk_scan(a, bx, c, h0):
+    """One chunk, as the reference's `_chunk_scan`: the associative combine
+    (a1, b1) . (a2, b2) = (a1 a2, a2 b1 + b2) scanned along the chunk by
+    Hillis-Steele doubling (log2(C) steps), the carried state h0 (None
+    before the first chunk) applied, then the readout.  Returns (y, the
+    chunk's last state, apart from the chunk's storage)."""
+    C, off = a.shape[1], 1
+    while off < C:
+        bx = torch.cat([bx[:, :off], a[:, off:] * bx[:, :-off] + bx[:, off:]], dim=1)
+        a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
+        off *= 2
+    h = bx if h0 is None else a * h0[:, None] + bx
+    return torch.einsum("bsdn,bsn->bsd", h, c), h[:, -1].clone()
+
+
+def scan_chunked(a_bar, bx, c, *, return_state=False, chunk=SCAN_CHUNK):
+    """The scan of `kernels.ref.mamba_scan_ref` (same arguments and results,
+    S >= 1), differentiable, chunked as the reference's `apply_ssm`: chunks of
+    `chunk` steps (halved until it divides S), each an associative scan, the
+    state carried between them.  Each chunk runs under
+    `torch.utils.checkpoint`, so autograd keeps its inputs and carried state
+    and backward recomputes its doubling levels, one chunk at a time: about
+    the memory of the sequential loop, not 2 log2(chunk) [B, S, Di, N]."""
+    S = a_bar.shape[1]
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk //= 2
+    h, ys = None, []
+    for s0 in range(0, S, chunk):
+        part = slice(s0, s0 + chunk)
+        y, h = checkpoint(_chunk_scan, a_bar[:, part], bx[:, part], c[:, part], h,
+                          use_reentrant=False, preserve_rng_state=False)
+        ys.append(y)
+    y = torch.cat(ys, dim=1)
+    return (y, h) if return_state else y
+
+
+def _scan_local(scan_fn, a_bar, bx, c, return_state):
+    """`scan_fn` on each rank's shards of DTensor a_bar/bx (batch over the data
+    axes, di over `model`) and c (batch alone): see the module's docstring.
+    c's gradient is partial over the axes that split di (each rank reads c
+    for its own channels only)."""
+    mesh = current_mesh() or a_bar.device_mesh
+    ab_pl = role_placements(a_bar.shape, ("batch", None, "model", None)) or \
+        (Replicate(),) * mesh.ndim
+    c_pl = tuple(pl if pl.is_shard(0) else Replicate() for pl in ab_pl)
+    a_bar, bx, c = constrain_to(a_bar, ab_pl), constrain_to(bx, ab_pl), constrain_to(c, c_pl)
+    y_pl = ab_pl                                   # [B, S, di]: dims 0 and 2 as a_bar's
+    h_pl = tuple(type(pl)(1) if pl.is_shard(2) else pl for pl in ab_pl)   # [B, di, N]
+    c_grad = tuple(Partial() if a.is_shard(2) else pl for a, pl in zip(ab_pl, c_pl))
+
+    def core(al, bl, cl):
+        return scan_fn(al, bl, cl, return_state=return_state)
+    return local_map(core, out_placements=(list(y_pl), list(h_pl)) if return_state else list(y_pl),
+                     in_placements=(ab_pl, ab_pl, c_pl),
+                     in_grad_placements=(ab_pl, ab_pl, c_grad),
+                     device_mesh=mesh)(a_bar, bx, c)
+
+
 def apply_ssm(cfg, p, x, *, return_state=False, scan_impl="kernel"):
     """Full-sequence selective SSM. x [B,S,D] -> [B,S,D].
 
     `scan_impl`: "kernel" runs K2 (`kernels.ops.mamba_scan`, forward only: it
-    raises inside autograd); "plain" runs its differentiable plain version,
-    which training passes down, as the reference never trains through its
-    kernel either.  With `return_state`, returns (out, {"conv", "ssm"}): the
-    last d_conv-1 inputs of the conv in fp32 (zeros before the sequence's
-    start) and the scan's final state, from the same scan as `out`.
+    raises inside autograd); "plain" runs `scan_chunked`, differentiable, which
+    training passes down, as the reference never trains through its kernel
+    either.  With `return_state`, returns (out, {"conv", "ssm"}): the last
+    d_conv-1 inputs of the conv in fp32 (zeros before the sequence's start)
+    and the scan's final state, from the same scan as `out`.
     """
     if scan_impl not in ("kernel", "plain"):
         raise ValueError(f"scan_impl {scan_impl!r} not in kernel|plain")
-    scan_fn = kops.mamba_scan if scan_impl == "kernel" else mamba_scan_ref
+    scan_fn = kops.mamba_scan if scan_impl == "kernel" else scan_chunked
     with scope("ssm"):
         dt = x.dtype
         x_in, z = (x @ p["in_proj"].to(dt)).chunk(2, dim=-1)
         xc = F.silu(_conv1d_causal(cfg, p, x_in))
         a_bar, bx, c = _ssm_inputs(cfg, p, xc)
-        scan = scan_fn(a_bar, bx, c, return_state=return_state)
+        if isinstance(a_bar, DTensor):
+            scan = _scan_local(scan_fn, a_bar, bx, c, return_state)
+        else:
+            scan = scan_fn(a_bar, bx, c, return_state=return_state)
         del a_bar, bx                      # 2 x [B,S,di,N] fp32: free before the rest
         y, h_last = scan if return_state else (scan, None)
         y = y + xc.float() * p["d_skip"].float()
@@ -103,7 +187,9 @@ def apply_ssm(cfg, p, x, *, return_state=False, scan_impl="kernel"):
     if not return_state:
         return out
     keep, S = cfg.d_conv - 1, x.shape[1]
-    conv = F.pad(x_in[:, max(0, S - keep):].float(), (0, 0, max(0, keep - S), 0))
+    conv = x_in[:, max(0, S - keep):].float()
+    if S < keep:        # (torch 2.11's DTensor cannot pad by nothing)
+        conv = F.pad(conv, (0, 0, keep - S, 0))
     return out, {"conv": conv, "ssm": h_last}
 
 

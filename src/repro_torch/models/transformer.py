@@ -130,8 +130,7 @@ def apply_block(cfg, p, x, positions, window: int, *, attn_impl="auto",
         out = attn_mod.attend(cfg, q, k, v, causal=True, window=window,
                               impl=attn_impl)
         # the row-parallel partial sum reduced here, as in `layers.apply_mlp`
-        attn_out = constrain_residual(out.reshape(*out.shape[:2], -1)
-                                      @ p["attn"]["wo"].to(x.dtype))
+        attn_out = constrain_residual(attn_mod.merge_heads(out) @ p["attn"]["wo"].to(x.dtype))
     if collect_cache:
         cache.update(k=k, v=v)
     if cfg.family == "hybrid":

@@ -14,7 +14,13 @@ mesh.  MODE is
     rows over `data`, and runs `models.moe.apply_moe` with each
     (name, dispatch, dtype, backward) of `MOE_RUNS`: the backward is of
     mean(y^2) + 0.01 * aux.  Rank 0 writes each run's whole y, aux and
-    gradients (x's and the weights') to OUT_DIR/moe.pt.
+    gradients (x's and the weights') to OUT_DIR/moe.pt;
+  * `decode`: each rank loads the cases of OUT_DIR/decode_inputs.pt (a
+    config, its fp32 params, a prompt, the positions to decode at), prefills
+    on plain tensors, places the params by the serving rules and the cache
+    by `sharding.cache_pspecs` (its sequence split over the mesh), and
+    decodes each position on the mesh; rank 0 writes the whole logits of
+    every step to OUT_DIR/decode.pt.
 """
 import os
 import sys
@@ -109,7 +115,52 @@ def moe_rank(rank: int, out_dir: str, shape, port: int) -> None:
     dist.destroy_process_group()
 
 
-MODES = {"step": step_rank, "moe": moe_rank}
+def decode_cache(case):
+    """A case's starting cache on plain tensors: a prefill of its prompt padded to
+    `cache_len`, or zeros (`transformer.init_cache`)."""
+    from repro_torch.models import api, transformer
+    cfg, B = case["cfg"], case["B"]
+    if "prompt" in case:
+        with torch.no_grad():
+            return api.prefill(cfg, case["params"], case["prompt"], cache_len=case["cache_len"])[1]
+    return transformer.init_cache(cfg, B, case["cache_len"], windowed=case["windowed"],
+                                  dtype=torch.float32, device="cpu")
+
+
+def decode_rank(rank: int, out_dir: str, shape, port: int) -> None:
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.autoshard import activation_sharding
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api
+    from repro_torch.models.meta import tree_map
+
+    mesh, _ = make_host_mesh(shape, ("data", "model"), backend="gloo", rank=rank,
+                             init_method=f"tcp://localhost:{port}")
+    cases = torch.load(os.path.join(out_dir, "decode_inputs.pt"), weights_only=False)
+    out = {}
+    for name, case in cases.items():
+        cfg = case["cfg"]
+        dshape = ShapeSpec("d", "decode", case["cache_len"], case["B"], case["windowed"])
+        specs = sharding.cache_pspecs(cfg, dshape, mesh)
+        cache = tree_map(lambda t, s: sharding.distribute_params(
+            t, mesh, sharding.placements_for(s, mesh)), decode_cache(case), specs)
+        params = sharding.distribute_params(case["params"], mesh, sharding.param_placements(
+            cfg, mesh, sharding.serve_rules_for(cfg, mesh)))
+        logits = []
+        with torch.no_grad(), activation_sharding(mesh):
+            for pos, tok in case["steps"]:
+                lg, cache = api.decode_step(cfg, params, cache, tok, pos)
+                logits.append(sharding.full_tensor(lg))
+        k, seq_dim = (cache[0]["k"], 1) if isinstance(cache, list) else (cache["k"], 2)
+        out[name] = {"logits": logits, "seq_split": [p.is_shard(seq_dim) for p in k.placements]}
+    if rank == 0:
+        torch.save(out, os.path.join(out_dir, "decode.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+MODES = {"step": step_rank, "moe": moe_rank, "decode": decode_rank}
 
 if __name__ == "__main__":
     mode, out_dir, d, m, port = sys.argv[1:6]

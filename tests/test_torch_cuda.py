@@ -519,3 +519,73 @@ print("KEYS", json.dumps(sorted({(e.semantic, e.kind, e.link_class) for e in tr.
                                               if l.startswith("KEYS"))[5:])}
     assert ("moe_combine", "all-reduce", "nvlink.model") in keys
     assert not any(k[1] == "all-to-all" for k in keys)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D,return_state", [("bfloat16", 64, True), ("float32", 128, False)])
+def test_register_fake_shapes_match_the_kernels_outputs(dtype, D, return_state):
+    """Each custom op's fake implementation gives its CUDA output's shape, dtype
+    and strides (K1: [B, Sq, H, D] seen as [B, H, Sq, D]; K2: y, and h_S when
+    asked), and runs under FakeTensorMode with no launch counted."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    _need_card()
+    (q, _), (k, _), (v, _) = qkv(D, 2, 4, 2, 96, 96, D, dtype)
+    a, bx, c = (torch.from_numpy(t).cuda() for t in scan_inputs(3, 2, 64, 32, 8))
+    q, k, v = q.cuda(), k.cuda(), v.cuda()
+    real = [fa.flash_attention(q, k, v, window=16), *ms.mamba_scan(a, bx, c, return_state=True)]
+    counts = (fa.launches, ms.launches)
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fq, fk, fv, fa_, fbx, fc = (mode.from_tensor(t) for t in (q, k, v, a, bx, c))
+        fake = [fa.flash_attention(fq, fk, fv, window=16),
+                *ms.mamba_scan(fa_, fbx, fc, return_state=True)]
+        y_only = ms.mamba_scan(fa_, fbx, fc, return_state=return_state)
+    assert (fa.launches, ms.launches) == counts
+    for r, f in zip(real, fake):
+        assert (f.shape, f.dtype, f.stride(), f.device) == (r.shape, r.dtype, r.stride(), r.device)
+    got = y_only[0] if return_state else y_only
+    assert got.shape == real[1].shape
+
+
+@pytest.mark.cuda
+def test_kernels_under_local_map_on_a_one_rank_nccl_mesh():
+    """K1 (through `attend`, flash) and K2 (through `ssm._scan_local`) on the
+    DTensors of a one-rank nccl mesh give the straight calls' outputs bit for
+    bit, one launch each."""
+    import socket
+    _need_card()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out = _run_on_card(r'''
+import os, torch, torch.distributed as dist
+os.environ.update(MASTER_ADDR="localhost", MASTER_PORT="@PORT@", RANK="0", WORLD_SIZE="1")
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.distributed.autoshard import activation_sharding
+from repro_torch.kernels import flash_attention as fa, mamba_scan as ms, ops
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import attention, ssm
+cfg = smoke_config(get_config("hymba-1.5b"))
+mesh, _ = make_host_mesh((1, 1), ("data", "model"), backend="nccl")
+g = torch.Generator(device="cuda").manual_seed(0)
+q = torch.randn(2, 64, 4, 16, generator=g, device="cuda").bfloat16()
+k = torch.randn(2, 64, 2, 16, generator=g, device="cuda").bfloat16()
+v = torch.randn(2, 64, 2, 16, generator=g, device="cuda").bfloat16()
+a = torch.rand(2, 64, 32, 4, generator=g, device="cuda")
+bx = torch.randn(2, 64, 32, 4, generator=g, device="cuda")
+c = torch.randn(2, 64, 4, generator=g, device="cuda")
+want_o = attention.attend(cfg, q, k, v, impl="flash", window=16)
+want_y, want_h = ops.mamba_scan(a, bx, c, return_state=True)
+d = lambda t: distribute_tensor(t, mesh, [Shard(0), Replicate()])
+before = (fa.launches, ms.launches)
+with torch.no_grad(), activation_sharding(mesh):
+    o = attention.attend(cfg, d(q), d(k), d(v), impl="flash", window=16)
+    y, h = ssm._scan_local(ops.mamba_scan, d(a), d(bx), d(c), True)
+assert (fa.launches - before[0], ms.launches - before[1]) == (1, 1)
+assert dist.get_backend() == "nccl"
+for got, want in ((o, want_o), (y, want_y), (h, want_h)):
+    assert torch.equal(got.full_tensor(), want), (got.full_tensor() - want).abs().max()
+print("LOCAL_MAP_OK")
+dist.destroy_process_group()
+'''.replace("@PORT@", str(port)))
+    assert "LOCAL_MAP_OK" in out
