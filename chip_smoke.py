@@ -2,6 +2,7 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py        # from the repo root, on a machine with one CUDA card
+    python3 chip_smoke.py --only kernel   # phases 1-3 alone: build and check the kernels
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. device  — the card's name and power limit, as nvidia-smi reports them
@@ -18,13 +19,19 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                qwen2-vl-2b's; head dim 192, which TMA zero-pads to 256); fp32 path
                shapes max abs error 2e-5 (gemma3-4b's fp32 check, and hymba-1.5b's
                with windows 1024 and 0 as [dryrun]'s fp32 mesh prefill runs them);
-               each case names the kernel that ran (tensor_core: bf16; cuda_core:
-               fp32) and its achieved TFLOP/s; the plain version of the largest
-               shapes runs one (batch, KV head) slice at a time
-               K2 mamba_scan: max abs error 1e-4 for y and the final state, at the
-               reference's cases and falcon-mamba-7b's and hymba-1.5b's shapes (and
-               hymba-1.5b's on rank 0 of (2, 4), 800 of its 3200 channels, as [dryrun]
-               runs it)
+               and the 3xTF32 kernel at head dims 64, 120, 128, 192 and 256 with and
+               without a window (S not a multiple of a tile), head dim 100 (4-byte
+               copies) and a q_offset with a window, 2e-5;
+               each case names the kernel that ran (tensor_core: bf16 by wgmma;
+               tensor_core_fp32: fp32 in 3xTF32) and its achieved TFLOP/s; the plain
+               version of the largest shapes runs one (batch, KV head) slice at a time
+               K2 mamba_scan, both entry points: max abs error 1e-4 for y and the
+               final state, at the reference's cases and falcon-mamba-7b's and
+               hymba-1.5b's shapes (and hymba-1.5b's on rank 0 of (2, 4), 800 of its
+               3200 channels, as [dryrun] runs it): the unfused scan on a_bar/bx, and
+               the fused one from delta, x (bf16 and fp32), A, B and C, also at
+               shapes that take its chunked-time branch (small B x Di, S not a
+               multiple of the chunk)
   4-11. the models at full width with seed-0 random bf16 weights, one table row
                each (MODELS): prefill through make_prefill_step(attn_impl="flash"),
                16 greedy make_decode_step steps (qwen2-vl-2b's with [3, B, 1] m-rope
@@ -37,14 +44,15 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                fp32 compute (relative error < 2e-5) and reported in bf16, at a length
                past the model's window; MoE at the no-drop capacity
                4. chatglm3-6b (dense, 28 layers): 4 x 1024, 28 K1 launches per prefill
-               5. falcon-mamba-7b (ssm, 64 layers): 4 x 1024, 64 K2 and no K1
+               5. falcon-mamba-7b (ssm, 64 layers): 4 x 1024, 64 fused K2 and no K1;
+                  the profile's elementwise ms beside K2's
                6. hymba-1.5b (hybrid, 32 layers, windows of 1024 but in layers
-                  0/15/31): 4 x 2048, 32 K1 and 32 K2
+                  0/15/31): 4 x 2048, 32 K1 and 32 fused K2
                7. h2o-danube-3-4b (dense, 24 layers, window 4096, head dim 120):
                   2 x 8192, 24 tensor-core K1; checks at 1 x 4352
                8. gemma3-4b (dense, 34 layers, sandwich norm, GeGLU, windows of 1024
                   with every sixth layer global, head dim 256): 4 x 2048, 34 tensor-core
-                  K1 and no CUDA-core K1; checks at 2 x 2048
+                  K1 and no fp32 K1; checks at 2 x 2048
                9. qwen2-vl-2b (vlm, 28 layers, m-rope): 4 x 2048 of which 512 patch
                   embeddings, 28 tensor-core K1
                10. mixtral-8x22b (moe, 8 of its 56 layers, 8 experts top-2, window
@@ -82,7 +90,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                and off (in turns), peak GB, and the roofline's dominant term.
                Checks: sites > 0, grad_sync and attention present, the grad_sync
                bytes over `data` equal to the gradients' bytes with `data`
-               replicated (worked out from the placements), no K1 or K2 launch
+               replicated (worked out from the placements) once per micro-batch
+               (the gradients are synchronised in backward), no K1 or K2 launch
   16. shard   — Trainer(mesh=(1, 1)) on a real nccl group of world size 1 against
                the straight Trainer: qwen2-vl-2b at the train phase's shape, 2
                steps each, deterministic algorithms; losses and grad norms within
@@ -124,17 +133,22 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                every cache leaf: fp32 relative FP32_TOL, bf16 max abs 1e-2 and two bf16
                steps; (c) DRYRUN_CELLS on the production mesh, (32, 8) and llama3-405b
                train_4k on (2, 32, 8), fake tensors on the card at full width and full
-               depth but llama3-405b's and qwen3-moe-235b-a22b's train_4k (2 layers, all
-               16 micro-batches), in DRYRUN_WORKERS processes: one line per cell
+               depth but llama3-405b's and qwen3-moe-235b-a22b's train_4k (2 layers, the
+               8 micro-batches of their H100 rows), in DRYRUN_WORKERS processes: one line per cell
                (fake-run seconds, collectives, bytes, the roofline's terms, dominant,
                mfu_bound, the memory model against 80 GB, fake peak), no decode cell
                gathering its cache, no launch, and a `[dryrun] result` line
-  21. a JSON line of every ported kernel (K1 also by kernel: the tensor-core one at
-               chatglm3-6b's and gemma3-4b's global shapes, the CUDA-core one at
-               gemma3-4b's fp32 check's), then the JSON result line.
+  21. a JSON line of every kernel: K1's bf16 wgmma kernel (at chatglm3-6b's shape; its
+               variants at gemma3-4b's global and hymba-1.5b's rank shard shapes), K1's
+               3xTF32 fp32 kernel (at hymba-1.5b's fp32 mesh prefill's global shape; also
+               gemma3-4b's fp32 check's and the windowed one), and K2 (the fused entry
+               point at falcon-mamba-7b's shape; both entry points as variants), each
+               with its main-path launches; then the JSON result line.
+With `--only kernel` it stops after phase 3 and prints no result line.
 Each model's weights are freed before the next model is built.  Without a CUDA
 device, or outside a checkout of the repo, it exits non-zero and prints no result.
 """
+import argparse
 import json
 import math
 import os
@@ -151,6 +165,7 @@ from pathlib import Path
 from types import SimpleNamespace
 
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM data sheet, dense
+PEAK_3XTF32 = 495e12 / 3      # three TF32 products (dense 495 TFLOP/s) for each fp32 one
 PEAK_BYTES = 3.35e12                                  # H100 SXM HBM3, bytes/s
 FP32_TOL = 2e-5       # relative; the port's fp32 parity tolerance against the reference
 # bf16 outputs, element by element: kernel and plain version both compute in fp32
@@ -196,18 +211,29 @@ FLASH_CASES = [
 # multiple of 64 and a window edge inside a tile, at the path limit
 BF16_WIDE_CASE = (1, 4, 2, 256, 256, True, 0, "bfloat16", 3e-2)
 BF16_PAD_CASE = (2, 8, 4, 1000, 192, True, 300, "bfloat16", PER_ELEMENT)
-# fp32 runs the CUDA-core kernel: gemma3-4b's global layers at its fp32 check's
+# fp32 runs the 3xTF32 tensor-core kernel: gemma3-4b's global layers at its fp32 check's
 # 2 x 2048, and hymba-1.5b's layers with windows 1024 and 0 at 4 x 2048, as the
 # [dryrun] fp32 prefill on a one-rank nccl mesh runs them; max abs error 2e-5
 FP32_PATH_CASES = [(2, 8, 4, 2048, 256, True, 0, "float32", 2e-5),
                    (4, 25, 5, 2048, 64, True, 1024, "float32", 2e-5),
                    (4, 25, 5, 2048, 64, True, 0, "float32", 2e-5)]
+# the 3xTF32 kernel at every head dim the models use, windowed in the model layout
+# and not, with S not a multiple of a KV tile; head dim 100 (4-byte copies); a
+# q_offset with a window: (case, layout, q_offset)
+FP32_HEAD_DIM_CASES = (
+    [((2, 4, 2, 300, d, True, 70, "float32", 2e-5), "bshd", 0) for d in (64, 120, 128, 192, 256)]
+    + [((1, 4, 4, 333, d, False, 0, "float32", 2e-5), "bhsd", 0)
+       for d in (64, 120, 128, 192, 256)]
+    + [((1, 2, 1, 200, 100, True, 0, "float32", 2e-5), "bhsd", 0),
+       ((2, 2, 2, 256, 128, True, 64, "float32", 2e-5), "bhsd", 100)])
 # K2: B, S, Di, N — the reference's MAMBA_CASES (tests/test_kernels.py:69) and the
 # shapes of the serving paths' prefills (falcon-mamba-7b 4 x 1024, hymba-1.5b
 # 4 x 2048, and hymba-1.5b's on rank 0 of (2, 4): 2 rows, 800 of its 3200
 # channels); the reference's tolerance
 SCAN_CASES = [(1, 128, 64, 8), (2, 256, 128, 16), (1, 512, 256, 16), (1, 96, 64, 4)]
 SCAN_PATH_SHAPES = [(4, 1024, 8192, 16), (4, 2048, 3200, 16), (2, 2048, 800, 16)]
+# the fused K2's chunked-time branch: small B x Di, S not a multiple of the chunk
+SCAN_CHUNKED_CASES = [(1, 1000, 96, 16), (2, 300, 64, 4), (1, 777, 40, 16), (3, 513, 100, 8)]
 SCAN_TOL = 1e-4
 SCAN_NO_LIBRARY = ("no single PyTorch call computes a linear recurrence with a "
                    "per-step readout (h_t = a_t*h_{t-1} + bx_t, y_t = <h_t, c_t>)")
@@ -222,9 +248,11 @@ Model = namedtuple("Model", "arch B S impls check_shape per_prefill depth fp32_d
 MODELS = [
     Model("chatglm3-6b", 4, 1024, ("flash", "naive"), (4, 1024),
           {"flash_attention": 28, "flash_attention/tensor_core": 28}),
-    Model("falcon-mamba-7b", 4, 1024, ("flash",), (2, 512), {"mamba_scan": 64}),
+    Model("falcon-mamba-7b", 4, 1024, ("flash",), (2, 512),
+          {"mamba_scan": 64, "mamba_scan/fused": 64}),
     Model("hymba-1.5b", 4, 2048, ("flash", "naive"), (4, 2048),
-          {"flash_attention": 32, "flash_attention/tensor_core": 32, "mamba_scan": 32}),
+          {"flash_attention": 32, "flash_attention/tensor_core": 32, "mamba_scan": 32,
+           "mamba_scan/fused": 32}),
     Model("h2o-danube-3-4b", 2, 8192, ("flash", "naive"), (1, 4352),
           {"flash_attention": 24, "flash_attention/tensor_core": 24}),
     Model("gemma3-4b", 4, 2048, ("flash", "naive"), (2, 2048),
@@ -275,14 +303,14 @@ SESSION_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_session"
 # once and K2 once per layer in each real prefill
 FIDELITY = dict(arch="hymba-1.5b", mesh=(2, 4), B=4, S=2048,
                 per_prefill={"flash_attention": 32, "flash_attention/tensor_core": 32,
-                             "mamba_scan": 32})
+                             "mamba_scan": 32, "mamba_scan/fused": 32})
 BF16_MESH_ABS = 1e-2
 # the dry-run's cells on the production mesh (arch, shape, multi-pod, layers), full
 # width on fake tensors on the card, full depth but where layers are named: every
-# family and every shape kind, with llama3-405b and qwen3-moe-235b-a22b train_4k (all
-# 16 micro-batches) at 2 of their 126 and 94 layers, whose full depth takes tens of
-# minutes a cell (PERF.md); the full sweep is the CLI's.  DRYRUN_WORKERS processes
-# run them, each with its own fake process group
+# family and every shape kind, with llama3-405b and qwen3-moe-235b-a22b train_4k (the
+# 8 micro-batches of their H100 rows) at 2 of their 126 and 94 layers, whose full
+# depth takes tens of minutes a cell (PERF.md); the full sweep is the CLI's.
+# DRYRUN_WORKERS processes run them, each with its own fake process group
 DRYRUN_CELLS = [("llama3-405b", "train_4k", False, 2), ("qwen3-moe-235b-a22b", "train_4k", False, 2),
                 ("chatglm3-6b", "prefill_32k", False, None), ("chatglm3-6b", "decode_32k", False, None),
                 ("falcon-mamba-7b", "prefill_32k", False, None),
@@ -384,19 +412,22 @@ def device_breakdown(torch, fn, host=False):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    groups = {"flash_attention": 0.0, "mamba_scan": 0.0, "matmul": 0.0, "other": 0.0}
+    groups = {"flash_attention": 0.0, "mamba_scan": 0.0, "matmul": 0.0, "elementwise": 0.0,
+              "other": 0.0}
     starts, ends, other = [], [], {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA or e.is_user_annotation:
             continue
         dur = e.time_range.elapsed_us() / 1e3
         name = e.name.lower()
-        if "flash_fwd" in name:             # flash_fwd_wgmma_kernel and flash_fwd_kernel
+        if "flash_fwd" in name:     # flash_fwd_wgmma_kernel and flash_fwd_tf32x3_kernel
             groups["flash_attention"] += dur
-        elif "mamba_scan_kernel" in name:
+        elif "mamba_scan" in name:        # both K2 kernels
             groups["mamba_scan"] += dur
         elif any(k in name for k in ("gemm", "nvjet", "cutlass", "xmma", "gemv")):
             groups["matmul"] += dur
+        elif "elementwise" in name:       # PyTorch's elementwise kernels
+            groups["elementwise"] += dur
         else:
             groups["other"] += dur
             other[e.name[:80]] = other.get(e.name[:80], 0.0) + dur
@@ -488,13 +519,18 @@ def flash_case(torch, F, fa, ref, case, seed, q_offset=0, layout="bhsd"):
     library_ms = cuda_ms(torch, lib, iters)
     flops = 4 * D * B * H * int(mask.sum())                 # QK^T and PV on unmasked pairs
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    # fp32 runs on the tensor cores as 3xTF32: its bound is at that rate, and the
+    # CUDA cores' FFMA bound is kept beside it as `bound_simt_ms`
+    t_ops = flops / (PEAK_3XTF32 if dtype == "float32" else PEAK_FLOPS[dtype])
+    t_bytes = nbytes / PEAK_BYTES
     return dict(case=list(case[:8]), q_offset=q_offset, layout=layout, variant=variant,
                 tflops=flops / kernel_ms / 1e9, max_abs_err=err,
                 tol=tol, bf16_steps=steps, median_abs_out=float(plain.float().abs().median()),
                 library_err=lib_err, kernel_ms=kernel_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_simt_ms=(1e3 * max(flops / PEAK_FLOPS["float32"], t_bytes)
+                               if dtype == "float32" else None),
                 gflop=flops / 1e9, mbytes=nbytes / 1e6)
 
 
@@ -526,6 +562,49 @@ def scan_case(torch, ms, ref, case, seed):
     nbytes = sum(t.numel() * 4 for t in (a, bx, c, y, h))
     t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES
     return dict(case=list(case), max_abs_err=err, h_max_abs_err=h_err, tol=SCAN_TOL,
+                median_abs_out=float(plain_y.abs().median()), kernel_ms=kernel_ms,
+                plain_ms=plain_ms, library_ms=None, bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                gflop=flops / 1e9, mbytes=nbytes / 1e6)
+
+
+def fused_scan_case(torch, ms, ref, case, seed, x_dtype="bfloat16"):
+    """K2's fused entry point vs its plain version on one shape, with the final
+    state: delta = softplus(z - 1), A = -(1..N) per channel (the model's a_log
+    init) times exp(0.1 z), x in `x_dtype`, B and C = z.  Also which chunk count
+    the kernel took."""
+    B, S, Di, N = case
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    z = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    delta = torch.nn.functional.softplus(z(B, S, Di) - 1.0)
+    a = -torch.arange(1, N + 1, device="cuda", dtype=torch.float32) * (0.1 * z(Di, N)).exp()
+    x = z(B, S, Di).to(getattr(torch, x_dtype))
+    b, c = z(B, S, N), z(B, S, N)
+    y, h = ms.mamba_scan_fused(delta, x, a, b, c, return_state=True)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()                                 # the plain loop runs once per case
+    plain_y, plain_h = ref.mamba_scan_fused_ref(delta, x, a, b, c, return_state=True)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = float((y - plain_y).abs().max())
+    h_err = float((h - plain_h).abs().max())
+    check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all()),
+          f"non-finite fused scan output {case}")
+    check(err < SCAN_TOL and h_err < SCAN_TOL,
+          f"fused scan kernel vs plain {case} x {x_dtype}: y {err}, h_S {h_err} >= {SCAN_TOL}")
+    iters = 20 if B * S * Di * N < (1 << 26) else 10
+    kernel_ms = cuda_ms(torch, lambda: ms.mamba_scan_fused(delta, x, a, b, c,
+                                                            return_state=True), iters)
+    # per (b, t, d, n): delta*A, exp, the recurrence's mul and add, *B, the readout's
+    # mul and add; per (b, t, d): delta*x
+    flops = 7 * B * S * Di * N + B * S * Di
+    nbytes = sum(t.numel() * t.element_size() for t in (delta, x, a, b, c, y, h))
+    t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES
+    chunks = ms.scan_chunks(B, S, Di, N, torch.cuda.get_device_properties(0).multi_processor_count)
+    return dict(case=list(case), x_dtype=x_dtype, chunks=chunks, max_abs_err=err,
+                h_max_abs_err=h_err, tol=SCAN_TOL,
                 median_abs_out=float(plain_y.abs().median()), kernel_ms=kernel_ms,
                 plain_ms=plain_ms, library_ms=None, bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
@@ -923,8 +1002,8 @@ def trace_phase(rt):
     synced = sum(e.operand_bytes * e.multiplicity for e in tr.events
                  if e.semantic == "grad_sync" and e.link_class.endswith(".data")
                  and "optimizer" not in e.op_name)
-    check(synced == rule, f"grad_sync bytes over data {synced} != data-replicated "
-                          f"gradient bytes {rule}")
+    check(synced == 2 * rule, f"grad_sync bytes over data {synced} != accum 2 x "
+                              f"data-replicated gradient bytes {rule}")
     ib_store = tr.store.annotation_clone()
     rt.costmodel.annotate_store(ib_store, rt.MeshSpec(spec.shape, spec.axes, axis_kind={
         "data": "ib", "model": "nvlink"}), rt.H100)
@@ -1278,6 +1357,8 @@ def fidelity(rt, name, real, fake, launches_fake, mem_model, secs):
                sites_equal=same_sites, rank_gflop=fake.hlo_flops / 1e9,
                real_rank_gflop=real.hlo_flops / 1e9, flops_equal=same_flops,
                gb_accessed=fake.hlo_bytes / 1e9, real_gb_accessed=real.hlo_bytes / 1e9,
+               gb_accessed_unfused=fake.hlo_bytes_unfused / 1e9,
+               real_gb_accessed_unfused=real.hlo_bytes_unfused / 1e9,
                fake_peak_gb=fake.per_device_memory_bytes / 1e9,
                real_peak_gb=real.per_device_memory_bytes / 1e9,
                mem_model_gb=mem_model / 1e9, fake_s=secs, launches_fake=launches_fake)
@@ -1359,8 +1440,9 @@ def dryrun_phase(rt):
         kernel = "flash_attention/" + rt.counters["flash_attention"].kernel_for(
             getattr(torch, dtype), c.head_dim)
         per_layer = FIDELITY["per_prefill"]["flash_attention"]
-        check(got["flash_attention"] == got[kernel] == got["mamba_scan"] == per_layer,
-              f"mesh prefill {dtype}: launches {got}, {kernel} and K2 {per_layer} each")
+        check(got["flash_attention"] == got[kernel] == got["mamba_scan"]
+              == got["mamba_scan/fused"] == per_layer,
+              f"mesh prefill {dtype}: launches {got}, {kernel} and fused K2 {per_layer} each")
         for kname, n in got.items():
             mesh_launches[kname] += n
         pairs = [("logits", m_logits, logits)] + [(k, m_cache[k], cache[k]) for k in cache]
@@ -1464,7 +1546,54 @@ def ring_cache(rt):
     torch.cuda.empty_cache()
 
 
-def main() -> int:
+def kernels_line(main_launches, variant_path, scan_variants):
+    """The `{"kernels": [...]}` entries: K1's bf16 wgmma kernel at chatglm3-6b's
+    path shape, K1's 3xTF32 kernel at hymba-1.5b's fp32 mesh prefill's global
+    shape, and K2 with its fused entry point at falcon-mamba-7b's; each with its
+    main-path launches, and its other shapes (K2: both entry points) beside."""
+    def at(shapes):
+        return {where: dict(case=r["case"], max_abs_err=max(r["max_abs_err"],
+                                                            r.get("h_max_abs_err", 0.0)),
+                            bf16_steps=r.get("bf16_steps"), ms=r["kernel_ms"],
+                            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                            bound_by=r["bound_by"], library_ms=r["library_ms"],
+                            bound_simt_ms=r.get("bound_simt_ms"),
+                            tflops=r.get("tflops"), chunks=r.get("chunks"))
+                for where, r in shapes.items()}
+
+    def entry(name, source, replaces, launches, r, **extra):
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=launches,
+                    max_abs_err=max(r["max_abs_err"], r.get("h_max_abs_err", 0.0)),
+                    ms=r["kernel_ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"], library_ms=r["library_ms"], **extra)
+
+    fa_src, fa_tpu = ("src/repro_torch/csrc/flash_attention.cu",
+                      "src/repro/kernels/flash_attention.py:30")
+    bf16 = variant_path["tensor_core"]
+    fp32 = variant_path["tensor_core_fp32"]
+    return [
+        entry("flash_attention", fa_src, fa_tpu, main_launches["flash_attention/tensor_core"],
+              bf16["chatglm3-6b"], variant="tensor_core", kernel="flash_fwd_wgmma_kernel",
+              at=at(bf16)),
+        entry("flash_attention_fp32", fa_src, fa_tpu,
+              main_launches["flash_attention/tensor_core_fp32"],
+              fp32["hymba-1.5b fp32 mesh prefill, global"], variant="tensor_core_fp32",
+              kernel="flash_fwd_tf32x3_kernel", at=at(fp32)),
+        entry("mamba_scan", "src/repro_torch/csrc/mamba_scan.cu",
+              "src/repro/kernels/mamba_scan.py:24", main_launches["mamba_scan"],
+              scan_variants["fused"]["falcon-mamba-7b"], variant="fused",
+              kernel="mamba_scan_fused_kernel",
+              variants={v: dict(launches=main_launches[f"mamba_scan/{v}"], at=at(shapes))
+                        for v, shapes in scan_variants.items()})]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="drive the port on one CUDA card")
+    ap.add_argument("--only", choices=("kernel",), default=None,
+                    help="stop after the kernels' phase (build, and each kernel "
+                         "against its plain version with its times)")
+    args = ap.parse_args(argv)
     # a fixed cuBLAS workspace, set before cuBLAS starts: the train phase's
     # deterministic algorithms require it (32 MiB, H100's default size in PyTorch)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -1559,16 +1688,21 @@ def main() -> int:
     fp32_paths = [flash_case(torch, F, fa, ref, case, seed=(107, 120, 121)[i], layout="bshd")
                   for i, case in enumerate(FP32_PATH_CASES)]
     results += fp32_paths
+    results += [flash_case(torch, F, fa, ref, case, seed=300 + i, layout=layout,
+                           q_offset=q_offset)
+                for i, (case, layout, q_offset) in enumerate(FP32_HEAD_DIM_CASES)]
     results += [flash_case(torch, F, fa, ref, case, seed=102 + i, layout="bshd")
                 for i, case in enumerate(PATH_SHAPES)]
     print(f"[kernel] bounds use H100 SXM data-sheet rates: {PEAK_BYTES / 1e12} TB/s, "
           f"{PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s bf16, "
-          f"{PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s fp32 (dense, 700 W)")
+          f"{PEAK_3XTF32 / 1e12:.0f} TFLOP/s fp32 as 3xTF32 (K1's fp32 bound), "
+          f"{PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s fp32 FFMA (K2's bound, K1's "
+          f"bound_simt_ms) (dense, 700 W)")
     for r in results:
         print("[kernel] " + json.dumps(r))
     path_results = dict(zip(PATH_SHAPES, results[-len(PATH_SHAPES):]))
     # the kernels' line reports the tensor-core K1 kernel at chatglm3-6b's and
-    # gemma3-4b's global shapes and hymba-1.5b's rank shard, the CUDA-core one (fp32
+    # gemma3-4b's global shapes and hymba-1.5b's rank shard, the 3xTF32 one (fp32
     # only) at gemma3-4b's fp32 check's and hymba-1.5b's fp32 mesh prefill's
     variant_path = {"tensor_core": {"chatglm3-6b": path_results[PATH_SHAPES[0]],
                                     "gemma3-4b global": path_results[PATH_SHAPES[6]],
@@ -1576,17 +1710,35 @@ def main() -> int:
                                         path_results[PATH_SHAPES[8]],
                                     "hymba-1.5b rank shard, global":
                                         path_results[PATH_SHAPES[9]]},
-                    "cuda_core": {"gemma3-4b global, fp32 check": fp32_paths[0],
-                                  "hymba-1.5b fp32 mesh prefill, window 1024": fp32_paths[1],
-                                  "hymba-1.5b fp32 mesh prefill, global": fp32_paths[2]}}
-    path = variant_path["tensor_core"]["chatglm3-6b"]
+                    "tensor_core_fp32": {"gemma3-4b global, fp32 check": fp32_paths[0],
+                                         "hymba-1.5b fp32 mesh prefill, window 1024":
+                                             fp32_paths[1],
+                                         "hymba-1.5b fp32 mesh prefill, global":
+                                             fp32_paths[2]}}
     scans = [scan_case(torch, ms, ref, case, seed=200 + i)
              for i, case in enumerate(SCAN_CASES + SCAN_PATH_SHAPES)]
     for r in scans:
         print("[kernel] mamba_scan " + json.dumps(r))
-    scan_path = scans[len(SCAN_CASES)]
+    fused = [fused_scan_case(torch, ms, ref, case, seed=220 + i, x_dtype=x_dtype)
+             for i, case in enumerate(SCAN_CASES + SCAN_PATH_SHAPES + SCAN_CHUNKED_CASES)
+             for x_dtype in ("bfloat16", "float32")]
+    for r in fused:
+        print("[kernel] mamba_scan_fused " + json.dumps(r))
+    check(any(r["chunks"] > 1 for r in fused), "no fused K2 case took the chunked branch")
+    # the kernels' line reports both K2 entry points at the path shapes: the unfused one
+    # on a_bar/bx in fp32, the fused one with bf16 x, as the bf16 prefills run it
+    unfused_at = dict(zip(SCAN_PATH_SHAPES, scans[len(SCAN_CASES):]))
+    fused_at = {tuple(r["case"]): r for r in fused if r["x_dtype"] == "bfloat16"}
+    scan_where = {"falcon-mamba-7b": SCAN_PATH_SHAPES[0], "hymba-1.5b": SCAN_PATH_SHAPES[1],
+                  "hymba-1.5b rank shard": SCAN_PATH_SHAPES[2]}
+    scan_variants = {"fused": {w: fused_at[c] for w, c in scan_where.items()},
+                     "unfused": {w: unfused_at[c] for w, c in scan_where.items()}}
     print(f"[kernel] mamba_scan library_ms null: {SCAN_NO_LIBRARY}")
     torch.cuda.empty_cache()
+    if args.only == "kernel":
+        print(f"[done] kernels only, {time.perf_counter() - t_start:.1f}s")
+        print(smi)
+        return 0
 
     # 4-11. the models at full width, one at a time
     main_launches = {kname: 0 for kname in read_counts(counters)}
@@ -1622,29 +1774,8 @@ def main() -> int:
     # train phase's flash eval and straight run, the dry-run's three real prefills on a
     # mesh; the sharded, MoE and fake steps launch none)
     print(f"[done] main-path launches {main_launches}")
-    variants = {v: dict(launches=main_launches[f"flash_attention/{v}"],
-                        at={where: dict(case=r["case"], max_abs_err=r["max_abs_err"],
-                                        bf16_steps=r["bf16_steps"], ms=r["kernel_ms"],
-                                        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                                        bound_by=r["bound_by"], library_ms=r["library_ms"],
-                                        tflops=r["tflops"])
-                            for where, r in shapes.items()})
-                for v, shapes in variant_path.items()}
-    kernels = [dict(name="flash_attention", route="cuda", variant=path["variant"],
-                    source="src/repro_torch/csrc/flash_attention.cu",
-                    replaces="src/repro/kernels/flash_attention.py:30",
-                    launches=main_launches["flash_attention"], max_abs_err=path["max_abs_err"],
-                    ms=path["kernel_ms"], plain_ms=path["plain_ms"], bound_ms=path["bound_ms"],
-                    bound_by=path["bound_by"], library_ms=path["library_ms"],
-                    variants=variants),
-               dict(name="mamba_scan", route="cuda",
-                    source="src/repro_torch/csrc/mamba_scan.cu",
-                    replaces="src/repro/kernels/mamba_scan.py:24",
-                    launches=main_launches["mamba_scan"],
-                    max_abs_err=max(scan_path["max_abs_err"], scan_path["h_max_abs_err"]),
-                    ms=scan_path["kernel_ms"], plain_ms=scan_path["plain_ms"],
-                    bound_ms=scan_path["bound_ms"], bound_by=scan_path["bound_by"],
-                    library_ms=None)]
+
+    kernels = kernels_line(main_launches, variant_path, scan_variants)
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -36,16 +36,28 @@ backward (remat) is a forward one, as in the reference.
 and backward), counted on the local shards by the table that
 `torch.utils.flop_counter.FlopCounterMode` reads (the kernels' custom ops
 are in it, each counted as that table counts its plain version).
-`Trace.hlo_bytes` is the counterpart of XLA's "bytes accessed": the bytes
-that each local op other than a view, an allocation or a collective reads
-and writes (its tensor inputs and outputs).  Nothing is fused in an eager
-step, so it is an upper bound on what a fused program moves.
+Two counts of the bytes the rank's local ops move (views, allocations and
+collectives move none):
+  * `Trace.hlo_bytes_unfused`: every op's tensor inputs and outputs, as the
+    eager step runs them, one op at a time: an upper bound on what a fused
+    program moves;
+  * `Trace.hlo_bytes` (and `op_stats.bytes_accessed`, `bytes_by_scope`),
+    the counterpart of XLA's fused "bytes accessed", which the roofline's
+    memory term reads: chains of pointwise ops (`torch.Tag.pointwise`, and
+    dtype casts) are taken as fused regions.  A pointwise op's output is
+    not written where it is made; it is written once, when it leaves its
+    region: read by an op that is not pointwise (or a collective), or still
+    live at the step's end.  One that dies inside its region is never
+    written.  A pointwise op reads only the inputs that come from outside its
+    region (tensors already written); every other op reads its inputs and
+    writes its outputs, as in the unfused count (`_FusedBytes`).
 `argument_bytes` is the local bytes of the step's tensor arguments;
 `output_bytes` stays 0.  `per_device_memory_bytes` is the card's peak
 allocation over a real step on the card (0 on the CPU), and over a step on
 fake tensors (`FakeTensorMode`, the dry-run's) the rank's peak of live
 storage bytes, the step's arguments included (`_LiveBytes`: each storage
-counted from the op that made it until it is freed).  torch's
+counted from the op that made it until it is freed; `peak_holders`
+names the storages live at that peak).  torch's
 `MemTracker` reads the same peak, but asks each fake tensor for its device,
 a dispatch of its own, and took ~40% of a fake step for it.
 
@@ -96,9 +108,12 @@ _NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd")
 BACKWARD_MARKER = "transpose(jvp)"
 
 
+def _tensors(x) -> List[torch.Tensor]:
+    return [t for t in tree_leaves(x) if isinstance(t, torch.Tensor)]
+
+
 def _nbytes(x) -> int:
-    return sum(t.numel() * t.element_size() for t in tree_leaves(x)
-               if isinstance(t, torch.Tensor))
+    return sum(t.numel() * t.element_size() for t in _tensors(x))
 
 
 _DEVICE = torch.ops.prim.device.default
@@ -209,15 +224,19 @@ class _ScopeTagger(TorchFunctionMode):
 
 class _LiveBytes:
     """The peak of live storage bytes over a step: each storage tracked is
-    counted once (views share it) until Python frees it."""
+    counted once (views share it) until Python frees it.  With `holders_at`
+    (bytes) it also takes `holders`, the storages live when the live bytes
+    first reach it, each as (op that made it, scope, shape, dtype, bytes)."""
 
-    def __init__(self, tensors):
+    def __init__(self, tensors, holders_at: "float | None" = None):
         self.live = self.peak = 0
         self._refs: Dict[int, weakref.ref] = {}
+        self.holders_at, self.holders = holders_at, None
+        self._made: "Dict[int, tuple] | None" = None if holders_at is None else {}
         for t in tensors:
             self.track(t)
 
-    def track(self, t) -> None:
+    def track(self, t, func=None) -> None:
         st = t.untyped_storage()
         key = st._cdata
         if key in self._refs:
@@ -226,14 +245,107 @@ class _LiveBytes:
         self._refs[key] = weakref.ref(st, lambda _ref, key=key, n=n: self._free(key, n))
         self.live += n
         self.peak = max(self.peak, self.live)
+        if self._made is not None:
+            self._made[key] = (str(func) if func is not None else "argument",
+                               "/".join(scope_mod.current()), tuple(t.shape), str(t.dtype), n)
+            if self.holders is None and self.live >= self.holders_at:
+                self.holders = [self._made[k] for k in self._refs]
 
     def _free(self, key: int, n: int) -> None:
         if self._refs.pop(key, None) is not None:
             self.live -= n
+            if self._made is not None:
+                del self._made[key]
+
+
+_HOLDER_REQUESTS: List[Tuple[float, list]] = []     # open `peak_holders` blocks
+
+
+@contextmanager
+def peak_holders(at: float):
+    """What holds a fake step's memory: inside this block each step that
+    `trace_step` runs on fake tensors takes the storages live when its live
+    bytes first reach `at` bytes.  Yields a list that gets one entry per such
+    step: those storages as (op that made each, scope, shape, dtype, bytes),
+    or None if the step stayed below `at`.  Trace the step once for its peak
+    (`Trace.per_device_memory_bytes`), then again in here with `at` = that
+    peak."""
+    request = (at, [])
+    _HOLDER_REQUESTS.append(request)
+    try:
+        yield request[1]
+    finally:
+        _HOLDER_REQUESTS.remove(request)
+
+
+# dtype casts: fused into their consumers, as XLA fuses converts
+_FUSIBLE = {torch.ops.aten._to_copy}
+
+
+def _pointwise(func) -> bool:
+    return torch.Tag.pointwise in func.tags or func._overloadpacket in _FUSIBLE
+
+
+class _FusedBytes:
+    """The fused count (see the module's docstring).  `pending` holds the
+    storages that pointwise ops made and nothing has written yet: {storage
+    key: (bytes, scope)}, each dropped when Python frees its storage."""
+
+    def __init__(self):
+        self.bytes = 0
+        self.by_scope: Dict[str, float] = defaultdict(float)
+        self.pending: Dict[int, Tuple[int, str]] = {}
+        self._refs: Dict[int, weakref.ref] = {}
+
+    def _add(self, n: int, scope: str) -> None:
+        self.bytes += n
+        self.by_scope[scope] += n
+
+    def _write_pending(self, key: int) -> None:
+        n, scope = self.pending.pop(key)
+        self._refs.pop(key, None)
+        self._add(n, scope)
+
+    def leave(self, tensors) -> None:
+        """`tensors` read outside a region (a collective's operands)."""
+        for t in tensors:
+            key = t.untyped_storage()._cdata
+            if key in self.pending:
+                self._write_pending(key)
+
+    def op(self, func, inputs, outputs, scope: str) -> None:
+        pointwise = _pointwise(func)
+        for t in inputs:
+            key = t.untyped_storage()._cdata
+            if key in self.pending:
+                if pointwise:
+                    continue              # inside the region: never read from memory
+                self._write_pending(key)
+            self._add(t.numel() * t.element_size(), scope)
+        for t in outputs:
+            n = t.numel() * t.element_size()
+            if not pointwise:
+                self._add(n, scope)
+                continue
+            st = t.untyped_storage()
+            key = st._cdata
+            if key not in self.pending:
+                self.pending[key] = (n, scope)
+                self._refs[key] = weakref.ref(st, lambda _r, key=key: self._drop(key))
+
+    def _drop(self, key: int) -> None:
+        self.pending.pop(key, None)
+        self._refs.pop(key, None)
+
+    def finish(self) -> None:
+        """Write what is still pending and live: the step's results."""
+        for key in list(self.pending):
+            self._write_pending(key)
 
 
 class _Recorder(TorchDispatchMode):
-    """Records each collective on local tensors and counts local FLOPs."""
+    """Records each collective on local tensors and counts local FLOPs and
+    bytes (unfused, and fused by `_FusedBytes`)."""
 
     def __init__(self, live: "_LiveBytes | None" = None):
         super().__init__()
@@ -241,8 +353,8 @@ class _Recorder(TorchDispatchMode):
         self.calls: List[tuple] = []
         self.flops = 0
         self.bytes = 0
+        self.fused = _FusedBytes()
         self.flops_by_scope: Dict[str, float] = defaultdict(float)
-        self.bytes_by_scope: Dict[str, float] = defaultdict(float)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if func is _DEVICE and isinstance(args[0], FakeTensor):
@@ -257,16 +369,17 @@ class _Recorder(TorchDispatchMode):
         if func.namespace in _NAMESPACES:
             if func._opname in KINDS:
                 self.calls.append(self._collective(func, args, kwargs, out))
+                self.fused.leave(_tensors((args, kwargs)))
             return out
         written = _nbytes(out)        # 0 for a query (sizes, device) as for no output
         if written and not func.is_view and func._overloadpacket not in _ALLOCATIONS:
-            b = _nbytes((args, kwargs)) + written
-            self.bytes += b
-            self.bytes_by_scope["/".join(scope_mod.current())] += b
+            self.bytes += _nbytes((args, kwargs)) + written
+            self.fused.op(func, _tensors((args, kwargs)), _tensors(out),
+                          "/".join(scope_mod.current()))
         if written and self.live is not None:
             for t in tree_leaves(out):
                 if isinstance(t, torch.Tensor):
-                    self.live.track(t)
+                    self.live.track(t, func)
         if func._overloadpacket in flop_registry:
             f = flop_registry[func._overloadpacket](*args, **kwargs, out_val=out)
             self.flops += f
@@ -343,15 +456,21 @@ def trace_step(fn: Callable, args, mesh, mesh_spec: MeshSpec, *, label: str = "s
     local = [t.to_local() if isinstance(t, DTensor) else t for t in tree_leaves(args)
              if isinstance(t, torch.Tensor)]
     fake = any(isinstance(t, FakeTensor) for t in local)
-    recorder, tagger = _Recorder(_LiveBytes(local) if fake else None), _ScopeTagger()
+    request = _HOLDER_REQUESTS[-1] if _HOLDER_REQUESTS and fake else None
+    live = _LiveBytes(local, holders_at=request[0] if request else None) if fake else None
+    recorder, tagger = _Recorder(live), _ScopeTagger()
     on_card = mesh.device_type == "cuda" and not fake
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     with _dtensor_eager(), _dtensor_bookkeeping_unseen(), tagger, recorder:
-        fn(*args)
+        result = fn(*args)
+    recorder.fused.finish()           # while the step's results are live
+    del result
     peak = (torch.cuda.max_memory_allocated() if on_card
             else recorder.live.peak if fake else 0)
+    if request:
+        request[1].append(recorder.live.holders)
     with unset_fake_temporarily():
         return _trace(recorder, mesh, mesh_spec, label, hw, local, peak)
 
@@ -361,11 +480,13 @@ def _trace(recorder, mesh, mesh_spec, label, hw, local, peak) -> Trace:
     store = TraceStore.from_events(events)
     costmodel.annotate_store(store, mesh_spec, hw)
     attribution.attribute_store(store)
-    stats = HloOpStats(flops=float(recorder.flops), bytes_accessed=float(recorder.bytes),
+    stats = HloOpStats(flops=float(recorder.flops), bytes_accessed=float(recorder.fused.bytes),
                        flops_by_scope=dict(recorder.flops_by_scope),
-                       bytes_by_scope=dict(recorder.bytes_by_scope))
-    return Trace.from_store(label, mesh_spec.shape, mesh_spec.axes, mesh_spec.num_devices,
-                            store, op_stats=stats, hlo_flops=float(recorder.flops),
-                            hlo_bytes=float(recorder.bytes),
-                            per_device_memory_bytes=float(peak),
-                            argument_bytes=float(_nbytes(local)))
+                       bytes_by_scope=dict(recorder.fused.by_scope))
+    trace = Trace.from_store(label, mesh_spec.shape, mesh_spec.axes, mesh_spec.num_devices,
+                             store, op_stats=stats, hlo_flops=float(recorder.flops),
+                             hlo_bytes=float(recorder.fused.bytes),
+                             per_device_memory_bytes=float(peak),
+                             argument_bytes=float(_nbytes(local)))
+    trace.hlo_bytes_unfused = float(recorder.bytes)
+    return trace

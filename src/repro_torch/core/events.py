@@ -152,6 +152,9 @@ class Trace:
         # compiled-artifact numbers (cost_analysis / memory_analysis)
         self.hlo_flops = hlo_flops
         self.hlo_bytes = hlo_bytes
+        # the port's capture also counts its eager ops' bytes unfused
+        # (`core.capture`); not saved with the trace
+        self.hlo_bytes_unfused = hlo_bytes
         self.per_device_memory_bytes = per_device_memory_bytes
         self.argument_bytes = argument_bytes
         self.output_bytes = output_bytes

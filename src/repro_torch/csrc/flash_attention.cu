@@ -10,8 +10,9 @@
 //
 // Dispatch (repro_flash_attention_fwd, mirrored by kernels/flash_attention.py::kernel_for):
 //   * bfloat16 at any head dim d <= 256 -> flash_fwd_wgmma_kernel, on the tensor cores;
-//   * float32 at any d <= 256 -> flash_fwd_kernel, fp32 FFMA on the CUDA cores (the fp32
-//     cases must meet 2e-5, which TF32 cannot).
+//   * float32 at any d <= 256 -> flash_fwd_tf32x3_kernel, on the tensor cores in 3xTF32 (the
+//     fp32 cases must meet 2e-5 max abs: one TF32 product keeps ~10 mantissa bits, which
+//     cannot; three of the split operands, hi*hi + hi*lo + lo*hi, keep ~21).
 // Neither stands in for the other: a bf16 call whose base or strides TMA cannot take
 // returns an error.
 //
@@ -50,19 +51,39 @@
 //     while that P V does, so the tensor cores and the softmax overlap inside a warpgroup;
 //   * 224 KB of shared memory at d = 128, 192 KB at 256, 144 KB at 64: one block per SM.
 
-// flash_fwd_kernel (fp32), on the CUDA cores, bound by the SIMT fp32 rate and by
-// shared-memory bandwidth under that:
-//   * one block of 256 threads per (64-row q tile, head, batch); the KV loop runs inside the
-//     block and stops at the causal/window limit (the Pallas kernel's pl.when), so fully
-//     masked tiles cost nothing and no state crosses blocks;
-//   * Q, K and V tiles live in shared memory; each thread owns a 4x4 block of scores and a
-//     4 x (D/16) block of the output and reads shared memory with 16-byte loads, 8 loads
-//     per 64 FMAs; rows are padded by 4 floats so those loads hit no bank twice;
-//   * row max and row sum reduce over the 16 threads that share a row with warp shuffles;
-//   * P reuses the K buffer once the scores sit in registers, which keeps D=128 at 98 KB of
-//     shared memory and two blocks per SM;
+// flash_fwd_tf32x3_kernel (fp32): both products on the tensor cores in 3xTF32, at close to
+// fp32 accuracy (the fp32 cases are held to 2e-5 max abs, which one TF32 product, ~10
+// mantissa bits, cannot meet).  Bound by the 3xTF32 tensor rate (495 / 3 = 165 TFLOP/s
+// dense) and, under it, by the instructions that split the operands and by shared-memory
+// bandwidth.  What its design does about that:
+//   * one block per (64-row q tile, head, batch), the heaviest causal q tiles first; a warp
+//     owns 16 q rows: 4 warps, and at D = 256, where one block fills the SM's shared
+//     memory, 8: two warps a row group, each summing S over half the head dims (the halves
+//     added through shared memory) and keeping half of O's columns; the KV loop runs inside
+//     the block and stops at the causal/window limit (the Pallas kernel's pl.when), so
+//     fully masked tiles cost nothing (at D = 256, 8 warps of 128 rows with 16-key tiles
+//     were slower on an H100 than 4 warps of 64 rows; the split is faster than both);
+//   * S = Q K^T and O += P V on mma.sync.m16n8k8.tf32 with fp32 accumulators; each operand
+//     is split as x = hi + lo (hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi)) and each
+//     product is hi*hi into one accumulator and lo*hi + hi*lo into another (lo*lo, ~2^-22
+//     relative, is dropped); the tensor cores add by truncation, so both are fresh
+//     fragments over at most 32 head dims (S) or one 32-key tile (O), added to the
+//     running sums in fp32;
+//   * the fragments are read with the contraction index permuted inside each group of 8
+//     (logical column c of a fragment is element 2c of the group, c + 4 is 2c + 1): Q and K
+//     then load as float2 and S's accumulator fragment is P's A fragment as it stands, so P
+//     never leaves registers; V's B fragment reads the same permuted key order;
+//   * Q stays in shared memory; K/V tiles of 32 keys are double-buffered with cp.async
+//     (16-byte copies where bases, strides and d allow, else 4-byte), so tile i+1 loads
+//     while tile i computes; rows are padded (Q and K by 8 floats, V by 4) so that no
+//     fragment load takes a bank twice;
+//   * scale, mask and online softmax in fp32 registers (expf, as the plain version), row
+//     max and sum over the 4 lanes that share a row; masks run only on tiles that cross
+//     the diagonal, the window's edge or Skv;
 //   * strides are arguments, so the model layout [B, S, H, D] is read in place, and any head
-//     dim up to 256 works (zero-padded in shared memory only).
+//     dim up to 256 works (zero-padded to 64, 128 or 256 in shared memory only): 53 KB of
+//     shared memory at D = 64 (3 blocks per SM, by registers), 101 KB at 128 (2), 213 KB at
+//     256 (1).
 
 #include <cuda.h>          // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_runtime.h>
@@ -73,9 +94,6 @@
 
 namespace {
 
-constexpr int BQ = 64;         // query rows per block
-constexpr int BK = 64;         // keys per KV tile
-constexpr int NTHREADS = 256;  // 16 row groups x 16 column lanes
 constexpr float NEG_INF = -1e30f;
 
 struct Args {
@@ -86,198 +104,350 @@ struct Args {
   float scale;
 };
 
-// Copy rows [row0, row0 + 64) of a [S, d] slice into shared memory with row pitch `pitch`;
-// rows past S and columns past d are zero.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, int pitch, const float* src, long long ss,
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------------------------------
+// The fp32 kernel: 3xTF32 on mma.sync.
+
+constexpr int F_BQ = 64;          // query rows per block: 16 per warp
+constexpr int F_BK = 32;          // keys per KV tile
+constexpr int F_THREADS = 128;    // 4 warps
+constexpr int F_KB = 32;          // head dims a fresh S fragment sums before it is added
+
+// Copy `bytes` (16 or 4) from global to shared memory, asynchronously; zeros where !valid.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(float* dst, const float* src, bool valid) {
+  const int n = valid ? BYTES : 0;
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(n) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Start copying rows [row0, row0 + ROWS) of a [S, d] slice (row stride `ss` elements) into
+// shared rows of pitch `pitch`, columns [0, D); rows past S and columns past d are zero.
+// VEC floats a copy: 4 needs a 16-byte aligned slice, `ss` and d multiples of 4.
+template <int ROWS, int D, int VEC, int THREADS>
+__device__ __forceinline__ void load_rows(float* dst, int pitch, const float* src, long long ss,
                                           int row0, int S, int d) {
-  for (int idx = threadIdx.x; idx < 64 * D; idx += NTHREADS) {
-    const int r = idx / D, c = idx % D;
-    const int s = row0 + r;
-    float val = 0.f;
-    if (s < S && c < d) val = src[(long long)s * ss + c];
-    dst[r * pitch + c] = val;
+  constexpr int CPR = D / VEC;
+  for (int idx = threadIdx.x; idx < ROWS * CPR; idx += THREADS) {
+    const int r = idx / CPR, c = (idx % CPR) * VEC;
+    const bool ok = row0 + r < S && c < d;
+    cp_async<VEC * 4>(dst + r * pitch + c, ok ? src + (long long)(row0 + r) * ss + c : src, ok);
   }
 }
 
-__device__ __forceinline__ float group16_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
 }
 
-__device__ __forceinline__ float group16_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+// x = hi + lo, both TF32 values
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
 }
 
-template <int D>
-__global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(const Args a) {
-  constexpr int QP = D + 4;    // Q and K row pitch (floats)
-  constexpr int PP = BK + 4;   // P row pitch
-  constexpr int NG = D / 64;   // 64-wide output column groups per thread row
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// a b in 3xTF32: hi x hi into `big`, the cross terms into `small`.  The tensor cores add
+// into an fp32 accumulator by truncation, so the small terms keep their own accumulator,
+// and both are fresh fragments over a few products, added to the running sums in fp32
+// by the caller: one accumulator over a whole KV loop read 3.5e-5 relative against the
+// naive prefill after h2o-danube-3-4b's 24 fp32 layers at 4352 keys on an H100, against
+// the 2e-5 limit.
+__device__ __forceinline__ void mma_3xtf32(float (&big)[4], float (&small)[4],
+                                           const uint32_t (&a_hi)[4], const uint32_t (&a_lo)[4],
+                                           const uint32_t (&b_hi)[2], const uint32_t (&b_lo)[2]) {
+  mma_tf32(big, a_hi, b_hi);
+  mma_tf32(small, a_lo, b_hi);
+  mma_tf32(small, a_hi, b_lo);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// blocks an SM keeps: 3 at D = 64 (4 fit its shared memory, but held to 128 registers a
+// thread its fragments spill), 2 at 128, 1 at 256
+template <int D> __host__ __device__ constexpr int fp32_min_blocks() {
+  return D <= 64 ? 3 : D <= 128 ? 2 : 1;
+}
+
+// warps that share 16 rows, each taking D / split head dims of S's sum and of O: 2 at
+// D = 256, where one block of 4 warps fills an SM's shared memory
+template <int D> __host__ __device__ constexpr int fp32_split() { return D > 128 ? 2 : 1; }
+template <int D> __host__ __device__ constexpr int fp32_threads() {
+  return F_THREADS * fp32_split<D>();
+}
+
+template <int D> constexpr int fp32_smem_bytes() {
+  return (F_BQ * (D + 8) + 2 * F_BK * (D + 8) + 2 * F_BK * (D + 4) +
+          (fp32_split<D>() > 1 ? fp32_threads<D>() * F_BK / 2 : 0)) * (int)sizeof(float);
+}
+
+template <int D, int VEC>
+__global__ void __launch_bounds__(fp32_threads<D>(), fp32_min_blocks<D>())
+flash_fwd_tf32x3_kernel(const Args a) {
+  constexpr int QP = D + 8, KP = D + 8, VP = D + 4;   // row pitches (floats)
+  constexpr int NT = F_BK / 8;                        // S fragments (8 keys each) a warp
+  constexpr int SPLIT = fp32_split<D>(), THREADS = fp32_threads<D>();
+  constexpr int DH = D / SPLIT;                       // head dims a warp sums S over, of O
+  constexpr int NO = DH / 8;                          // O fragments (8 columns each)
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
-  float* sK = sQ + BQ * QP;    // K tile, then P of the same tile
-  float* sV = sK + BK * QP;
+  float* sK = sQ + F_BQ * QP;                         // 2 stages
+  float* sV = sK + 2 * F_BK * KP;                     // 2 stages
+  float* sS = sV + 2 * F_BK * VP;                     // split: each warp's partial S
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / a.G;
-  const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;              // fragment row group, lane in group
+  const int r0 = (warp % 4) * 16;                     // this warp's first row in the tile
+  const int d0 = (warp / 4) * DH;                     // and its first head dim
 
   const float* q = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
   const float* k = static_cast<const float*>(a.k) + b * a.k_sb + kvh * a.k_sh;
   const float* v = static_cast<const float*>(a.v) + b * a.v_sb + kvh * a.v_sh;
   float* o = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh;
 
-  load_tile<D>(sQ, QP, q, a.q_ss, qt * BQ, a.Sq, a.d);
-
   // KV tiles that hold at least one unmasked key for some row of this q tile
-  const int q_start = qt * BQ + a.q_offset;        // absolute position of row 0
-  const int nk = (a.Skv + BK - 1) / BK;
+  const int q_start = qt * F_BQ + a.q_offset;        // absolute position of row 0
+  const int nk = (a.Skv + F_BK - 1) / F_BK;
   int kt_end = nk;
-  if (a.causal) kt_end = min(nk, (q_start + BQ - 1) / BK + 1);
+  if (a.causal) kt_end = min(nk, (q_start + F_BQ - 1) / F_BK + 1);
   int kt_begin = 0;
-  if (a.window > 0) kt_begin = max(0, q_start - a.window + 1) / BK;
+  if (a.window > 0) kt_begin = max(0, q_start - a.window + 1) / F_BK;
 
-  float acc[4][NG][4];
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.f;
+  load_rows<F_BQ, D, VEC, THREADS>(sQ, QP, q, a.q_ss, qt * F_BQ, a.Sq, a.d);
+  if (kt_begin < kt_end) {
+    load_rows<F_BK, D, VEC, THREADS>(sK, KP, k, a.k_ss, kt_begin * F_BK, a.Skv, a.d);
+    load_rows<F_BK, D, VEC, THREADS>(sV, VP, v, a.v_ss, kt_begin * F_BK, a.Skv, a.d);
   }
+  cp_async_commit();
+
+  // this thread's rows: r0 + g (fragment elements 0, 1) and r0 + g + 8 (2, 3)
+  const int qi[2] = {q_start + r0 + g, q_start + r0 + g + 8};
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k_start = kt * BK;
-    __syncthreads();   // the previous tile's P and V are consumed
-    load_tile<D>(sK, QP, k, a.k_ss, k_start, a.Skv, a.d);
-    load_tile<D>(sV, D, v, a.v_ss, k_start, a.Skv, a.d);
+    const int stage = (kt - kt_begin) & 1;
+    if (kt + 1 < kt_end) {     // the next tile into the other stage, then wait for this one
+      load_rows<F_BK, D, VEC, THREADS>(sK + (stage ^ 1) * F_BK * KP, KP, k, a.k_ss,
+                                       (kt + 1) * F_BK, a.Skv, a.d);
+      load_rows<F_BK, D, VEC, THREADS>(sV + (stage ^ 1) * F_BK * VP, VP, v, a.v_ss,
+                                       (kt + 1) * F_BK, a.Skv, a.d);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
+    const float* cK = sK + stage * F_BK * KP;
+    const float* cV = sV + stage * F_BK * VP;
 
-    // scores for rows tr*4+i, columns tc+16*j
-    float s[4][4];
+    // S = Q K^T: s[j] holds keys 8j + 2t, 8j + 2t + 1 of rows g and g + 8, summed in fp32
+    // over blocks of F_KB head dims
+    float s[NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int dd = 0; dd < D; dd += 4) {
-      float4 qv[4], kv[4];
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    for (int k0 = d0; k0 < d0 + DH; k0 += F_KB) {
+      float big[NT][4], small[NT][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(&sQ[(tr * 4 + i) * QP + dd]);
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = *reinterpret_cast<const float4*>(&sK[(tc + 16 * j) * QP + dd]);
+        for (int e = 0; e < 4; ++e) big[j][e] = small[j][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int kk = k0; kk < k0 + F_KB; kk += 8) {
+        const float2 q0 = *reinterpret_cast<const float2*>(&sQ[(r0 + g) * QP + kk + 2 * t]);
+        const float2 q1 =
+            *reinterpret_cast<const float2*>(&sQ[(r0 + g + 8) * QP + kk + 2 * t]);
+        uint32_t ah[4], al[4];
+        split_tf32(q0.x, ah[0], al[0]);
+        split_tf32(q1.x, ah[1], al[1]);
+        split_tf32(q0.y, ah[2], al[2]);
+        split_tf32(q1.y, ah[3], al[3]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float t = s[i][j];
-          t = fmaf(qv[i].x, kv[j].x, t);
-          t = fmaf(qv[i].y, kv[j].y, t);
-          t = fmaf(qv[i].z, kv[j].z, t);
-          t = fmaf(qv[i].w, kv[j].w, t);
-          s[i][j] = t;
+        for (int j = 0; j < NT; ++j) {
+          const float2 kv =
+              *reinterpret_cast<const float2*>(&cK[(8 * j + g) * KP + kk + 2 * t]);
+          uint32_t bh[2], bl[2];
+          split_tf32(kv.x, bh[0], bl[0]);
+          split_tf32(kv.y, bh[1], bl[1]);
+          mma_3xtf32(big[j], small[j], ah, al, bh, bl);
         }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] += big[j][e] + small[j][e];
+    }
+    if constexpr (SPLIT > 1) {   // the two warps of a row group add their halves of S
+      float* mine = sS + warp * NT * 4 * 32 + lane;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mine[(j * 4 + e) * 32] = s[j][e];
+      __syncthreads();
+      const float* other = sS + (warp ^ 4) * NT * 4 * 32 + lane;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] += other[(j * 4 + e) * 32];
     }
 
     // scale, mask, online softmax update
+    const int k_start = kt * F_BK;
+    const bool edge = k_start + F_BK > a.Skv || (a.causal && k_start + F_BK - 1 > q_start) ||
+                      (a.window > 0 && q_start + F_BQ - 1 - k_start >= a.window);
+    float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q_start + tr * 4 + i;
-      float mc = NEG_INF;
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int ki = k_start + tc + 16 * j;
-        bool ok = ki < a.Skv;
-        if (a.causal) ok = ok && ki <= qi;
-        if (a.window > 0) ok = ok && (qi - ki) < a.window;
-        s[i][j] = ok ? s[i][j] * a.scale : NEG_INF;
-        mc = fmaxf(mc, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], group16_max(mc));
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
-      }
-      l[i] = l[i] * alpha + group16_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int g = 0; g < NG; ++g)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][g][e] *= alpha;
-    }
-
-    __syncthreads();   // every thread is done reading K: its buffer now takes P
-    float* sP = sK;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sP[(tr * 4 + i) * PP + tc + 16 * j] = s[i][j];
-    __syncthreads();
-
-    // acc[rows tr*4+i][cols g*64 + tc*4 + e] += P V
-#pragma unroll 2
-    for (int c = 0; c < BK; c += 4) {
-      float4 pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = *reinterpret_cast<const float4*>(&sP[(tr * 4 + i) * PP + c]);
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-#pragma unroll
-        for (int g = 0; g < NG; ++g) {
-          const float4 vv = *reinterpret_cast<const float4*>(&sV[(c + cc) * D + g * 64 + tc * 4]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float p = cc == 0 ? pv[i].x : cc == 1 ? pv[i].y : cc == 2 ? pv[i].z : pv[i].w;
-            acc[i][g][0] = fmaf(p, vv.x, acc[i][g][0]);
-            acc[i][g][1] = fmaf(p, vv.y, acc[i][g][1]);
-            acc[i][g][2] = fmaf(p, vv.z, acc[i][g][2]);
-            acc[i][g][3] = fmaf(p, vv.w, acc[i][g][3]);
-          }
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float x = s[j][e] * a.scale;
+        if (edge) {
+          const int ki = k_start + 8 * j + 2 * t + (e & 1);
+          bool ok = ki < a.Skv;
+          if (a.causal) ok = ok && ki <= qi[r];
+          if (a.window > 0) ok = ok && (qi[r] - ki) < a.window;
+          x = ok ? x : NEG_INF;
         }
+        s[j][e] = x;
+        mx[r] = fmaxf(mx[r], x);
       }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      alpha[r] = expf(m[r] - m_new);
+      m[r] = m_new;
     }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - m[e >> 1]);
+        rs[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(rs[r]);
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    // O += P V: S's fragment j is P's A fragment for keys 8j..8j+7 in the permuted order;
+    // each O fragment takes the tile's sum in fresh fragments, then adds it in fp32
+    uint32_t ph[NT][4], pl[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      split_tf32(s[j][0], ph[j][0], pl[j][0]);
+      split_tf32(s[j][2], ph[j][1], pl[j][1]);
+      split_tf32(s[j][1], ph[j][2], pl[j][2]);
+      split_tf32(s[j][3], ph[j][3], pl[j][3]);
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      float big[4] = {0.f, 0.f, 0.f, 0.f}, small[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float* v0 = cV + (8 * j + 2 * t) * VP + d0 + 8 * n + g;
+        uint32_t bh[2], bl[2];
+        split_tf32(v0[0], bh[0], bl[0]);
+        split_tf32(v0[VP], bh[1], bl[1]);
+        mma_3xtf32(big, small, ph[j], pl[j], bh, bl);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += big[e] + small[e];
+    }
+    __syncthreads();   // every warp is done with this stage before it takes tile kt + 2
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = qt * BQ + tr * 4 + i;
+  for (int r = 0; r < 2; ++r) {
+    const int row = qt * F_BQ + r0 + g + 8 * r;
     if (row >= a.Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
+    const float denom = fmaxf(l[r], 1e-30f);
+    float* orow = o + (long long)row * a.o_ss;
 #pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = g * 64 + tc * 4 + e;
-        if (col < a.d) o[(long long)row * a.o_ss + col] = acc[i][g][e] / denom;
-      }
+    for (int n = 0; n < NO; ++n) {
+      const int col = d0 + 8 * n + 2 * t;
+      if (col < a.d) orow[col] = acc[n][2 * r] / denom;
+      if (col + 1 < a.d) orow[col + 1] = acc[n][2 * r + 1] / denom;
+    }
   }
 }
 
-template <int D>
-cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  const int smem = (2 * 64 * (D + 4) + 64 * D) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
+template <int D, int VEC>
+cudaError_t launch_fp32(const Args& a, int B, cudaStream_t stream) {
+  constexpr int smem = fp32_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_tf32x3_kernel<D, VEC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, B);
-  flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(a);
+  const dim3 grid((a.Sq + F_BQ - 1) / F_BQ, a.H, B);
+  flash_fwd_tf32x3_kernel<D, VEC><<<grid, fp32_threads<D>(), smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+// 16-byte copies need every (batch, head) slice's base 16-byte aligned and its rows too
+bool fp32_vec4(const Args& a) {
+  const bool bases = (reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+                      reinterpret_cast<uintptr_t>(a.v)) % 16 == 0;
+  const long long strides = a.q_sb | a.q_ss | a.q_sh | a.k_sb | a.k_ss | a.k_sh |
+                            a.v_sb | a.v_ss | a.v_sh;
+  return bases && strides % 4 == 0 && a.d % 4 == 0;
+}
+
+template <int D>
+cudaError_t launch_fp32_any(const Args& a, int B, cudaStream_t stream) {
+  return fp32_vec4(a) ? launch_fp32<D, 4>(a, B, stream) : launch_fp32<D, 1>(a, B, stream);
+}
+
 cudaError_t dispatch_fp32(const Args& a, int B, cudaStream_t stream) {
-  if (a.d <= 64) return launch<64>(a, B, stream);
-  if (a.d <= 128) return launch<128>(a, B, stream);
-  if (a.d <= 256) return launch<256>(a, B, stream);
+  if (a.d <= 64) return launch_fp32_any<64>(a, B, stream);
+  if (a.d <= 128) return launch_fp32_any<128>(a, B, stream);
+  if (a.d <= 256) return launch_fp32_any<256>(a, B, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -300,10 +470,6 @@ struct TcArgs {
   int Sq, Skv, G, d, causal, window, q_offset, nq;
   float scale_log2;              // scale * log2(e): the softmax runs in base 2
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
@@ -865,7 +1031,7 @@ cudaError_t launch_tc(const Args& a, int B, int K, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the last dim is contiguous.
 // bf16 runs the tensor-core kernel and needs 16-byte aligned bases and strides (a multiple
-// of 8 elements) for TMA; float32 runs the CUDA-core kernel.
+// of 8 elements) for TMA; float32 runs the 3xTF32 tensor-core kernel.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype,

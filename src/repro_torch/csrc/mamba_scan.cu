@@ -1,7 +1,10 @@
-// Mamba-1 selective scan for Hopper (sm_90a): the time recurrence inside each thread.
+// Mamba-1 selective scan for Hopper (sm_90a): two entry points.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/mamba_scan.py::_kernel (launched by
-// ::mamba_scan).  Same function, from h_0 = 0:
+// ::mamba_scan).
+//
+// mamba_scan_kernel (repro_mamba_scan_fwd), the unfused scan: the time recurrence inside
+// each thread.  Same function as the Pallas kernel, from h_0 = 0:
 //     h_t[b,d,n] = a_bar[b,t,d,n] * h_{t-1}[b,d,n] + bx[b,t,d,n]
 //     y[b,t,d]   = sum_n h_t[b,d,n] * c[b,t,n]
 // all in fp32, plus the final state h_S [B, Di, N] when the caller asks for it (a null
@@ -23,10 +26,35 @@
 //   * y's sum over n is a butterfly of warp shuffles inside the P lanes of a channel, and
 //     lane 0 writes it;
 //   * offsets are 64-bit: a_bar and bx hold 2^29 elements at the serving shape.
-// cp.async/TMA prefetch of later timesteps, and computing a_bar and bx inside the kernel
-// from delta, A, B and x (which would halve the bytes the layer moves), are later work.
+// cp.async/TMA prefetch of later timesteps is later work.
+//
+// mamba_scan_fused_kernel (repro_mamba_scan_fused_fwd), the scan with its discretisation
+// fused: what the model computes with _ssm_inputs (src/repro/models/ssm.py:44-61) and
+// then the Pallas kernel, from the scan's inputs before discretisation:
+//     a_bar = exp(delta[b,t,d] * A[d,n]),  bx = (delta[b,t,d] * x[b,t,d]) * B[b,t,n]
+//     h_t = a_bar * h_{t-1} + bx,          y[b,t,d] = sum_n h_t * C[b,t,n]
+// in that order of products, in fp32 (x bf16 or fp32, widened in registers), plus h_S.
+// What bounds it: the bytes of delta, x ([B, S, Di]), B and C ([B, S, N]) and y, ~0.34 GB
+// a falcon-mamba-7b layer (4 x 1024, Di 8192) against ~4.3 GB of a_bar and bx that the
+// unfused scan reads after the model wrote them, so ~0.1 ms at 3.35 TB/s; under that the
+// expf and the products of every (b, t, d, n).  What the design does about it:
+//   * a_bar and bx are made in registers and never touch device memory;
+//   * one thread per (b, d) carries the channel's P states (P = N rounded up to a power of
+//     two) in registers, so y's sum over n is a register sum, not a shuffle tree, and each
+//     step's delta and x are loaded once per channel; a block of 128 channels stages 32
+//     timesteps at a time in shared memory: delta and x as coalesced rows, B and C (shared
+//     by every channel of a batch row) read back as broadcasts;
+//   * time split into chunks where one pass's B * ceil(Di / 128) blocks cannot fill the
+//     card (a mesh divides Di by `model`, so every sharded prefill runs such shapes):
+//     pass 1 runs each chunk but
+//     the last from h = 0 and keeps its end state and the product of its a_bar; pass 2
+//     starts each chunk from the state carried through the chunks before it (a short
+//     sequential loop over them: h <- prod_c * h + end_c) and writes y, and the last chunk
+//     h_S.  The chunk count comes from the shape and the SM count (the wrapper's
+//     kernels/mamba_scan.py::scan_chunks), so the card's threads are filled.
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -97,6 +125,121 @@ cudaError_t launch(const float* a, const float* bx, const float* c, float* y, fl
   return cudaGetLastError();
 }
 
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+struct Fused {
+  const float* delta; const void* x; const float* A; const float* Bm; const float* C;
+  float* y; float* h_out;
+  float* carry_h; float* carry_p;    // [chunks - 1, B, Di, N]: each chunk's end state from
+                                     // h = 0 and its a_bar product (pass 1), else null
+  int S, Di, N, chunk;
+};
+
+constexpr int FT = 128;        // fused kernel: threads (channels) a block; as
+                               // kernels/mamba_scan.py's CHANNELS_PER_BLOCK
+constexpr int TS = 32;         // timesteps staged in shared memory at a time
+
+// MODE 0: the whole sequence in one chunk (y and h_S); 1: pass 1 (carry_h, carry_p of
+// chunk blockIdx.z); 2: pass 2 (chunk blockIdx.z from its carried-in state: y, and h_S
+// from the last chunk).  One thread per (b, d): the channel's P states in registers.
+template <int P, typename XT, int MODE>
+__global__ void __launch_bounds__(FT)
+mamba_scan_fused_kernel(const Fused f) {
+  __shared__ __align__(16) float sB[TS][P];
+  __shared__ __align__(16) float sC[TS][P];
+  __shared__ float sD[TS][FT];
+  __shared__ float sX[TS][FT];
+  const int b = blockIdx.y, ck = blockIdx.z, B = gridDim.y;
+  const long long d0 = (long long)blockIdx.x * FT, d = d0 + threadIdx.x;
+  const bool valid = d < f.Di;
+  const long long BDN = (long long)B * f.Di * f.N;
+  const long long state = ((long long)b * f.Di + d) * f.N;          // [B, Di, N] at n = 0
+  const int t0 = ck * f.chunk, t1 = min(f.S, t0 + f.chunk);
+
+  // states past N (and channels past Di) have a = 0, B = C = 0: h stays 0, adds nothing
+  float a[P], h[P], prod[P];
+#pragma unroll
+  for (int n = 0; n < P; ++n) {
+    a[n] = (valid && n < f.N) ? __ldg(f.A + d * f.N + n) : 0.f;
+    h[n] = 0.f;
+    prod[n] = 1.f;
+  }
+  if (MODE == 2 && valid)
+    for (int c = 0; c < ck; ++c)
+#pragma unroll
+      for (int n = 0; n < P; ++n)
+        if (n < f.N)
+          h[n] = f.carry_p[c * BDN + state + n] * h[n] + f.carry_h[c * BDN + state + n];
+
+  const long long row = (long long)b * f.S;
+  const XT* x = static_cast<const XT*>(f.x);
+  for (int ts = t0; ts < t1; ts += TS) {
+    const int nt = min(TS, t1 - ts);
+    __syncthreads();               // the previous stage is consumed
+    for (int i = threadIdx.x; i < TS * P; i += FT) {
+      const int tt = i / P, n = i % P;
+      const bool ok = tt < nt && n < f.N;
+      const long long at = (row + ts + tt) * f.N + n;
+      sB[tt][n] = ok ? __ldg(f.Bm + at) : 0.f;
+      if (MODE != 1) sC[tt][n] = ok ? __ldg(f.C + at) : 0.f;
+    }
+    for (int tt = 0; tt < nt; ++tt) {   // coalesced rows of delta and x
+      const long long at = (row + ts + tt) * f.Di + d;
+      sD[tt][threadIdx.x] = valid ? __ldg(f.delta + at) : 0.f;
+      sX[tt][threadIdx.x] = valid ? widen(x[at]) : 0.f;
+    }
+    __syncthreads();
+    for (int tt = 0; tt < nt; ++tt) {
+      const float dt = sD[tt][threadIdx.x];
+      const float dtx = dt * sX[tt][threadIdx.x];
+      float y = 0.f;
+#pragma unroll
+      for (int n = 0; n < P; ++n) {
+        const float ab = expf(dt * a[n]);
+        h[n] = ab * h[n] + dtx * sB[tt][n];
+        if (MODE == 1) prod[n] *= ab;
+        else y += h[n] * sC[tt][n];
+      }
+      if (MODE != 1 && valid) f.y[(row + ts + tt) * f.Di + d] = y;
+    }
+  }
+  if (!valid) return;
+#pragma unroll
+  for (int n = 0; n < P; ++n) {
+    if (n >= f.N) continue;
+    if (MODE == 1) {
+      f.carry_h[ck * BDN + state + n] = h[n];
+      f.carry_p[ck * BDN + state + n] = prod[n];
+    } else if (f.h_out != nullptr && t1 == f.S) {
+      f.h_out[state + n] = h[n];
+    }
+  }
+}
+
+template <int P, typename XT>
+cudaError_t launch_fused(const Fused& f, int B, int chunks, cudaStream_t stream) {
+  const unsigned gx = (unsigned)((f.Di + FT - 1) / FT);
+  if (chunks == 1) {
+    mamba_scan_fused_kernel<P, XT, 0><<<dim3(gx, B, 1), FT, 0, stream>>>(f);
+    return cudaGetLastError();
+  }
+  mamba_scan_fused_kernel<P, XT, 1><<<dim3(gx, B, chunks - 1), FT, 0, stream>>>(f);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  mamba_scan_fused_kernel<P, XT, 2><<<dim3(gx, B, chunks), FT, 0, stream>>>(f);
+  return cudaGetLastError();
+}
+
+template <typename XT>
+cudaError_t dispatch_fused(const Fused& f, int B, int chunks, cudaStream_t st) {
+  if (f.N <= 4) return launch_fused<4, XT>(f, B, chunks, st);
+  if (f.N <= 8) return launch_fused<8, XT>(f, B, chunks, st);
+  if (f.N <= 16) return launch_fused<16, XT>(f, B, chunks, st);
+  if (f.N <= 32) return launch_fused<32, XT>(f, B, chunks, st);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // a_bar, bx [B, S, Di, N], c [B, S, N], y [B, S, Di], h_out [B, Di, N] or null: contiguous
@@ -110,4 +253,25 @@ extern "C" int repro_mamba_scan_fwd(const float* a, const float* bx, const float
   if (N <= 16) return (int)launch<16>(a, bx, c, y, h_out, B, S, Di, N, st);
   if (N <= 32) return (int)launch<32>(a, bx, c, y, h_out, B, S, Di, N, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// delta [B, S, Di] fp32, x [B, S, Di] (bf16 when x_bf16, else fp32), A [Di, N] fp32,
+// Bm and C [B, S, N] fp32, y [B, S, Di] fp32, h_out [B, Di, N] or null: contiguous.
+// `chunk` timesteps a chunk (>= 1); with more than one chunk, `scratch` holds
+// 2 x (chunks - 1) x B x Di x N floats.  Returns the cudaError_t of the launches.
+extern "C" int repro_mamba_scan_fused_fwd(const float* delta, const void* x, int x_bf16,
+                                          const float* A, const float* Bm, const float* C,
+                                          float* y, float* h_out, float* scratch, int B, int S,
+                                          int Di, int N, int chunk, void* stream) {
+  if (B < 1 || B > 65535 || S < 0 || Di < 1 || N < 1 || N > 32 || chunk < 1)
+    return (int)cudaErrorInvalidValue;
+  const int chunks = S > 0 ? (S + chunk - 1) / chunk : 1;
+  if (chunks > 65535 || (chunks > 1 && scratch == nullptr)) return (int)cudaErrorInvalidValue;
+  const long long BDN = (long long)B * Di * N;
+  Fused f{delta, x, A, Bm, C, y, h_out,
+          chunks > 1 ? scratch : nullptr, chunks > 1 ? scratch + (chunks - 1) * BDN : nullptr,
+          S, Di, N, chunk};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(x_bf16 ? dispatch_fused<__nv_bfloat16>(f, B, chunks, st)
+                      : dispatch_fused<float>(f, B, chunks, st));
 }

@@ -5,9 +5,11 @@ flash_attention.py  — binding and kernel-layout wrapper of
                       csrc/flash_attention.cu (replaces the reference's
                       Pallas `repro/kernels/flash_attention.py`): bf16 runs
                       the tensor-core kernel (wgmma fed by TMA) at every head
-                      dim up to 256, fp32 the CUDA-core one
-mamba_scan.py       — binding and wrapper of csrc/mamba_scan.cu (replaces
-                      the reference's Pallas `repro/kernels/mamba_scan.py`)
+                      dim up to 256, fp32 the 3xTF32 one (mma.sync, cp.async)
+mamba_scan.py       — binding and wrappers of csrc/mamba_scan.cu (replaces
+                      the reference's Pallas `repro/kernels/mamba_scan.py`):
+                      the scan on a_bar/bx, and the fused one that makes them
+                      in registers from delta, x, A, B (the model's path)
 ops.py              — model-layout wrappers
 ref.py              — plain PyTorch versions (the CPU path and the oracle)
 

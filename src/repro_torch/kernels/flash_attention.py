@@ -7,8 +7,9 @@ checkout the package runs from and loaded with ctypes (`build.py`).
 
 One C entry point runs one of two kernels, by the rule `kernel_for` states:
 bf16 runs on the tensor cores (wgmma fed by TMA) at any head dim up to 256,
-zero-padded in shared memory to 64, 128 or 256, and float32 on the CUDA
-cores.  TMA needs 16-byte aligned bases and strides, so a bf16 call that
+zero-padded in shared memory to 64, 128 or 256, and float32 on the tensor
+cores too, in 3xTF32 (mma.sync on operands split into two TF32 parts, fed by
+cp.async).  TMA needs 16-byte aligned bases and strides, so a bf16 call that
 breaks that raises here, with the reason, rather than run the other kernel.
 
 `flash_attention` takes a CPU tensor to the plain version (`ref.py`) and a
@@ -40,16 +41,18 @@ MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0   # kernel launches; a run zeroes it to count one path's launches
-kernel_launches = {"tensor_core": 0, "cuda_core": 0}   # the same launches, by kernel
+# the same launches, by kernel
+kernel_launches = {"tensor_core": 0, "tensor_core_fp32": 0}
 
 
 def kernel_for(dtype, head_dim) -> str:
     """Which kernel a CUDA call runs, as `repro_flash_attention_fwd` dispatches:
-    bf16 on the tensor cores, float32 (held to 2e-5, which TF32 cannot meet) on
-    the CUDA cores."""
+    bf16 on the tensor cores by wgmma (`tensor_core`), float32 (held to 2e-5,
+    which one TF32 product cannot meet) on the tensor cores in 3xTF32
+    (`tensor_core_fp32`)."""
     if dtype == torch.bfloat16 and head_dim <= MAX_HEAD_DIM:
         return "tensor_core"
-    return "cuda_core"
+    return "tensor_core_fp32"
 
 
 def tma_problem(name, t):

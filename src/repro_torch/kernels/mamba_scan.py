@@ -1,21 +1,32 @@
-"""Mamba-1 selective scan: build, ctypes binding and wrapper.
+"""Mamba-1 selective scan: build, ctypes binding and wrappers.
 
-The kernel is `csrc/mamba_scan.cu` (CUDA C++ for sm_90a), the port's
+The kernels are `csrc/mamba_scan.cu` (CUDA C++ for sm_90a), the port's
 replacement for the reference's Pallas kernel `repro/kernels/mamba_scan.py`.
 It is compiled with `nvcc` at first use into `build/repro_torch/` of the
-checkout the package runs from and loaded with ctypes (`build.py`).
+checkout the package runs from and loaded with ctypes (`build.py`).  Two
+entry points:
 
-`mamba_scan` takes a CPU tensor to the plain version (`ref.py`) and a CUDA
-tensor to the kernel; it never falls back from one to the other.  It is
-forward only, and raises when autograd would record it (grad mode on and an
+* `mamba_scan(a_bar, bx, c)`: the Pallas kernel's function, on the
+  discretised inputs [B, S, Di, N] (custom op `repro_torch::mamba_scan`);
+* `mamba_scan_fused(delta, x, a, b, c)`: the same scan with the
+  discretisation (`a_bar = exp(delta·A)`, `bx = (delta·x)·B`) made in
+  registers, from [B, S, Di] and [B, S, N] inputs, so that neither [B, S,
+  Di, N] tensor exists (custom op `repro_torch::mamba_scan_fused`).  It
+  scans time in chunks where one pass would not fill the card
+  (`scan_chunks`).  The model's prefill runs it.
+
+Each wrapper takes a CPU tensor to its plain version (`ref.py`) and a CUDA
+tensor to its kernel; it never falls back from one to the other.  They are
+forward only, and raise when autograd would record them (grad mode on and an
 input that requires grad) rather than return an output without a gradient.
 
-The kernel is the custom op `repro_torch::mamba_scan`: its CUDA
-implementation is the launch, and its fake implementation gives y and, when
-asked, h_S, so that a step on fake tensors (`FakeTensorMode`, the dry-run's,
-on any device) runs through it with no launch counted.  Its FLOPs are
-counted as `torch.utils.flop_counter` counts the plain version (its readout
-products, 2·B·S·Di·N; the recurrence is elementwise).
+Each custom op's CUDA implementation is the launch, and its fake
+implementation gives y and, when asked, h_S, so that a step on fake tensors
+(`FakeTensorMode`, the dry-run's, on any device) runs through it with no
+launch counted.  The FLOPs of each are counted as `torch.utils.flop_counter`
+counts its plain version (the readout's products, 2·B·S·Di·N; the
+recurrence and the discretisation are elementwise).  `launches` counts the
+calls that launched either kernel, `kernel_launches` each entry point's.
 """
 from __future__ import annotations
 
@@ -27,12 +38,16 @@ from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build as _build
-from repro_torch.kernels.ref import mamba_scan_ref
+from repro_torch.kernels.ref import mamba_scan_fused_ref, mamba_scan_ref
 
 SOURCE = _build.PACKAGE / "csrc" / "mamba_scan.cu"
 MAX_STATE = 32
+# the fused kernel's channels a block (csrc/mamba_scan.cu's FT), and the fewest timesteps
+# a chunk of time takes
+CHANNELS_PER_BLOCK, MIN_CHUNK = 128, 128
 
 launches = 0   # kernel launches; a run zeroes it to count one path's launches
+kernel_launches = {"unfused": 0, "fused": 0}   # the same launches, by entry point
 
 
 @functools.cache
@@ -41,7 +56,27 @@ def _lib() -> ctypes.CDLL:
     fn = lib.repro_mamba_scan_fwd
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.repro_mamba_scan_fused_fwd
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
     return lib
+
+
+def scan_chunks(B, S, Di, N, sm_count) -> int:
+    """How many chunks of time the fused kernel scans in parallel.  One pass
+    has B·ceil(Di/128) blocks of one thread per channel; where that leaves
+    fewer than 1.5 blocks an SM, time is split until there are ~4.5 (of the
+    6 an SM holds at the kernel's 36 KB of shared memory), each chunk at
+    least MIN_CHUNK steps.  The constants are fitted to an H100 at the three
+    path shapes: falcon-mamba-7b's (4, 1024, 8192, 16) ran fastest unsplit
+    (1.94 blocks an SM), hymba-1.5b's (4, 2048, 3200, 16) at 6 chunks and
+    its rank shard (2, 2048, 800, 16) at 16-24 (N does not enter: the
+    states live in each thread's registers)."""
+    blocks = B * -(-Di // CHANNELS_PER_BLOCK)
+    if blocks >= 1.5 * sm_count or S < 2 * MIN_CHUNK:
+        return 1
+    return max(1, min(-(-int(4.5 * sm_count) // blocks), S // MIN_CHUNK))
 
 
 def _check(a_bar, bx, c):
@@ -98,6 +133,7 @@ def _mamba_scan(a_bar: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"mamba scan kernel launch failed: cudaError {err}")
     launches += 1
+    kernel_launches["unfused"] += 1
     return y, h
 
 
@@ -112,3 +148,85 @@ def _(a_bar, bx, c, return_state):
 def _flops(a_shape, *_args, **_kwargs) -> int:
     B, S, Di, N = a_shape
     return 2 * B * S * Di * N
+
+
+def _check_fused(delta, x, a, b, c):
+    ts = (delta, x, a, b, c)
+    if len({t.device for t in ts}) != 1:
+        raise ValueError(f"delta, x, a, b, c on different devices: {[t.device for t in ts]}")
+    if not all(t.dtype == torch.float32 for t in (delta, a, b, c)) or \
+            x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"kernel takes float32 delta/a/b/c and float32 or bfloat16 x, got "
+                        f"{[t.dtype for t in ts]}")
+    if delta.ndim != 3 or x.shape != delta.shape or a.ndim != 2 or a.shape[0] != delta.shape[2] \
+            or b.shape != (*delta.shape[:2], a.shape[1]) or c.shape != b.shape:
+        raise ValueError(f"bad shapes delta {tuple(delta.shape)}, x {tuple(x.shape)}, "
+                         f"a {tuple(a.shape)}, b {tuple(b.shape)}, c {tuple(c.shape)}")
+    if not 1 <= a.shape[1] <= MAX_STATE:
+        raise ValueError(f"state size N={a.shape[1]} not in 1..{MAX_STATE}")
+
+
+def mamba_scan_fused(delta, x, a, b, c, *, return_state=False):
+    """delta/x [B,S,Di], a [Di,N], b/c [B,S,N] -> y [B,S,Di] fp32 (and h_S [B,Di,N]).
+
+    a_bar = exp(delta·a), bx = (delta·x)·b, h_t = a_bar_t·h_{t-1} + bx_t from
+    h_0 = 0, y_t[d] = sum_n h_t[d,n]·c_t[n].  x may be bf16 (widened to fp32);
+    everything else is fp32.  Non-contiguous inputs are copied to contiguous
+    ones first.
+    """
+    _check_fused(delta, x, a, b, c)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (delta, x, a, b, c)):
+        raise RuntimeError("mamba_scan_fused has no backward: its output would carry no "
+                           "gradient; train with apply_ssm(scan_impl='plain')")
+    if delta.device.type == "cpu" and not isinstance(delta, FakeTensor):
+        return mamba_scan_fused_ref(delta, x, a, b, c, return_state=return_state)
+    if delta.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"mamba_scan_fused runs on cpu or cuda, not {delta.device}")
+    y, h = torch.ops.repro_torch.mamba_scan_fused(delta, x, a, b, c, bool(return_state))
+    return (y, h) if return_state else y
+
+
+@torch.library.custom_op("repro_torch::mamba_scan_fused", mutates_args=(), device_types="cuda")
+def _mamba_scan_fused(delta: torch.Tensor, x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                      c: torch.Tensor, return_state: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The launch(es) on the current stream: one pass, or two where time is
+    chunked (`scan_chunks`).  Returns (y, h_S), h_S empty [0] when
+    `return_state` is False."""
+    global launches
+    B, S, Di = delta.shape
+    N = a.shape[1]
+    delta, x, a, b, c = (t.contiguous() for t in (delta, x, a, b, c))
+    dev = delta.device
+    y = torch.empty((B, S, Di), dtype=torch.float32, device=dev)
+    h = torch.empty((B, Di, N) if return_state else (0,), dtype=torch.float32, device=dev)
+    if B == 0 or Di == 0:
+        return y, h
+    chunks = scan_chunks(B, S, Di, N, torch.cuda.get_device_properties(dev).multi_processor_count)
+    chunk = max(1, -(-S // chunks))
+    chunks = max(1, -(-S // chunk))
+    scratch = (torch.empty((2, chunks - 1, B, Di, N), dtype=torch.float32, device=dev)
+               if chunks > 1 else None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().repro_mamba_scan_fused_fwd(
+            delta.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16), a.data_ptr(),
+            b.data_ptr(), c.data_ptr(), y.data_ptr(), h.data_ptr() if return_state else None,
+            scratch.data_ptr() if scratch is not None else None, B, S, Di, N, chunk, stream)
+    if err != 0:
+        raise RuntimeError(f"fused mamba scan kernel launch failed: cudaError {err}")
+    launches += 1
+    kernel_launches["fused"] += 1
+    return y, h
+
+
+@_mamba_scan_fused.register_fake
+def _(delta, x, a, b, c, return_state):
+    B, S, Di = delta.shape
+    return (delta.new_empty((B, S, Di)),
+            delta.new_empty((B, Di, a.shape[1]) if return_state else (0,)))
+
+
+@register_flop_formula(torch.ops.repro_torch.mamba_scan_fused)
+def _fused_flops(delta_shape, x_shape, a_shape, *_args, **_kwargs) -> int:
+    B, S, Di = delta_shape
+    return 2 * B * S * Di * a_shape[1]

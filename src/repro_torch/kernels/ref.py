@@ -44,3 +44,14 @@ def mamba_scan_ref(a_bar, bx, c, *, return_state=False):
     y = (torch.stack(ys, dim=1) if ys
          else torch.zeros((B, 0, Di), dtype=torch.float32, device=a_bar.device))
     return (y, h) if return_state else y
+
+
+def mamba_scan_fused_ref(delta, x, a, b, c, *, return_state=False):
+    """The discretisation as the model's `_ssm_inputs` makes it, then
+    `mamba_scan_ref`: a_bar = exp(delta·a), bx = (delta·x)·b.
+
+    delta/x [B,S,Di] (x any float), a [Di,N], b/c [B,S,N] fp32 -> y [B,S,Di]
+    fp32, and with `return_state` also h_S [B,Di,N]."""
+    a_bar = (delta[..., None] * a).exp()
+    bx = (delta * x.float())[..., None] * b[..., None, :]
+    return mamba_scan_ref(a_bar, bx, c, return_state=return_state)

@@ -14,11 +14,17 @@ fake process group) and runs the cell's step once, at full width and full
 depth, on fake tensors (`FakeTensorMode`, on the card unless `--device cpu`):
 nothing is allocated, no collective moves, and `core.trace_step` records
 every collective the step dispatches, the rank's FLOPs and bytes, and its
-peak of live tensor bytes.  Each cell is the reference's step: the same
-`settings_for` row, rule table, inputs and model FLOPs.
+peak of live tensor bytes.  Each cell is the reference's step (the same
+rule table, inputs and model FLOPs) at the H100 row of its settings
+(`presets.h100_settings_for`: the reference's `settings_for` row with the
+accumulation capped so that each micro-batch splits over every data rank).
 
 `lower_cell` returns the reference's keys but `compile_s`, `compiled` and
-`parse_s`: nothing is compiled, and the capture is the trace.  `lower_s`
+`parse_s`: nothing is compiled, and the capture is the trace.  Its
+`memory_ms` (and `dominant`, `mfu_bound`) read the capture's fused byte
+count (`hlo_gb`: pointwise chains taken as fused regions, the counterpart
+of XLA's fused bytes accessed); `hlo_gb_unfused` and `memory_ms_unfused`
+are every eager op's bytes counted one by one (`core.capture`).  `lower_s`
 is the fake run's seconds.  `mem_model_gb` is the reference's analytic HBM
 model (`analytic_memory_bytes`), held against the H100's 80 GB for
 `fits_hbm`; `mem_gb_per_dev` the capture's fake peak (where the reference
@@ -231,7 +237,8 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                cfg_overrides: Optional[Dict[str, Any]] = None, device=None) -> Dict[str, Any]:
     """Trace one (arch x shape x mesh) cell on fake tensors; return its row and
     its trace (`"trace"`).  `mesh` defaults to the production mesh on `device`
-    (the card unless "cpu").  The row has the reference's keys but
+    (the card unless "cpu"), `settings` to the H100 row on that mesh
+    (`presets.h100_settings_for`).  The row has the reference's keys but
     `compile_s` and `compiled`: nothing is compiled."""
     cfg = get_config(arch)
     if cfg_overrides:
@@ -240,18 +247,22 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     ok, reason = shape_applicable(cfg, shape)
     if not ok:
         return {"arch": arch, "shape": shape_name, "skipped": reason}
-    st = settings or presets.settings_for(arch, shape_name)
     if mesh is None:
         mesh = make_production_mesh(multi_pod=multi_pod, device=device)
         mesh_spec = make_mesh_spec(multi_pod=multi_pod)
     if mesh_spec is None:
         raise ValueError("a mesh passed in needs its mesh_spec")
+    st = settings or presets.h100_settings_for(arch, shape_name, sh.mesh_axis_sizes(mesh))
     name = "x".join(map(str, mesh_spec.shape))
     trace, model_flops, secs = trace_cell(cfg, shape, st, mesh, mesh_spec,
                                           label=f"{arch}/{shape_name}/{name}")
     result: Dict[str, Any] = {"arch": arch, "shape": shape_name, "mesh": name,
                               "lower_s": round(secs, 2)}
     result.update(roofline(trace, H100, model_flops=model_flops).row())
+    # the roofline's memory term reads the fused count; the unfused one beside it
+    result["hlo_gb"] = trace.hlo_bytes / 1e9
+    result["hlo_gb_unfused"] = trace.hlo_bytes_unfused / 1e9
+    result["memory_ms_unfused"] = trace.hlo_bytes_unfused / H100.hbm_bw * 1e3
     result["collective_bytes_per_dev"] = trace.total_collective_bytes()
     result["coll_overlap_ms"] = round(trace.overlapped_est_time_s() * 1e3, 3)
     result["n_collectives"] = int(sum(e.multiplicity for e in trace.events))
@@ -296,7 +307,8 @@ def run_cli(argv=None):
     for arch in archs:
         for shape_name in shapes:
             for mp in meshes:
-                st = presets.settings_for(arch, shape_name)
+                st = presets.h100_settings_for(arch, shape_name,
+                                               sh.mesh_axis_sizes(make_mesh_spec(multi_pod=mp)))
                 if args.accum:
                     st = dataclasses.replace(st, accum=args.accum)
                 if args.remat:
@@ -326,7 +338,7 @@ def run_cli(argv=None):
                       f"{r['mem_gb_per_dev']:7.2f}GB(fake peak) "
                       f"fits={'Y' if r['fits_hbm'] else 'N'} "
                       f"comp={r['compute_ms']:9.2f}ms "
-                      f"hbm={r['memory_ms']:9.2f}ms "
+                      f"hbm={r['memory_ms']:9.2f}ms(fused)/{r['memory_ms_unfused']:9.2f}ms "
                       f"coll={r['collective_ms']:9.2f}ms "
                       f"dom={r['dominant']:10s} mfu_bound={r['mfu_bound']:.3f} "
                       f"useful={r['useful_ratio']:.2f} "

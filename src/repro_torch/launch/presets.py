@@ -8,13 +8,19 @@ and `--hsdp` flags or by a caller's `settings`).  The MoE group size and
 dispatch are the config's (`cfg.moe_group_size`, `cfg.moe_dispatch`, which
 `models.moe` reads).
 
-`settings_for` is the reference's table, sized there for its 16 GB chips;
-the dry-run holds the same steps against the H100's 80 GB, so each cell is
-the same step in both packages.
+`settings_for` is the reference's table, sized there for its 16 GB chips
+on a (16, 16) mesh; the parity tests hold the port's steps against the
+reference's with it.  `h100_settings_for` is the row the dry-run prices on
+the port's meshes and an 80 GB H100: the reference's row with the
+accumulation capped so that every data rank keeps a row of each
+micro-batch (see its docstring).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
+from typing import Mapping
+
+from repro_torch.configs import SHAPES
 
 
 @dataclass(frozen=True)
@@ -63,3 +69,27 @@ def settings_for(arch: str, shape_name: str) -> StepSettings:
         )
     # serving shapes: no accumulation or remat
     return StepSettings(accum=1, remat="none")
+
+
+def h100_settings_for(arch: str, shape_name: str,
+                      mesh_sizes: Mapping[str, int]) -> StepSettings:
+    """The reference's row fitted to an 80 GB H100 on a mesh of `mesh_sizes`
+    ({axis: size}).
+
+    accum: the reference's, at most global_batch / (data x pod), so that each
+    micro-batch splits over every data rank (train_4k's 256 rows: at most 8 on
+    (32, 8), 4 on (2, 32, 8)).  The reference's accum 16 for the frontier archs
+    was sized for 16 GB chips on a 16-way `data`; on the port's 32- and 64-way
+    `data` it leaves micro-batches that cannot split, and every data rank
+    then computes the whole micro-batch.
+    remat "full" and the moment and accumulator dtypes (bf16 for the frontier
+    archs, fp32 else) stay the reference's: with them the analytic model of
+    every cell fits 80 GB with room for the eager step's temporaries, which
+    the fake peak counts and the analytic model does not.
+    Serving rows are the reference's."""
+    st = settings_for(arch, shape_name)
+    shape = SHAPES[shape_name]
+    if shape.kind != "train":
+        return st
+    data = mesh_sizes.get("data", 1) * mesh_sizes.get("pod", 1)
+    return replace(st, accum=max(1, min(st.accum, shape.global_batch // data)))

@@ -9,14 +9,17 @@ writes params and moments in place.
 
 On a mesh (params as DTensors, the step run inside
 `autoshard.activation_sharding`) the same code runs sharded: DTensor leaves
-a weight's gradient partial over the axes its batch was split on, the
-micro-batches' partial gradients add up locally, and one redistribution to
-the params' placements under the `grad_sync` scope is the gradient
-synchronisation (a reduce-scatter for a sharded weight, an all-reduce for a
-replicated one).
+a weight's gradient partial over the axes its batch was split on, and a
+hook on each param redistributes it to the param's placements, under the
+`grad_sync` scope, as backward makes it: the gradient synchronisation (a
+reduce-scatter for a sharded weight, an all-reduce for a replicated one), in
+every micro-batch, as the reference's compiled step does it inside its scan
+over micro-batches.  No gradient is then held whole over `data` to the
+step's end.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List
 
 import torch
@@ -49,9 +52,13 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, st: StepSettings):
     metrics {"loss", "grad_norm", "lr"} as 0-dim tensors.  With accum > 1 the
     gradient is the sum over micro-batches of g / accum, each term cast to
     `accum_dtype` before it is added, and the loss the mean of theirs.
-    DTensor gradients are synchronised once, after the sum."""
+    DTensor gradients are synchronised as backward makes them (each
+    micro-batch's, before its term is cast and added)."""
     def loss_and_grads(params, micro):
         live = tree_map(lambda t: t.detach().requires_grad_(), params)
+        for t, p in zip(leaves(live), leaves(params)):
+            if isinstance(p, DTensor):
+                t.register_hook(functools.partial(_sync_grad, p=p))
         loss = model_api.loss_fn(cfg, live, micro, attn_impl=st.attn_impl, remat=st.remat,
                                  scan_impl="plain")
         grads = torch.autograd.grad(loss, list(leaves(live)), materialize_grads=True)
@@ -64,14 +71,12 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, st: StepSettings):
             for micro in _split_micro(batch, st.accum):
                 l, g = loss_and_grads(params, micro)
                 g = [(gi / st.accum).to(acc_dt) for gi in g]
-                # the first term as it is: 0 + x is x, and a DTensor term keeps
-                # its partial placement for the one synchronisation below
+                # the first term as it is: 0 + x is x
                 grads = g if grads is None else [a + gi for a, gi in zip(grads, g)]
                 loss = loss + l
             loss = loss / st.accum
         else:
             loss, grads = loss_and_grads(params, batch)
-        grads = _sync_grads(grads, leaves(params))
         if st.grad_compression == "bf16":
             grads = [g.to(torch.bfloat16).float() for g in grads]
         it = iter(grads)
@@ -83,26 +88,22 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, st: StepSettings):
     return train_step
 
 
-def _sync_grads(grads, params):
-    """Each DTensor gradient redistributed to its param's placements (the
-    gradient synchronisation); plain tensors as they are.  A whole gradient is
+def _sync_grad(g, *, p):
+    """The hook on a DTensor param's gradient: `g` redistributed to the
+    param's placements under the `grad_sync` scope.  A whole gradient is
     first cut locally where the param is sharded, then the mesh dims are
     reduced one at a time, the innermost (`model`) first, so that the
     reduction over `data` moves only what the param keeps of it."""
-    def sync(g, p):
-        if not isinstance(g, DTensor):
-            return g
-        target = list(p.placements)
-        steps = [[t if c.is_replicate() and t.is_shard() else c
-                  for c, t in zip(g.placements, target)]]
-        for d in reversed(range(len(target))):
-            steps.append(steps[-1][:d] + [target[d]] + steps[-1][d + 1:])
+    target = list(p.placements)
+    steps = [[t if c.is_replicate() and t.is_shard() else c
+              for c, t in zip(g.placements, target)]]
+    for d in reversed(range(len(target))):
+        steps.append(steps[-1][:d] + [target[d]] + steps[-1][d + 1:])
+    with scope("grad_sync"):
         for placements in steps:
             if tuple(placements) != tuple(g.placements):
                 g = g.redistribute(p.device_mesh, placements)
-        return g
-    with scope("grad_sync"):
-        return [sync(g, p) for g, p in zip(grads, params)]
+    return g
 
 
 def make_eval_step(cfg, st: StepSettings):

@@ -7,7 +7,7 @@ the LM head into each chunk and recomputes the chunk's logits in backward.
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.autoshard import constrain
@@ -25,9 +25,18 @@ def _lse_and_target_vocab_parallel(lf, targets):
     the sum of exponentials reduce over the vocab shards (two all-reduces over
     `model`; torch.logsumexp would gather the logits).  DTensor cannot gather
     along a sharded dim in this torch (its masked-partial result fails to
-    reduce); a one-hot product picks the same value exactly."""
+    reduce); a one-hot product picks the same value exactly.  The targets
+    are split as lf's rows first: from whole targets the one-hot would be a
+    whole [B, C, V] fp32 tensor on every rank, forward and in the checkpointed
+    chunk's backward."""
     m = lf.amax(dim=-1, keepdim=True).detach()
     lse = (m + torch.log(torch.exp(lf - m).sum(dim=-1, keepdim=True)))[..., 0]
+    if isinstance(lf, DTensor):
+        rows = [pl if pl.is_shard(0) else Replicate() for pl in lf.placements]
+        if isinstance(targets, DTensor):
+            targets = targets.redistribute(lf.device_mesh, rows)
+        else:
+            targets = distribute_tensor(targets, lf.device_mesh, rows, src_data_rank=None)
     vocab = torch.arange(lf.shape[-1], device=targets.device)
     return lse, (lf * (targets.long()[..., None] == vocab).to(lf.dtype)).sum(-1)
 

@@ -1,22 +1,27 @@
 """Mamba-1 selective SSM block (falcon-mamba / hymba mamba heads).
 
 The port of the reference's `repro.models.ssm`.  The reference runs the
-recurrence as an XLA chunked `associative_scan` and leaves its Pallas kernel
-to direct calls; here the full-sequence path (`apply_ssm`) launches the scan
-kernel once per call on the whole sequence (`kernels.ops.mamba_scan`: the
-CUDA kernel on the card, its plain version on the CPU), and takes the final
-state for the decode cache from that same launch.  Training passes
-`scan_impl="plain"` for a differentiable scan in plain PyTorch, chunked
-as the reference's (`scan_chunked`: an associative scan within chunks of
-256 steps, the state carried from chunk to chunk, each chunk recomputed in
+recurrence as an XLA chunked `associative_scan` on the discretised inputs
+a_bar = exp(delta·A) and bx = (delta·x)·B, two [B, S, di, N] fp32 tensors
+(`_ssm_inputs`), and leaves its Pallas kernel to direct calls.  Here the
+full-sequence path (`apply_ssm`) launches K2's fused entry point once per
+call on the whole sequence (`kernels.ops.mamba_scan_fused`: the CUDA kernel
+on the card, its plain version on the CPU), from delta, x, A, B and C
+(`_ssm_params`): the kernel makes a_bar and bx in registers, so neither
+[B, S, di, N] tensor exists; the final state for the decode cache comes
+from the same launch.  Training passes `scan_impl="plain"` for a
+differentiable scan in plain PyTorch on a_bar and bx, chunked as the
+reference's (`scan_chunked`: an associative scan within chunks of 256
+steps, the state carried from chunk to chunk, each chunk recomputed in
 backward), not the kernel's sequential plain version, whose S Python steps
 a step on a mesh would dispatch one by one.
 
-On a mesh (DTensor inputs) the scan runs per rank under `local_map`
-(`_scan_local`): a_bar, bx and the state are sharded on the channel dim
-`di` over `model`, as `in_proj` and the `ssm` cache shard it, and c is
-whole over `model`.  The recurrence is independent per (b, d, n), so each
-rank's scan of its own channels is exact and needs no collective.
+On a mesh (DTensor inputs) either scan runs per rank under `local_map`:
+the fused kernel on delta, x and A sharded on the channel dim `di` over
+`model` (`_fused_local`), the plain scan on a_bar and bx sharded so
+(`_scan_local`), as `in_proj` and the `ssm` cache shard the channels; B and
+C are whole over `model`.  The recurrence is independent per (b, d, n), so
+each rank's scan of its own channels is exact and needs no collective.
 
 Decode carries (conv_state [B, d_conv-1, d_inner] fp32, ssm_state
 [B, d_inner, N] fp32).
@@ -27,7 +32,7 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
@@ -58,11 +63,11 @@ def ssm_meta(cfg):
     }
 
 
-def _ssm_inputs(cfg, p, xc):
-    """Common pre-scan computation. xc [B, S, di] (post-conv, post-silu).
+def _ssm_params(cfg, p, xc):
+    """The scan's inputs before discretisation. xc [B, S, di] (post-conv,
+    post-silu).
 
-    Returns (a_bar, bx, c) in fp32 with
-      a_bar [B,S,di,N] = exp(delta * A), bx [B,S,di,N], c [B,S,N].
+    Returns (delta [B,S,di], A [di,N], B [B,S,N], C [B,S,N]), all fp32.
     """
     r, n = dt_rank(cfg), cfg.ssm_state
     proj = xc @ p["x_proj"].to(xc.dtype)
@@ -75,9 +80,19 @@ def _ssm_inputs(cfg, p, xc):
     delta = F.softplus((dt_raw @ p["dt_w"].to(xc.dtype)).float()
                        + p["dt_bias"].float())                   # [B,S,di]
     a = -torch.exp(p["a_log"].float())                           # [di,N]
+    return delta, a, b_ssm.float(), c_ssm.float()
+
+
+def _ssm_inputs(cfg, p, xc):
+    """Common pre-scan computation. xc [B, S, di] (post-conv, post-silu).
+
+    Returns (a_bar, bx, c) in fp32 with
+      a_bar [B,S,di,N] = exp(delta * A), bx [B,S,di,N], c [B,S,N].
+    """
+    delta, a, b, c = _ssm_params(cfg, p, xc)
     a_bar = (delta[..., None] * a).exp_()                        # [B,S,di,N]
-    bx = (delta * xc.float())[..., None] * b_ssm.float()[..., None, :]
-    return a_bar, bx, c_ssm.float()
+    bx = (delta * xc.float())[..., None] * b[..., None, :]
+    return a_bar, bx, c
 
 
 def _conv1d_causal(cfg, p, x, conv_state=None):
@@ -158,11 +173,31 @@ def _scan_local(scan_fn, a_bar, bx, c, return_state):
                      device_mesh=mesh)(a_bar, bx, c)
 
 
+def _fused_local(delta, x, a, b, c, return_state):
+    """`kops.mamba_scan_fused` on each rank's shards of DTensor delta and x
+    (batch over the data axes, di over `model`), A (di over `model`), and B
+    and C (batch alone): see the module's docstring.  Forward only."""
+    mesh = current_mesh() or delta.device_mesh
+    d_pl = role_placements(delta.shape, ("batch", None, "model")) or \
+        (Replicate(),) * mesh.ndim
+    a_pl = tuple(Shard(0) if pl.is_shard(2) else Replicate() for pl in d_pl)
+    bc_pl = tuple(pl if pl.is_shard(0) else Replicate() for pl in d_pl)
+    ins = [constrain_to(t, pl) for t, pl in
+           ((delta, d_pl), (x, d_pl), (a, a_pl), (b, bc_pl), (c, bc_pl))]
+    h_pl = tuple(Shard(1) if pl.is_shard(2) else pl for pl in d_pl)   # [B, di, N]
+
+    def core(dl, xl, al, bl, cl):
+        return kops.mamba_scan_fused(dl, xl, al, bl, cl, return_state=return_state)
+    return local_map(core, out_placements=(list(d_pl), list(h_pl)) if return_state else list(d_pl),
+                     in_placements=(d_pl, d_pl, a_pl, bc_pl, bc_pl), device_mesh=mesh)(*ins)
+
+
 def apply_ssm(cfg, p, x, *, return_state=False, scan_impl="kernel"):
     """Full-sequence selective SSM. x [B,S,D] -> [B,S,D].
 
-    `scan_impl`: "kernel" runs K2 (`kernels.ops.mamba_scan`, forward only: it
-    raises inside autograd); "plain" runs `scan_chunked`, differentiable, which
+    `scan_impl`: "kernel" runs K2's fused entry point
+    (`kernels.ops.mamba_scan_fused`, forward only: it raises inside autograd);
+    "plain" runs `scan_chunked` on a_bar and bx, differentiable, which
     training passes down, as the reference never trains through its kernel
     either.  With `return_state`, returns (out, {"conv", "ssm"}): the last
     d_conv-1 inputs of the conv in fp32 (zeros before the sequence's start)
@@ -170,17 +205,23 @@ def apply_ssm(cfg, p, x, *, return_state=False, scan_impl="kernel"):
     """
     if scan_impl not in ("kernel", "plain"):
         raise ValueError(f"scan_impl {scan_impl!r} not in kernel|plain")
-    scan_fn = kops.mamba_scan if scan_impl == "kernel" else scan_chunked
     with scope("ssm"):
         dt = x.dtype
         x_in, z = (x @ p["in_proj"].to(dt)).chunk(2, dim=-1)
         xc = F.silu(_conv1d_causal(cfg, p, x_in))
-        a_bar, bx, c = _ssm_inputs(cfg, p, xc)
-        if isinstance(a_bar, DTensor):
-            scan = _scan_local(scan_fn, a_bar, bx, c, return_state)
+        if scan_impl == "kernel":
+            delta, a, b, c = _ssm_params(cfg, p, xc)
+            if isinstance(delta, DTensor):
+                scan = _fused_local(delta, xc, a, b, c, return_state)
+            else:
+                scan = kops.mamba_scan_fused(delta, xc, a, b, c, return_state=return_state)
         else:
-            scan = scan_fn(a_bar, bx, c, return_state=return_state)
-        del a_bar, bx                      # 2 x [B,S,di,N] fp32: free before the rest
+            a_bar, bx, c = _ssm_inputs(cfg, p, xc)
+            if isinstance(a_bar, DTensor):
+                scan = _scan_local(scan_chunked, a_bar, bx, c, return_state)
+            else:
+                scan = scan_chunked(a_bar, bx, c, return_state=return_state)
+            del a_bar, bx                  # 2 x [B,S,di,N] fp32: free before the rest
         y, h_last = scan if return_state else (scan, None)
         y = y + xc.float() * p["d_skip"].float()
         out = (y.to(dt) * F.silu(z)) @ p["out_proj"].to(dt)

@@ -304,17 +304,18 @@ DIFFERENCES = {
         "the MLP output's forward reduction (8; none in the remat, which stops "
         "before w_down); XLA's other 8 reduce the column-parallel input gradient "
         "in backward, which the port reduces at the next constraint (attention, other)")),
-    ("grad_sync", "all-reduce", "nvlink.data"): (12, 11, (
-        "the port all-reduces the data-replicated gradients once per step (the "
-        "input table, 9 norm scales) + the global norm; XLA all-reduces each "
-        "layer's combined gradients per micro-batch (8) + 4 more")),
-    ("grad_sync", "all-reduce", "nvlink.model"): (1, 10, (
+    ("grad_sync", "all-reduce", "nvlink.data"): (12, 21, (
+        "the port all-reduces the data-replicated gradients (the input table, 9 "
+        "norm scales) in each micro-batch (2 x 10) + the global norm; XLA "
+        "all-reduces each layer's combined gradients per micro-batch (8) + 4 more")),
+    ("grad_sync", "all-reduce", "nvlink.model"): (1, 18, (
         "the 8 layer norms' scale gradients reach the synchronisation partial "
         "over model (DTensor carries the column-parallel input gradient's "
-        "partial sum through the norm's backward) + 2 global-norm pieces; XLA: 1")),
-    ("grad_sync", "reduce-scatter", "nvlink.data"): (0, 29, (
-        "the FSDP-sharded gradients are reduce-scattered once per step, one "
-        "tensor each (7 a layer + the head); XLA all-reduces combined buffers")),
+        "partial sum through the norm's backward), in each micro-batch (2 x 8), "
+        "+ 2 global-norm pieces; XLA: 1")),
+    ("grad_sync", "reduce-scatter", "nvlink.data"): (0, 58, (
+        "the FSDP-sharded gradients are reduce-scattered in each micro-batch, one "
+        "tensor each (2 x (7 a layer + the head)); XLA all-reduces combined buffers")),
     ("loss", "all-gather", "nvlink.model"): (0, 2, (
         "in the loss's backward DTensor gathers the fp32 logits chunk over model "
         "(its strategy for the vocab-parallel softmax's backward)")),
@@ -378,13 +379,16 @@ def test_grad_sync_bytes_are_the_data_replicated_gradient_bytes(traces):
     """The bytes that grad_sync reduces over data (the gradients as they stand
     before their data reduction), without the global norm's scalars, equal
     the params' gradient bytes with `data` replicated, worked out from the
-    placements.  The reference's own reading is within 4 bytes of the same
-    rule (its combined all-reduces carry 2 more bytes per micro-batch)."""
+    placements, once per micro-batch (accum 2).  The reference's own reading
+    is the same rule, once per micro-batch too, but in bf16 (XLA reduces the
+    weight gradients as its bf16 products make them, before their cast to
+    the fp32 params): half the port's fp32 bytes, within 4 bytes (its
+    combined all-reduces carry 2 more bytes per micro-batch)."""
     def data_bytes(rows):
         return sum(r[3] * r[4] for r in rows if r[0] == "grad_sync" and
                    r[2].endswith(".data") and "optimizer" not in r[5])
-    assert data_bytes(traces["port"]) == traces["rule"]
-    assert 0 <= data_bytes(traces["ref"]) - traces["rule"] <= 4
+    assert data_bytes(traces["port"]) == 2 * traces["rule"]
+    assert 0 <= data_bytes(traces["ref"]) - 2 * traces["rule"] // 2 <= 4
 
 
 def test_every_difference_from_the_reference_is_named(traces):
@@ -399,3 +403,77 @@ def test_every_difference_from_the_reference_is_named(traces):
     for key, (r, p, why) in DIFFERENCES.items():
         assert (ref.get(key, 0), port.get(key, 0)) == (r, p), key
         assert r == p or why
+
+
+# --------------------------------------------------------------------------
+# part 3: the capture's fused and unfused byte counts on hand-built op chains
+# --------------------------------------------------------------------------
+
+def _counted(fn, *args):
+    """(fused, unfused) bytes that the capture's recorder counts over fn(*args),
+    the fused count finished while fn's result is live."""
+    from repro_torch.core import capture
+    rec = capture._Recorder()
+    with rec:
+        out = fn(*args)
+    rec.fused.finish()
+    del out
+    return rec.fused.bytes, rec.bytes
+
+
+def test_a_pointwise_chain_is_read_once_and_written_where_it_leaves():
+    """x * 2 + 1, exp, then a matmul: the chain reads x and is written once, when
+    the matmul (not pointwise) reads it; unfused, every op reads and writes."""
+    import torch
+    x, m = torch.ones(64, 32), torch.ones(32, 16)
+    N, M, O = x.numel() * 4, m.numel() * 4, 64 * 16 * 4
+    fused, unfused = _counted(lambda x, m: ((x * 2 + 1).exp()) @ m, x, m)
+    assert fused == N + (N + N) + M + O         # read x; write + read the chain; m; out
+    assert unfused == 3 * 2 * N + (N + M + O)
+
+
+def test_a_chain_that_dies_inside_its_region_is_never_written():
+    import torch
+    x = torch.ones(128)
+
+    def step(x):
+        y = (x * 3).sin()
+        del y
+        return None
+    assert _counted(step, x) == (x.numel() * 4, 2 * 2 * x.numel() * 4)
+
+
+def test_a_chain_live_at_the_step_s_end_is_written_once():
+    """A result of pointwise ops (and a cast, fused as XLA fuses converts) is
+    written once, at the step's end; an in-place update of an input too."""
+    import torch
+    x, p = torch.ones(256), torch.ones(256)
+
+    def step(x, p):
+        p.mul_(0.5).add_(x)                     # a param updated in place
+        return (x + 1).to(torch.bfloat16)
+    fused, unfused = _counted(step, x, p)
+    n = x.numel() * 4
+    assert fused == 3 * n + n + n // 2          # reads p, x, x; writes p, the result
+    assert unfused == 2 * n + 3 * n + 2 * n + (n + n // 2)
+
+
+def test_live_bytes_name_the_holders_when_the_peak_is_first_reached():
+    """`_LiveBytes` with `holders_at` (what `capture.peak_holders` asks of a
+    fake step) takes the storages live when the live bytes first reach it,
+    each by the op that made it: the argument, exp's and cat's outputs; not
+    mul's, freed before, nor sin's, made after."""
+    import torch
+    from repro_torch.core import capture
+    x = torch.ones(1000)
+    live = capture._LiveBytes([x], holders_at=16000)
+    with capture._Recorder(live):
+        t = x * 2
+        del t
+        y = x.exp()
+        z = torch.cat([y, y])
+        w = z.sin()
+    assert live.peak == 4000 + 4000 + 8000 + 8000 and w.numel() == 2000
+    got = sorted((op, shape, n) for op, _, shape, _, n in live.holders)
+    assert got == [("argument", (1000,), 4000), ("aten.cat.default", (2000,), 8000),
+                   ("aten.exp.default", (1000,), 4000)]

@@ -119,15 +119,15 @@ def test_bf16_wide_heads_run_on_the_tensor_cores():
 
 
 @pytest.mark.cuda
-def test_fp32_wide_heads_run_on_the_cuda_cores():
-    """fp32 at head dim 256 stays on the CUDA cores and meets 2e-5."""
+def test_fp32_wide_heads_run_on_the_tensor_cores_in_3xtf32():
+    """fp32 at head dim 256 runs the 3xTF32 tensor-core kernel and meets 2e-5."""
     _need_card()
     (q, _), (k, _), (v, _) = qkv(8, 1, 4, 2, 200, 200, 256, "float32")
     q, k, v = (t.cuda().transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
     before = dict(fa.kernel_launches)
     out = fa.flash_attention(q, k, v, causal=True, window=70)
     torch.cuda.synchronize()
-    assert fa.kernel_launches == dict(before, cuda_core=before["cuda_core"] + 1)
+    assert fa.kernel_launches == dict(before, tensor_core_fp32=before["tensor_core_fp32"] + 1)
     ref = flash_attention_ref(q, k, v, causal=True, window=70)
     assert max_abs_err(to_np(out), to_np(ref)) < 2e-5
 
@@ -135,7 +135,7 @@ def test_fp32_wide_heads_run_on_the_cuda_cores():
 @pytest.mark.cuda
 def test_views_tma_cannot_load_raise_and_launch_nothing():
     """A bf16 call the tensor-core kernel cannot take raises with the reason; it never
-    runs the CUDA-core kernel instead."""
+    runs the fp32 kernel instead."""
     _need_card()
     base = torch.randn(1, 64, 4, 136, device="cuda").bfloat16()
     shifted = base[..., 1:129].transpose(1, 2)               # base 2 bytes past alignment
@@ -195,15 +195,88 @@ def test_model_prefill_launches_the_scan_once_per_layer_on_card(arch):
     cfg = smoke_config(get_config(arch)).replace(compute_dtype="float32")
     p = api.init_params(cfg, 0)
     batch = api.demo_batch(cfg, 2, 40)
-    before = ms.launches, fa.launches
+    before, fused = (ms.launches, fa.launches), ms.kernel_launches["fused"]
     lg, cache = api.prefill(cfg, p, {"tokens": batch["tokens"][:, :-1]}, attn_impl="flash",
                             cache_len=48)
     n_attn = cfg.num_layers if cfg.family == "hybrid" else 0
     assert (ms.launches, fa.launches) == (before[0] + cfg.num_layers, before[1] + n_attn)
+    assert ms.kernel_launches["fused"] == fused + cfg.num_layers    # the fused entry point
     full, _ = api.forward(cfg, p, batch, attn_impl="naive")
     dec, _ = api.decode_step(cfg, p, cache, batch["tokens"][:, -1:], 39)
     scale = float(full[:, -1].abs().max())
     assert float((dec[:, 0] - full[:, -1]).abs().max()) / scale < 2e-5
+
+
+def _fused_inputs(seed, B, S, Di, N, x_dtype):
+    """delta = softplus(z - 1), A = -(1..N) per channel times exp(0.1 z), x, B, C = z."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    z = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+    delta = torch.nn.functional.softplus(z(B, S, Di) - 1.0)
+    a = -torch.arange(1, N + 1, device="cuda", dtype=torch.float32) * (0.1 * z(Di, N)).exp()
+    return delta, z(B, S, Di).to(getattr(torch, x_dtype)), a, z(B, S, N), z(B, S, N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Di,N,chunked", [
+    (1, 128, 64, 8, False), (2, 256, 128, 16, True), (1, 96, 64, 4, False),
+    (1, 1000, 96, 16, True), (2, 300, 64, 5, True), (3, 513, 100, 32, True),
+    (2, 37, 24, 16, False), (4, 512, 8192, 16, False), (3, 0, 8, 16, False)])
+@pytest.mark.parametrize("x_dtype", ["bfloat16", "float32"])
+def test_fused_scan_kernel_matches_plain_version(B, S, Di, N, chunked, x_dtype):
+    """K2's fused entry point against its plain version (the discretisation, then
+    the sequential scan), y and h_S within 1e-4: shapes that take the chunked-time
+    branch on an H100's 132 SMs (small B x Di: several chunks, S not a multiple of
+    the chunk) and shapes that do not, N not a power of two, an empty sequence."""
+    assert (ms.scan_chunks(B, S, Di, N, 132) > 1) == chunked
+    _need_card()
+    ins = _fused_inputs(S + Di + N, B, S, Di, N, x_dtype)
+    before = ms.kernel_launches["fused"]
+    y, h = ms.mamba_scan_fused(*ins, return_state=True)
+    y_only = ms.mamba_scan_fused(*ins)
+    torch.cuda.synchronize()
+    assert ms.kernel_launches["fused"] == before + 2
+    ref_y, ref_h = ms.mamba_scan_fused_ref(*ins, return_state=True)
+    assert y.shape == (B, S, Di) and h.shape == (B, Di, N)
+    if S:
+        assert max_abs_err(to_np(y), to_np(ref_y)) < 1e-4
+    assert max_abs_err(to_np(h), to_np(ref_h)) < 1e-4
+    assert torch.equal(y, y_only)
+
+
+@pytest.mark.cuda
+def test_fused_scan_fake_implementation_matches_the_kernel_s_outputs():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    _need_card()
+    ins = _fused_inputs(0, 2, 64, 32, 8, "bfloat16")
+    real = ms.mamba_scan_fused(*ins, return_state=True)
+    count = ms.launches
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fake = ms.mamba_scan_fused(*(mode.from_tensor(t) for t in ins), return_state=True)
+    assert ms.launches == count
+    for r, f in zip(real, fake):
+        assert (f.shape, f.dtype, f.stride(), f.device) == (r.shape, r.dtype, r.stride(), r.device)
+
+
+# fp32 head dims the 3xTF32 kernel pads to 64, 128 and 256, with and without a window
+# and a q_offset: B, H, K, Sq, Skv, D, window, q_offset
+FP32_CASES = [(2, 4, 2, Sq, Skv, D, w, off) for D in (64, 120, 128, 192, 256)
+              for Sq, Skv, w, off in ((300, 300, 0, 0), (257, 257, 70, 0), (128, 200, 48, 72))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,K,Sq,Skv,D,window,q_offset", FP32_CASES)
+def test_fp32_tensor_core_kernel_matches_plain_version(B, H, K, Sq, Skv, D, window, q_offset):
+    """fp32 in 3xTF32 in the model layout, causal, at every padded head dim, with a
+    window and a q_offset: max abs 2e-5, one tensor_core_fp32 launch each."""
+    _need_card()
+    (q, _), (k, _), (v, _) = qkv(D + Sq, B, H, K, Sq, Skv, D, "float32")
+    q, k, v = (t.cuda().transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    before = fa.kernel_launches["tensor_core_fp32"]
+    out = fa.flash_attention(q, k, v, causal=True, window=window, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert fa.kernel_launches["tensor_core_fp32"] == before + 1
+    ref = flash_attention_ref(q, k, v, causal=True, window=window, q_offset=q_offset)
+    assert max_abs_err(to_np(out), to_np(ref)) < 2e-5
 
 
 # the new serving paths' K1 shapes, cut in batch and heads to keep the plain
@@ -548,9 +621,9 @@ def test_register_fake_shapes_match_the_kernels_outputs(dtype, D, return_state):
 
 @pytest.mark.cuda
 def test_kernels_under_local_map_on_a_one_rank_nccl_mesh():
-    """K1 (through `attend`, flash) and K2 (through `ssm._scan_local`) on the
-    DTensors of a one-rank nccl mesh give the straight calls' outputs bit for
-    bit, one launch each."""
+    """K1 (through `attend`, flash) and K2 (through `ssm._scan_local`, and its
+    fused entry point through `ssm._fused_local`) on the DTensors of a one-rank
+    nccl mesh give the straight calls' outputs bit for bit, one launch each."""
     import socket
     _need_card()
     with socket.socket() as s:
@@ -576,14 +649,21 @@ bx = torch.randn(2, 64, 32, 4, generator=g, device="cuda")
 c = torch.randn(2, 64, 4, generator=g, device="cuda")
 want_o = attention.attend(cfg, q, k, v, impl="flash", window=16)
 want_y, want_h = ops.mamba_scan(a, bx, c, return_state=True)
+delta = torch.rand(2, 64, 32, generator=g, device="cuda")
+x = torch.randn(2, 64, 32, generator=g, device="cuda").bfloat16()
+A = -torch.rand(32, 4, generator=g, device="cuda")
+B_, C_ = (torch.randn(2, 64, 4, generator=g, device="cuda") for _ in range(2))
+want_fy, want_fh = ops.mamba_scan_fused(delta, x, A, B_, C_, return_state=True)
 d = lambda t: distribute_tensor(t, mesh, [Shard(0), Replicate()])
+r = lambda t: distribute_tensor(t, mesh, [Replicate(), Replicate()])
 before = (fa.launches, ms.launches)
 with torch.no_grad(), activation_sharding(mesh):
     o = attention.attend(cfg, d(q), d(k), d(v), impl="flash", window=16)
     y, h = ssm._scan_local(ops.mamba_scan, d(a), d(bx), d(c), True)
-assert (fa.launches - before[0], ms.launches - before[1]) == (1, 1)
+    fy, fh = ssm._fused_local(d(delta), d(x), r(A), d(B_), d(C_), True)
+assert (fa.launches - before[0], ms.launches - before[1]) == (1, 2)
 assert dist.get_backend() == "nccl"
-for got, want in ((o, want_o), (y, want_y), (h, want_h)):
+for got, want in ((o, want_o), (y, want_y), (h, want_h), (fy, want_fy), (fh, want_fh)):
     assert torch.equal(got.full_tensor(), want), (got.full_tensor() - want).abs().max()
 print("LOCAL_MAP_OK")
 dist.destroy_process_group()

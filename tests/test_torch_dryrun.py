@@ -140,6 +140,8 @@ for arch, shape in CELLS:
         "skipped": ["skipped" in ref, "skipped" in port],
         "model_gflops": [ref.get("model_gflops"), port.get("model_gflops")],
         "rows": [rows(ref["trace"]), rows(port["trace"])],
+        "hlo_bytes": [ref["trace"].hlo_bytes, port["trace"].hlo_bytes,
+                      port["trace"].hlo_bytes_unfused],
         "cache_gathers": (len(dr.cache_gathers(port["trace"], ARCHS[arch].replace(**over),
                                                 dr.SHAPES[shape], spec))
                           if shape in ("decode_32k", "long_500k") else 0)}
@@ -215,8 +217,8 @@ DIFFERENCES = {
     ("grad_sync", "reduce-scatter", "nvlink.data"): ("port", (
         "chatglm3-6b/train_4k", "mixtral-8x22b/train_4k", "falcon-mamba-7b/train_4k",
         "hymba-1.5b/train_4k", "qwen2-vl-2b/train_4k", "whisper-tiny/train_4k"),
-        "the FSDP-sharded gradients reduce-scattered once per step, one tensor each "
-        "(`steps._sync_grads`); XLA all-reduces combined buffers (as in "
+        "the FSDP-sharded gradients reduce-scattered in each micro-batch, one tensor "
+        "each (`steps._sync_grad`); XLA all-reduces combined buffers (as in "
         "test_torch_capture.DIFFERENCES)"),
     ("grad_sync", "reduce-scatter", "nvlink.model"): ("port", (
         "hymba-1.5b/train_4k", "whisper-tiny/train_4k"),
@@ -394,6 +396,54 @@ def test_smoke_cells_have_the_reference_s_rows_or_name_the_gap(cells):
         assert found[row] == (side, set(where)) and why, row
 
 
+_SCORES_PASSES = ("XLA's CPU backend (the devices the reference's dry-run forces here) reads "
+                  "the attention's fp32 [B, K, G, S, T] scores in more fusions than the port's "
+                  "rule counts (one write where a pointwise chain leaves, one read per "
+                  "consumer that is not pointwise): at smoke widths and 4096 tokens the scores "
+                  "are most of the step's bytes; by scope the reference's `attn` bytes are "
+                  "2.3x the port's and its backward's 1.9x (chatglm3-6b)")
+_CACHE_UPDATE = ("XLA counts each layer's cache update (a dynamic-update-slice, outside any "
+                 "scope) as reading and writing the whole k/v cache; the port writes the new "
+                 "slot in place and reads the cache once, in the attention")
+# cells whose fused byte count (the roofline's memory term) is outside [0.5, 2] of the
+# reference's `hlo_bytes`: the side of the gap, the ratio read (port / reference, torch
+# 2.13 on the CPU against jax 0.9.0), and why
+BYTES_DIFFERENCES = {
+    "chatglm3-6b/train_4k": ("low", 0.425, _SCORES_PASSES),
+    "qwen2-vl-2b/train_4k": ("low", 0.427, _SCORES_PASSES),
+    "whisper-tiny/train_4k": ("low", 0.432, _SCORES_PASSES),
+    "chatglm3-6b/decode_32k": ("low", 0.417, _CACHE_UPDATE),
+    "mixtral-8x22b/decode_32k": ("low", 0.417, _CACHE_UPDATE),
+    "hymba-1.5b/decode_32k": ("low", 0.417, _CACHE_UPDATE),
+    "qwen2-vl-2b/decode_32k": ("low", 0.417, _CACHE_UPDATE),
+    "falcon-mamba-7b/prefill_32k": ("low", 0.084,
+        "the port's prefill runs K2's fused entry point, which reads delta, x, B and C "
+        "([B, S, di] and [B, S, N]); the reference materialises a_bar and bx ([B, S, di, N] "
+        "fp32 each) and scans them in an associative scan's log2(256) levels (its `ssm` "
+        "scope: 52 of its 68 GB)"),
+}
+
+
+def test_smoke_cells_fused_bytes_are_the_reference_s_or_name_the_gap(cells):
+    """The roofline's memory term reads the capture's fused byte count.  On each
+    smoke cell it is within [0.5, 2] of the reference's compiled `hlo_bytes`,
+    but where `BYTES_DIFFERENCES` names the cell, its side and its cause (the
+    ratio read there within 10%); and it never exceeds the unfused count.
+    `pytest -s` prints each cell's ratios."""
+    assert set(BYTES_DIFFERENCES) <= set(cells)
+    for key, c in cells.items():
+        ref, fused, unfused = c["hlo_bytes"]
+        ratio = fused / ref
+        print(f"{key}: fused / reference {ratio:.3f}, unfused / reference {unfused / ref:.3f}")
+        assert 0 < fused <= unfused, key
+        if key in BYTES_DIFFERENCES:
+            side, read, why = BYTES_DIFFERENCES[key]
+            assert (ratio < 0.5 if side == "low" else ratio > 2) and why, (key, ratio)
+            assert abs(ratio / read - 1) < 0.1, (key, ratio, read)
+        else:
+            assert 0.5 <= ratio <= 2, (key, ratio)
+
+
 def test_smoke_decode_cells_never_gather_the_cache(cells):
     for key, c in cells.items():
         assert c["cache_gathers"] == 0, key
@@ -539,7 +589,8 @@ for arch, shape, st in steps:
         tr, flops, _ = dr.trace_cell(cfg, shape, st, mesh, spec, fake=fake)
         got.append([sorted([e.op_name, e.kind, str(e.replica_groups), e.operand_bytes, e.dtype,
                             e.multiplicity] for e in tr.events),
-                    tr.hlo_flops, tr.hlo_bytes, flops, tr.per_device_memory_bytes])
+                    tr.hlo_flops, tr.hlo_bytes, flops, tr.per_device_memory_bytes,
+                    tr.hlo_bytes_unfused])
     out.append([arch, shape.kind, got])
 print("FAKEREAL" + json.dumps(out))
 """
@@ -547,8 +598,8 @@ print("FAKEREAL" + json.dumps(out))
 
 def test_fake_steps_trace_as_real_steps():
     """Smoke train, prefill and decode steps: the same sites, FLOPs and model
-    FLOPs on fake tensors as on real CPU tensors, and the same bytes where no
-    kernel runs.  A hybrid prefill runs K2 (and K1 with flash): on fake
+    FLOPs on fake tensors as on real CPU tensors, and the same bytes (fused and
+    unfused) where no kernel runs.  A hybrid prefill runs K2 (and K1 with flash): on fake
     tensors through the kernels' custom ops, whose fake implementations count
     FLOPs as the plain versions do, on CPU tensors through the plain versions,
     whose many ops move more bytes than a kernel's one read and write.  The
@@ -560,6 +611,7 @@ def test_fake_steps_trace_as_real_steps():
         assert fake[1] > 0 and fake[1] == real[1] and fake[3] == real[3], (arch, kind)
         kernels = kind == "prefill" and arch == "hymba-1.5b"
         assert kernels or fake[2] == real[2], (arch, kind, fake[2], real[2])
+        assert kernels or fake[5] == real[5], (arch, kind, fake[5], real[5])
         assert fake[4] > 0 and real[4] == 0, (arch, kind)
 
 
@@ -663,3 +715,112 @@ def test_cli_flags_force_the_rule_table(monkeypatch, flags, fields):
     for shape, st in seen:
         want = presets.settings_for("chatglm3-6b", shape)
         assert st == dataclasses.replace(want, **fields), shape
+
+
+# --------------------------------------------------------------------------
+# the H100 row of the train settings, and what the dry-run holds at its peak
+# --------------------------------------------------------------------------
+
+PRODUCTION = {"(32, 8)": {"data": 32, "model": 8}, "(2, 32, 8)": {"pod": 2, "data": 32, "model": 8}}
+
+
+@pytest.mark.parametrize("mesh", sorted(PRODUCTION))
+def test_h100_train_rows_leave_every_data_rank_a_row(mesh):
+    """Every train cell's H100 row splits each micro-batch over every data rank
+    (accum <= global batch / (data x pod)); it is the reference's row but the
+    accumulation; serving rows are the reference's."""
+    from repro_torch.configs import ARCH_ORDER, SHAPES
+    from repro_torch.launch import presets
+    sizes = PRODUCTION[mesh]
+    data = sizes["data"] * sizes.get("pod", 1)
+    for arch in ARCH_ORDER:
+        for shape in SHAPES:
+            st, ref = presets.h100_settings_for(arch, shape, sizes), presets.settings_for(arch, shape)
+            if SHAPES[shape].kind != "train":
+                assert st == ref, (arch, shape)
+                continue
+            rows = SHAPES[shape].global_batch // st.accum
+            assert rows % data == 0 and rows // data >= 1, (arch, mesh, st.accum)
+            assert st.accum == min(ref.accum, SHAPES[shape].global_batch // data)
+            assert st == dataclasses.replace(ref, accum=st.accum)
+
+
+_PEAKS = r"""
+import json
+from repro_torch.configs import get_config
+from repro_torch.core import capture
+from repro_torch.launch import dryrun as dr
+out = {}
+for arch in ("gemma3-4b", "qwen2-vl-2b"):
+    cfg = get_config(arch)
+    over = {"num_layers": 2}
+    if cfg.window_pattern:
+        over["window_pattern"] = (cfg.window_pattern[0], 0)
+    r = dr.lower_cell(arch, "train_4k", device="cpu", cfg_overrides=over)
+    peak = r["trace"].per_device_memory_bytes
+    with capture.peak_holders(peak) as taken:
+        dr.lower_cell(arch, "train_4k", device="cpu", cfg_overrides=over)
+    out[arch] = [peak, cfg.vocab_size, taken[0]]
+print("PEAKS" + json.dumps(out))
+"""
+
+
+def test_vocab_parallel_loss_holds_no_whole_logits_chunk_at_the_peak():
+    """gemma3-4b and qwen2-vl-2b train_4k at full width and 2 layers, rank 0 of
+    (32, 8) on fake tensors: their fake peaks held two whole [micro-batch,
+    512, vocab] fp32 tensors on every rank, ~34 and ~40 GB each (the loss's
+    one-hot, built from whole targets, and its product with the logits chunk
+    in the checkpointed chunk's backward).  With the targets split as the
+    logits' rows first the peaks stay under 20 GB, and no tensor live at the
+    peak (`capture.peak_holders`) is a [rows, 512, vocab] fp32 one larger
+    than the rank's share of the micro-batch's rows."""
+    from repro_torch.launch import presets
+    out = run_subprocess(_PEAKS, devices=1, timeout=600)
+    line = next(l for l in out.splitlines() if l.startswith("PEAKS"))
+    peaks = json.loads(line[len("PEAKS"):])
+    for arch, (peak, vocab, holders) in peaks.items():
+        assert peak < 20e9, (arch, peak)
+        rows = 256 // presets.h100_settings_for(arch, "train_4k", PRODUCTION["(32, 8)"]).accum
+        assert holders, arch
+        for op, scope, shape, dtype, n in holders:
+            whole = len(shape) == 3 and shape[1:] == [512, vocab] and shape[0] >= rows
+            assert not (whole and dtype == "torch.float32"), (arch, op, scope, shape)
+
+
+_GRAD_SYNC = r"""
+import dataclasses, json
+from repro_torch.configs import ARCHS, ShapeSpec, smoke_config
+from repro_torch.launch import dryrun as dr
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.presets import StepSettings
+mesh, spec = make_host_mesh((2, 4), ("data", "model"), backend="fake")
+cfg = smoke_config(ARCHS["chatglm3-6b"])
+shape = ShapeSpec("t", "train", 64, 8)
+out = {}
+for accum in (1, 2):
+    tr, _, _ = dr.trace_cell(cfg, shape, StepSettings(accum=accum, remat="full"), mesh, spec)
+    out[accum] = [[e.op_name, e.kind, str(e.replica_groups), e.operand_bytes, e.multiplicity]
+                  for e in tr.events if e.op_name.startswith("grad_sync/")]
+    out[f"{accum}_order"] = [e.op_name.split("/")[0] for e in tr.events]
+print("SYNC" + json.dumps(out))
+"""
+
+
+def test_grad_sync_in_backward_moves_each_micro_batch_s_gradients():
+    """The train step synchronises each gradient by a hook as backward makes
+    it, in every micro-batch, as the reference's compiled step does inside
+    its scan over micro-batches: at accum 2 the same sites under the
+    `grad_sync` scope as at accum 1, each twice; and sites of backward that
+    come after the first synchronisation (a smoke chatglm3-6b step on the
+    fake (2, 4))."""
+    out = run_subprocess(_GRAD_SYNC, devices=1, timeout=400)
+    line = next(l for l in out.splitlines() if l.startswith("SYNC"))
+    got = json.loads(line[len("SYNC"):])
+    one, two = ({tuple(r[:4]): r[4] for r in got[k]} for k in ("1", "2"))
+    assert one and set(one) == set(two), got
+    assert all(two[k] == 2 * n for k, n in one.items()), got
+    for accum in ("1", "2"):
+        order = got[f"{accum}_order"]
+        first = order.index("grad_sync")
+        assert any(o not in ("grad_sync", "optimizer") for o in order[first:]), order
+

@@ -127,12 +127,12 @@ def test_kernel_builds_into_the_checkout_and_nowhere_else(tmp_path, monkeypatch)
     (torch.bfloat16, 16, "tensor_core"), (torch.bfloat16, 64, "tensor_core"),
     (torch.bfloat16, 120, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
     (torch.bfloat16, 129, "tensor_core"), (torch.bfloat16, 256, "tensor_core"),
-    (torch.float32, 64, "cuda_core"), (torch.float32, 128, "cuda_core"),
-    (torch.float32, 256, "cuda_core"),
+    (torch.float32, 64, "tensor_core_fp32"), (torch.float32, 128, "tensor_core_fp32"),
+    (torch.float32, 256, "tensor_core_fp32"),
 ])
 def test_dispatch_rule(dtype, head_dim, kernel):
-    """bf16 runs on the tensor cores at every head dim up to 256; fp32 (2e-5, which
-    TF32 cannot meet) on the CUDA cores."""
+    """bf16 runs on the tensor cores by wgmma at every head dim up to 256; fp32 (2e-5,
+    which one TF32 product cannot meet) on the tensor cores in 3xTF32."""
     assert fa.kernel_for(dtype, head_dim) == kernel
 
 

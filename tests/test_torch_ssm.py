@@ -205,6 +205,65 @@ def test_apply_ssm_and_decode_ssm_match_reference(dtype):
         assert rel_err(to_np(st1[name]), jst1[name]) < LAYER_TOL[dtype], name
 
 
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_scan_plain_version_matches_ssm_inputs_and_the_pallas_kernel(arch, dtype):
+    """K2's fused entry point (its plain version, the CPU path) on the port's
+    `_ssm_params` of layer 0 against the reference's `_ssm_inputs` on the same
+    params and conv output, scanned by its Pallas kernel in interpret mode: y
+    and the final state within 1e-4 (x in the compute dtype, bf16 widened)."""
+    cfg, jcfg, jp, p = _setup(arch, dtype)
+    jdt = jnp.dtype(dtype)
+    rng = np.random.default_rng(11)
+    xc = rng.standard_normal((2, 64, cfg.d_inner)).astype(np.float32)
+    xt = torch.from_numpy(xc).to(getattr(torch, dtype))
+    jxc = jnp.asarray(xt.float().numpy(), jdt)
+    lp, jlp = p["layers"][0]["ssm"], _layer0(jp)
+    delta, a, b, c = ssm._ssm_params(cfg, lp, xt)
+    y, h = ops.mamba_scan_fused(delta, xt, a, b, c, return_state=True)
+    ja, jbx, jc = jax_ssm._ssm_inputs(jcfg, jlp, jxc, cfg.d_model)
+    pallas = ms_kernel(ja, jbx, jc, chunk=32, di_block=cfg.d_inner, interpret=True)
+    assert y.shape == (2, 64, cfg.d_inner) and y.dtype == torch.float32
+    assert max_abs_err(to_np(y), pallas) < 1e-4
+    assert max_abs_err(to_np(h), _jax_final_state(ja, jbx)) < 1e-4
+
+
+def test_fused_scan_wrapper_takes_cpu_tensors_to_the_plain_version_uncounted():
+    """The fused wrapper's CPU path is `mamba_scan_fused_ref`, which builds a_bar
+    and bx as `_ssm_inputs` does and scans them with `mamba_scan_ref`; it counts
+    no launch and checks what the kernel would not take."""
+    rng = np.random.default_rng(5)
+    delta, x = (torch.from_numpy(rng.random((2, 33, 16)).astype(np.float32)) for _ in range(2))
+    a = -torch.from_numpy(rng.random((16, 5)).astype(np.float32))
+    b, c = (torch.from_numpy(rng.standard_normal((2, 33, 5)).astype(np.float32))
+            for _ in range(2))
+    before = ms.launches, dict(ms.kernel_launches)
+    y, h = ops.mamba_scan_fused(delta, x.bfloat16(), a, b, c, return_state=True)
+    a_bar = (delta[..., None] * a).exp()
+    bx = (delta * x.bfloat16().float())[..., None] * b[..., None, :]
+    ref_y, ref_h = mamba_scan_ref(a_bar, bx, c, return_state=True)
+    assert torch.equal(y, ref_y) and torch.equal(h, ref_h)
+    assert (ms.launches, ms.kernel_launches) == before
+    with pytest.raises(TypeError, match="float32"):
+        ms.mamba_scan_fused(delta.double(), x, a, b, c)
+    with pytest.raises(ValueError, match="bad shapes"):
+        ms.mamba_scan_fused(delta, x, a, b[:, :, :2], c)
+    with pytest.raises(ValueError, match="state size"):
+        ms.mamba_scan_fused(delta, x, torch.zeros(16, 33), torch.zeros(2, 33, 33),
+                            torch.zeros(2, 33, 33))
+
+
+@pytest.mark.parametrize("B,S,Di,N,chunks", [
+    (4, 1024, 8192, 16, 1),     # falcon-mamba-7b's prefill: 256 blocks, 1.94 an SM
+    (4, 2048, 3200, 16, 6),     # hymba-1.5b's: 100 blocks, 600 in 6 chunks
+    (2, 2048, 800, 16, 16),     # hymba-1.5b's on rank 0 of (2, 4): at most S // 128
+    (1, 96, 64, 4, 1),          # fewer than 2 x 128 steps: one chunk
+    (1, 1000, 96, 16, 7),
+])
+def test_scan_chunks_come_from_the_shape_and_the_sm_count(B, S, Di, N, chunks):
+    assert ms.scan_chunks(B, S, Di, N, 132) == chunks
+
+
 def test_short_prompt_conv_state_is_zero_padded():
     """Fewer tokens than d_conv-1: the state holds zeros before the first token,
     which is what decode's conv would have seen."""
@@ -299,11 +358,11 @@ def test_prefill_decode_matches_forward(arch):
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_prefill_runs_each_kernel_wrapper_once_per_layer(arch, monkeypatch):
-    """One scan per SSM layer (the final state comes from the same launch) and,
+    """One fused scan per SSM layer (the final state comes from the same launch) and,
     for hybrid, one flash attention per layer; decode runs neither."""
     cfg, _, _, p = _setup(arch, "float32")
     calls = {"scan": [], "flash": []}
-    for mod, name, key in ((ms, "mamba_scan", "scan"), (fa, "flash_attention", "flash")):
+    for mod, name, key in ((ms, "mamba_scan_fused", "scan"), (fa, "flash_attention", "flash")):
         real = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, _r=real, _k=key, **k:
                             calls[_k].append(k.get("return_state")) or _r(*a, **k))

@@ -295,3 +295,16 @@ def test_kernel_wrappers_raise_under_autograd():
     for kw in ({"attn_impl": "flash", "scan_impl": "plain"}, {"scan_impl": "kernel"}):
         with pytest.raises(RuntimeError, match="no backward"):
             api.loss_fn(cfg, live, batch, **kw)
+
+
+def test_vocab_parallel_pick_takes_plain_tensors():
+    """The mesh's vocab-parallel (logsumexp, target logit) on plain tensors, as a
+    straight run with the mesh's formulation swapped in calls it, equals the
+    straight formulation's."""
+    from repro_torch.models import losses
+    rng = np.random.default_rng(3)
+    lf = torch.from_numpy(rng.standard_normal((2, 8, 50)).astype(np.float32))
+    targets = torch.from_numpy(rng.integers(0, 50, (2, 8)))
+    for got, want in zip(losses._lse_and_target_vocab_parallel(lf, targets),
+                         losses._lse_and_target(lf, targets)):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
