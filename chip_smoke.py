@@ -138,7 +138,29 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                (fake-run seconds, collectives, bytes, the roofline's terms, dominant,
                mfu_bound, the memory model against 80 GB, fake peak), no decode cell
                gathering its cache, no launch, and a `[dryrun] result` line
-  21. a JSON line of every kernel: K1's bf16 wgmma kernel (at chatglm3-6b's shape; its
+  21. collectives — each all-reduce of distributed/algorithms.py (builtin: c10d's; ring,
+               rsag, recursive doubling) as rank 0 of an (8,) ("data",) DeviceMesh under
+               the fake process group, on the card, at 4 MiB and 100 MB fp32 and at
+               chatglm3-6b's whole bf16 gradient (6.24e9 parameters, 12.49 GB): the
+               capture against the reference's signature written out here (ring 7 + 7
+               permutes of the padded payload / 8 with pairs (i, i+1 mod 8); rsag one
+               reduce-scatter and one all-gather; recursive doubling 3 permutes of the
+               payload with pairs i ^ 2^k; builtin one all-reduce; every site on
+               nvlink.data with group size 8), finite outputs, no kernel launched; the
+               rank-local ms (CUDA events), the modelled us on NVLink and with `data` on
+               InfiniBand, and costmodel.allreduce_time's closed form beside each
+  22. pipeline — distributed/pipeline.py's GPipe with chatglm3-6b at full width (d_model
+               4096, 32 heads, 2 KV heads, head dim 128), bf16, seed-0 weights, each stage
+               its layers through transformer.apply_layers(attn_impl="flash") on plain
+               local tensors: (a) P = 4 over (4,) ("model",), rank 0 under the fake group
+               (stage 0: layers 0-6, its rows a DTensor Shard(0) on `model`), M = 8
+               micro-batches of 1 x 2048, captured: 7 x 11 = 77 K1 launches, 10
+               pipeline_hop permutes of 16 MiB with pairs (0,1), (1,2), (2,3) and
+               semantic pipeline, one all-reduce of 128 MiB; the tick ms, the bubble
+               fraction, the hop's modelled us on NVLink and with `model` on InfiniBand;
+               (b) P = 1 on a one-rank nccl mesh, all 28 layers one stage, M = 4: equal
+               bit for bit to the straight apply_layers per micro-batch, 112 K1 launches
+  23. a JSON line of every kernel: K1's bf16 wgmma kernel (at chatglm3-6b's shape; its
                variants at gemma3-4b's global and hymba-1.5b's rank shard shapes), K1's
                3xTF32 fp32 kernel (at hymba-1.5b's fp32 mesh prefill's global shape; also
                gemma3-4b's fp32 check's and the windowed one), and K2 (the fused entry
@@ -322,6 +344,20 @@ DRYRUN_CELLS = [("llama3-405b", "train_4k", False, 2), ("qwen3-moe-235b-a22b", "
                 ("whisper-tiny", "train_4k", False, None), ("whisper-tiny", "decode_32k", False, None),
                 ("llama3-405b", "train_4k", True, 2)]
 DRYRUN_WORKERS = 4
+# [collectives]: each all-reduce algorithm as rank 0 of an (8,) ("data",) mesh under
+# the fake process group, at the reference bench's fp32 payloads (4 MiB, 100 MB) and at
+# GRAD_ARCH's whole bf16 gradient (its parameter count); (elements, dtype) per row,
+# None for the gradient's count.  The closed form beside each algorithm's model
+COLLECTIVES = dict(mesh=(8,), sizes=[(1 << 20, "float32"), (25_000_000, "float32"),
+                                     (None, "bfloat16")], grad_arch="chatglm3-6b", iters=3)
+CLOSED_FORM = {"builtin": "ring", "ring": "ring", "rsag": "reduce_scatter_allgather",
+               "recursive_doubling": "recursive_doubling"}
+# [pipeline]: chatglm3-6b at full width in bf16 with seed-0 weights, each stage its
+# share of the layers through transformer.apply_layers(attn_impl="flash"): (a) P
+# stages over (P,) ("model",), rank 0 under the fake group, M micro-batches of mb x S;
+# (b) one stage of every layer on a one-rank nccl mesh, M_ONE micro-batches, against
+# the straight layers bit for bit
+PIPELINE = dict(arch="chatglm3-6b", P=4, M=8, mb=1, S=2048, M_ONE=4, iters=2)
 
 
 def check(ok, msg):
@@ -1516,6 +1552,191 @@ def dryrun_cell(cell, device):
     return r
 
 
+def collective_signature(alg, n, elements, esize):
+    """The reference algorithm's signature on an (n,) mesh, from its semantics:
+    [(kind, scope, multiplicity, operand bytes, pairs or None)].  The capture
+    records an op's input: the ring's hop carries the padded payload / n, the
+    reduce-scatter takes the padded payload and the all-gather its shard."""
+    chunk = -(-elements // n) * esize
+    ring = [(i, (i + 1) % n) for i in range(n)]
+    return {
+        "builtin": [("all-reduce", "", 1, elements * esize, None)],
+        "ring": [("collective-permute", "ring_rs_hop", n - 1, chunk, ring),
+                 ("collective-permute", "ring_ag_hop", n - 1, chunk, ring)],
+        "rsag": [("reduce-scatter", "rsag_rs", 1, chunk * n, None),
+                 ("all-gather", "rsag_ag", 1, chunk, None)],
+        "recursive_doubling": [("collective-permute", f"recdbl_round{k}", 1, elements * esize,
+                                [(i, i ^ (1 << k)) for i in range(n)])
+                               for k in range(int(math.log2(n)))],
+    }[alg]
+
+
+def collectives_phase(rt):
+    """Each all-reduce algorithm of distributed/algorithms.py as rank 0 of an (8,)
+    ("data",) mesh under the fake process group, on the card (see COLLECTIVES): its
+    capture against the reference's signature, finite outputs, no kernel launch;
+    the rank-local ms (CUDA events), the modelled us on NVLink and with `data` on
+    InfiniBand, and costmodel.allreduce_time's closed form beside each."""
+    torch, core, cm = rt.torch, rt.core, rt.costmodel
+    n = COLLECTIVES["mesh"][0]
+    mesh, spec = rt.make_host_mesh(COLLECTIVES["mesh"], ("data",), backend="fake",
+                                   device=rt.device)
+    ib = rt.MeshSpec(spec.shape, spec.axes, axis_kind={"data": "ib"})
+    links = {"nvlink": (rt.H100.nvlink_bw, rt.H100.nvlink_latency_s),
+             "ib": (rt.H100.ib_bw, rt.H100.ib_latency_s)}
+    grad = rt.api.param_count(rt.get_config(COLLECTIVES["grad_arch"]))
+    rows = []
+    for elements, dtype in COLLECTIVES["sizes"]:
+        elements = elements or grad
+        x = torch.randn(elements, generator=torch.Generator(rt.device).manual_seed(0),
+                        device=rt.device, dtype=getattr(torch, dtype))
+        nbytes = x.numel() * x.element_size()
+        for alg in rt.algorithms.ALGORITHMS:
+            fn = rt.algorithms.allreduce_fn(alg, mesh, "data")
+            zero_counts(rt.counters)
+            tr = core.trace_step(fn, (x,), mesh, spec, label=alg)
+            y = fn(x)
+            torch.cuda.synchronize()
+            launches = read_counts(rt.counters)
+            check(all(v == 0 for v in launches.values()), f"{alg} launched kernels {launches}")
+            check(bool(torch.isfinite(y).all()), f"{alg}: non-finite output")
+            del y
+            got = [(e.kind, e.op_name.rsplit("/", 1)[0] if "/" in e.op_name else "",
+                    e.multiplicity, e.operand_bytes,
+                    [tuple(p) for p in e.source_target_pairs] if e.source_target_pairs else None)
+                   for e in tr.events]
+            want = collective_signature(alg, n, elements, x.element_size())
+            check(got == want, f"{alg} at {nbytes} B: signature {got[:4]} != {want[:4]}")
+            check(all(e.group_size == n and e.link_class == "nvlink.data" for e in tr.events),
+                  f"{alg}: groups or links {[(e.group_size, e.link_class) for e in tr.events]}")
+            ms = cuda_ms(torch, lambda: fn(x), COLLECTIVES["iters"])
+            ib_store = tr.store.annotation_clone()
+            cm.annotate_store(ib_store, ib, rt.H100)
+            model = {"nvlink": tr.total_est_time_s(), "ib": float(ib_store.total_est_time_s())}
+            closed = {k: cm.allreduce_time(CLOSED_FORM[alg], nbytes, n, *links[k], rt.H100)
+                      for k in links}
+            row = dict(algorithm=alg, bytes=nbytes, dtype=dtype, ms=ms,
+                       model_us_nvlink=model["nvlink"] * 1e6, model_us_ib=model["ib"] * 1e6,
+                       closed_us_nvlink=closed["nvlink"] * 1e6, closed_us_ib=closed["ib"] * 1e6,
+                       sites=[(k, sc, m, ob) for k, sc, m, ob, _ in got])
+            rows.append(row)
+            print("[collectives] " + json.dumps(row))
+            torch.cuda.empty_cache()
+        del x
+        torch.cuda.empty_cache()
+    rt.dist.destroy_process_group()
+    print(f"[collectives] result {len(rows)} runs, rank 0 of {COLLECTIVES['mesh']} under the "
+          f"fake process group, no kernel launched")
+
+
+def _stacked_stages(rt, layers, stages):
+    """The layers' params as one tree whose leaves are [stages, layers a stage, ...]."""
+    per = len(layers) // stages
+    return rt.tree_map(lambda *ts: rt.torch.stack(ts).reshape(stages, per, *ts[0].shape),
+                       *layers)
+
+
+def pipeline_phase(rt):
+    """The GPipe pipeline of distributed/pipeline.py with chatglm3-6b's layers at full
+    width (see PIPELINE): (a) P stages, rank 0 under the fake group, captured; (b) one
+    stage of every layer on a one-rank nccl mesh against the straight layers, bit
+    for bit.  Returns the launches of both runs."""
+    torch, pp = rt.torch, rt.pipeline
+    cfg = rt.get_config(PIPELINE["arch"])
+    P, M, mb, S = PIPELINE["P"], PIPELINE["M"], PIPELINE["mb"], PIPELINE["S"]
+    nl = cfg.num_layers
+    params = rt.api.init_params(cfg, 0)
+    layers = params["layers"]
+    del params
+    positions = torch.arange(S, device=rt.device, dtype=torch.int32)[None].expand(mb, S)
+    gen = torch.Generator(rt.device).manual_seed(0)
+
+    def stage_fn(p, h):
+        n = rt.tree_leaves(p)[0].shape[0]
+        stage_layers = [rt.tree_map(lambda a: a[i], p) for i in range(n)]
+        return rt.transformer.apply_layers(cfg.replace(num_layers=n), stage_layers, h,
+                                           positions, attn_impl="flash")[0]
+
+    kernel = "flash_attention/" + rt.counters["flash_attention"].kernel_for(
+        torch.bfloat16, cfg.head_dim)
+    # (a) P stages over (P,) ("model",); rank 0 holds stage 0's rows only
+    mesh, spec = rt.make_host_mesh((P,), ("model",), backend="fake", device=rt.device)
+    per = nl // P
+    local = _stacked_stages(rt, layers[:per], 1)
+    stage_params = rt.tree_map(lambda a: rt.DTensor.from_local(a, mesh, [rt.Shard(0)]), local)
+    x = torch.randn((M, mb, S, cfg.d_model), generator=gen, device=rt.device,
+                    dtype=torch.bfloat16)
+    run = lambda w, h: pp.pipeline_apply(stage_fn, w, h, mesh, axis="model")
+    with torch.inference_mode():
+        zero_counts(rt.counters)
+        tr = rt.core.trace_step(run, (stage_params, x), mesh, spec, label="pipeline")
+        torch.cuda.synchronize()
+        launches_a = read_counts(rt.counters)
+        ticks = M + P - 1
+        check(launches_a[kernel] == per * ticks == launches_a["flash_attention"],
+              f"pipeline (a): {launches_a} != {per} layers x {ticks} ticks of {kernel}")
+        check(launches_a["mamba_scan"] == 0, f"pipeline (a) launched K2: {launches_a}")
+        y = run(stage_params, x)
+        check(bool(torch.isfinite(y).all()) and tuple(y.shape) == tuple(x.shape),
+              f"pipeline (a): output {tuple(y.shape)} not finite or not {tuple(x.shape)}")
+        del y
+        ms = cuda_ms(torch, lambda: run(stage_params, x), PIPELINE["iters"])
+    hops = [e for e in tr.events if e.kind == "collective-permute"]
+    ars = [e for e in tr.events if e.kind == "all-reduce"]
+    hop_bytes = mb * S * cfg.d_model * 2
+    check(sum(e.multiplicity for e in hops) == M + P - 2 and
+          all(e.operand_bytes == hop_bytes and e.semantic == "pipeline" and
+              [tuple(p) for p in e.source_target_pairs] == [(i, i + 1) for i in range(P - 1)]
+              for e in hops),
+          f"pipeline hops {[(e.multiplicity, e.operand_bytes, e.semantic) for e in hops]}")
+    check(len(ars) == 1 and ars[0].multiplicity == 1 and ars[0].operand_bytes == M * hop_bytes,
+          f"pipeline all-reduce {[(e.multiplicity, e.operand_bytes) for e in ars]}")
+    check(len(tr.events) == len(hops) + 1, f"pipeline sites {[e.kind for e in tr.events]}")
+    ib_store = tr.store.annotation_clone()
+    rt.costmodel.annotate_store(ib_store, rt.MeshSpec(spec.shape, spec.axes,
+                                                      axis_kind={"model": "ib"}), rt.H100)
+    hop_ib = [r for r in ib_store.rows() if r.kind == "collective-permute"][0]
+    res_a = dict(arch=cfg.name, P=P, M=M, mb=mb, S=S, layers_a_stage=per, ms=ms,
+                 tick_ms=ms / ticks, bubble_fraction=pp.bubble_fraction(M, P),
+                 hop_bytes=hop_bytes, hop_us_nvlink=hops[0].est_time_s * 1e6,
+                 hop_us_model_ib=hop_ib.est_time_s * 1e6,
+                 all_reduce_us_nvlink=ars[0].est_time_s * 1e6, launches=launches_a)
+    print("[pipeline] (a) " + json.dumps(res_a))
+    del stage_params, local, x, tr
+    torch.cuda.empty_cache()
+    rt.dist.destroy_process_group()
+
+    # (b) one stage of every layer on a one-rank nccl mesh, against the straight layers
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(free_port()), RANK="0",
+                      WORLD_SIZE="1")
+    one, _ = rt.make_host_mesh((1,), ("model",), backend="nccl")
+    M1 = PIPELINE["M_ONE"]
+    x = torch.randn((M1, mb, S, cfg.d_model), generator=gen, device=rt.device,
+                    dtype=torch.bfloat16)
+    whole = _stacked_stages(rt, layers, 1)
+    with torch.inference_mode():
+        zero_counts(rt.counters)
+        y = pp.pipeline_apply(stage_fn, whole, x, one, axis="model")
+        torch.cuda.synchronize()
+        launches_b = read_counts(rt.counters)
+        straight = torch.stack([rt.transformer.apply_layers(cfg, layers, x[i], positions,
+                                                            attn_impl="flash")[0]
+                                for i in range(M1)])
+    check(rt.dist.get_backend() == "nccl", "pipeline (b) did not run on an nccl group")
+    check(launches_b[kernel] == nl * M1 == launches_b["flash_attention"],
+          f"pipeline (b): {launches_b} != {nl} layers x {M1} micro-batches")
+    same = bool(torch.equal(y, straight))
+    print("[pipeline] (b) " + json.dumps(dict(arch=cfg.name, layers=nl, M=M1, bitwise=same,
+                                              max_abs=float((y.float() - straight.float())
+                                                            .abs().max()),
+                                              launches=launches_b)))
+    check(same, "pipeline (b): one stage differs from the straight layers")
+    del whole, layers, x, y, straight
+    torch.cuda.empty_cache()
+    rt.dist.destroy_process_group()
+    return {k: launches_a[k] + launches_b[k] for k in launches_a}
+
+
 def ring_cache(rt):
     """The windowed ring cache at full width: h2o-danube-3-4b with its window cut to
     RING's, fp32 compute and fp32 caches, one ring of `window` slots against one full
@@ -1633,7 +1854,9 @@ def main(argv=None) -> int:
     from repro_torch.launch.train import Trainer
     from repro_torch.models import api, losses, moe, transformer
     from repro_torch.models.meta import leaves, materialize, tree_map_meta
-    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+    from torch.utils._pytree import tree_leaves, tree_map
+    from repro_torch.distributed import algorithms, pipeline
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1655,7 +1878,9 @@ def main(argv=None) -> int:
                          materialize=materialize, tree_map_meta=tree_map_meta,
                          distribute_tensor=distribute_tensor, Shard=Shard,
                          Replicate=Replicate, dryrun=dryrun, configs=configs,
-                         make_mesh_spec=make_mesh_spec)
+                         make_mesh_spec=make_mesh_spec, DTensor=DTensor,
+                         algorithms=algorithms, pipeline=pipeline, tree_map=tree_map,
+                         tree_leaves=tree_leaves)
 
     # 1. device
     smi = nvidia_smi()
@@ -1770,9 +1995,15 @@ def main(argv=None) -> int:
     for kname, n in dryrun_phase(rt).items():
         main_launches[kname] += n
 
-    # 21. results: launches are the main paths' (every MODELS row's two prefills, each
+    # 21-22. the all-reduce algorithms' captures; the GPipe pipeline of chatglm3-6b's layers
+    collectives_phase(rt)
+    for kname, n in pipeline_phase(rt).items():
+        main_launches[kname] += n
+
+    # 23. results: launches are the main paths' (every MODELS row's two prefills, each
     # train phase's flash eval and straight run, the dry-run's three real prefills on a
-    # mesh; the sharded, MoE and fake steps launch none)
+    # mesh, the pipeline's two runs; the sharded, MoE, fake and collective steps launch
+    # none)
     print(f"[done] main-path launches {main_launches}")
 
     kernels = kernels_line(main_launches, variant_path, scan_variants)

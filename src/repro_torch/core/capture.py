@@ -10,16 +10,18 @@ and records each collective that the step actually dispatches:
       * a `TorchDispatchMode` that lets DTensor desugar its ops (it returns
         `NotImplemented` for DTensor arguments, as `CommDebugMode` does) and
         then sees the `_c10d_functional` collectives on the local shards,
-        with their bytes, dtype and process group ("recording UCT");
+        with their bytes, dtype and process group ("recording UCT"), and the
+        port's point-to-point op (`repro_torch::ppermute`,
+        `distributed.ppermute`) as a `collective-permute` with its pairs;
       * a `TorchFunctionMode` that tags each autograd node with the scope
         path open when forward created it (`repro_torch.scope`), so that a
         collective in backward, which runs outside forward's scopes, is
         attributed to the scope of the node that issued it;
   (2) resolve each group onto the mesh (global ranks, and every group of
       that layout across the mesh: the replica groups);
-  (3) fold identical sites (scope path, kind, groups, bytes, dtype) into
-      `multiplicity`: the Python loop over layers and the micro-batch loop
-      repeat each site;
+  (3) fold identical sites (scope path, kind, groups, bytes, dtype, permute
+      pairs) into `multiplicity`: the Python loop over layers and the
+      micro-batch loop repeat each site;
   (4) build a `TraceStore`, price it (`costmodel.annotate_store`) and
       attribute it (`attribution.attribute_store`), as the reference's
       `tracer.trace_from_hlo` does.
@@ -103,8 +105,11 @@ KINDS: Dict[str, str] = {
     "reduce_scatter_tensor_coalesced": "reduce-scatter",
     "all_to_all_single": "all-to-all",
     "broadcast": "collective-broadcast",
+    # the port's point-to-point exchange (`distributed.ppermute`), with its pairs
+    "ppermute": "collective-permute",
 }
 _NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd")
+_PERMUTE = ("repro_torch", "ppermute")
 BACKWARD_MARKER = "transpose(jvp)"
 
 
@@ -366,7 +371,7 @@ class _Recorder(TorchDispatchMode):
             return NotImplemented       # let DTensor run, then see its local ops
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if func.namespace in _NAMESPACES:
+        if func.namespace in _NAMESPACES or (func.namespace, func._opname) == _PERMUTE:
             if func._opname in KINDS:
                 self.calls.append(self._collective(func, args, kwargs, out))
                 self.fused.leave(_tensors((args, kwargs)))
@@ -397,8 +402,11 @@ class _Recorder(TorchDispatchMode):
             names = node.metadata.get(scope_mod.NODE_KEY, ())
         group = kwargs.get("group_name", args[-1])
         tensors = [t for t in tree_leaves(args) if isinstance(t, torch.Tensor)]
+        # a permute's (source, target) pairs, ranks of its group
+        pairs = tuple(zip(args[1], args[2])) if func.namespace == _PERMUTE[0] else None
         return (func._opname, f"{func.namespace}.{func._opname}", names, backward, group,
-                _nbytes(args), _nbytes(out), str(tensors[0].dtype).replace("torch.", ""))
+                _nbytes(args), _nbytes(out), str(tensors[0].dtype).replace("torch.", ""),
+                pairs)
 
 
 def replica_groups(ranks: Sequence[int], mesh_ranks: np.ndarray) -> List[List[int]]:
@@ -419,25 +427,38 @@ def _op_name(names: Tuple[str, ...], prim: str, backward: bool) -> str:
 
 
 def _events(calls, mesh, label: str) -> List[CollectiveEvent]:
-    """Fold the recorded calls into sites, first-seen order."""
+    """Fold the recorded calls into sites, first-seen order.
+
+    A permute is written as the reference's HLO parser reads one: its pairs
+    on global ranks, repeated in every group of its layout (the whole mesh's
+    table), and one replica group of every mesh rank."""
     mesh_ranks = mesh.mesh.cpu().numpy()
-    groups_of: Dict[str, List[List[int]]] = {}
+    every_rank = [sorted(int(r) for r in mesh_ranks.reshape(-1))]
+    groups_of: Dict[str, tuple] = {}
     sites: Dict[tuple, CollectiveEvent] = {}
-    for opname, prim, names, backward, group, ob, rb, dtype in calls:
+    for opname, prim, names, backward, group, ob, rb, dtype, pairs in calls:
         if group not in groups_of:
             pg = dist.distributed_c10d._resolve_process_group(group)
-            groups_of[group] = replica_groups(dist.get_process_group_ranks(pg), mesh_ranks)
-        groups = groups_of[group]
+            ranks = dist.get_process_group_ranks(pg)
+            groups_of[group] = (ranks, replica_groups(ranks, mesh_ranks))
+        ranks, groups = groups_of[group]
+        stp = None
+        if pairs is not None:
+            # group rank i is the i-th rank of each group (row-major, as a mesh dim's)
+            if ranks not in groups:
+                raise ValueError(f"permute group {ranks} is not a row-major group of the mesh")
+            stp = [(g[s], g[t]) for g in groups for s, t in pairs]
+            groups = every_rank
         op_name = _op_name(names, prim, backward)
         kind = KINDS[opname]
-        key = (op_name, kind, group, ob, rb, dtype)
+        key = (op_name, kind, group, ob, rb, dtype, pairs)
         ev = sites.get(key)
         if ev is None:
             sites[key] = CollectiveEvent(
                 name=f"%{kind}.{len(sites)}", kind=kind, async_start=False,
                 operand_bytes=ob, result_bytes=rb, dtype=dtype,
                 replica_groups=groups, group_size=len(groups[0]), num_groups=len(groups),
-                op_name=op_name, computation=label)
+                op_name=op_name, computation=label, source_target_pairs=stp)
         else:
             ev.multiplicity += 1
     return list(sites.values())

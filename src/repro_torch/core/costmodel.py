@@ -199,11 +199,14 @@ def annotate_store(store, mesh: MeshSpec, hw: Hardware) -> None:
 # --------------------------------------------------------------------------
 
 def allreduce_time(algorithm: str, payload_bytes: int, group_size: int,
-                   link_bw: float, lat: float) -> float:
-    """Closed-form Allreduce cost for the three classic algorithms."""
+                   link_bw: float, lat: float, hw: Hardware) -> float:
+    """Closed-form Allreduce cost for the three classic algorithms, over
+    `hw.ring_directions` directions of each link, as the per-event model
+    prices them: 2 (n-1) hops of b/n, or log2 n hops of b, priced by
+    `annotate_store`, sum to these forms."""
     n = max(group_size, 2)
     b = payload_bytes
-    bw = 2.0 * link_bw   # the reference's bidirectional-ring closed forms
+    bw = hw.ring_directions * link_bw
     if algorithm == "ring":
         return 2 * (n - 1) * lat + 2 * (n - 1) / n * b / bw
     if algorithm == "reduce_scatter_allgather":

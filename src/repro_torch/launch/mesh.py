@@ -52,10 +52,10 @@ def make_host_mesh(shape=(2, 4), axes=("data", "model"), *, backend: str = "fake
                    device: str = None, rank: int = None, init_method: str = None):
     """(DeviceMesh, MeshSpec) of `shape` over `axes`.  `device` is where the
     tensors live: "cpu" or "cuda" (default: "cuda" for nccl, "cpu" for gloo;
-    `fake` takes either)."""
+    `fake` takes either, the card unless "cpu" is asked for)."""
     if backend not in BACKEND_DEVICE:
         raise ValueError(f"backend {backend!r} not in {sorted(BACKEND_DEVICE)}")
-    device = device or BACKEND_DEVICE[backend] or "cpu"
+    device = device or BACKEND_DEVICE[backend] or resolve_device(None).type
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
     _init_group(backend, math.prod(shape), rank, init_method)
     mesh = init_device_mesh(device, shape, mesh_dim_names=axes)

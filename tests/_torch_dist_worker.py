@@ -20,9 +20,22 @@ mesh.  MODE is
     on plain tensors, places the params by the serving rules and the cache
     by `sharding.cache_pspecs` (its sequence split over the mesh), and
     decodes each position on the mesh; rank 0 writes the whole logits of
-    every step to OUT_DIR/decode.pt.
+    every step to OUT_DIR/decode.pt;
+  * `collectives` (D*M = 8): each rank loads OUT_DIR/coll_inputs.pt and runs
+    every `distributed.algorithms` all-reduce on its shard of each payload
+    (on an (8,) ("data",) mesh over `data`, and on a (2, 4) ("data", "model")
+    mesh over `model`; the (8,) case also with a DTensor), then `ppermute`
+    with the inputs' pairs: its output, the gradient of sum(sin(y) * w)
+    and whether each bad pair table raised.  Each rank writes
+    OUT_DIR/coll_{rank}.pt;
+  * `pipeline` (D*M = 4): each rank loads the cases of OUT_DIR/pipe_inputs.pt
+    (stage weights [P, L, D, D], micro-batches [M, mb, D], the mesh) and runs
+    `distributed.pipeline.pipeline_apply` with a tanh stage of L layers, the
+    weights as plain tensors and as a DTensor placed Shard(0) on `model`.
+    Each rank writes OUT_DIR/pipe_{rank}.pt.
 """
 import os
+import socket
 import sys
 
 import torch
@@ -31,6 +44,13 @@ import torch.multiprocessing as mp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "src"))
+
+
+def free_port() -> int:
+    """A free localhost port for the group's rendezvous."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
 
 
 def step_rank(rank: int, out_dir: str, shape, port: int) -> None:
@@ -160,7 +180,75 @@ def decode_rank(rank: int, out_dir: str, shape, port: int) -> None:
     dist.destroy_process_group()
 
 
-MODES = {"step": step_rank, "moe": moe_rank, "decode": decode_rank}
+def collectives_rank(rank: int, out_dir: str, shape, port: int) -> None:
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.distributed.algorithms import ALGORITHMS, allreduce_fn
+    from repro_torch.distributed.ppermute import ppermute
+    from repro_torch.launch.mesh import make_host_mesh
+
+    inp = torch.load(os.path.join(out_dir, "coll_inputs.pt"), weights_only=False)
+    out = {}
+    for name, (mshape, axes, axis) in inp["meshes"].items():
+        mesh, _ = make_host_mesh(mshape, axes, backend="gloo", rank=rank,
+                                 init_method=f"tcp://localhost:{port}")
+        x = torch.from_numpy(inp["x"][name])
+        rows = x.shape[0] // mesh.size(axes.index(axis))
+        i = mesh.get_local_rank(axis)
+        local = x[i * rows:(i + 1) * rows].contiguous()
+        for alg in ALGORITHMS:
+            out[name, alg] = allreduce_fn(alg, mesh, axis)(local)
+            if len(mshape) == 1:
+                dt = DTensor.from_local(local, mesh, [Shard(0)])
+                y = allreduce_fn(alg, mesh, axis)(dt)
+                out[name, alg, "dtensor"] = (y.to_local(), y.placements == dt.placements)
+    group = dist.group.WORLD
+    x = torch.from_numpy(inp["p_x"][rank]).requires_grad_(True)
+    y = ppermute(x, inp["pairs"], group)
+    (torch.sin(y) * torch.from_numpy(inp["p_w"][rank])).sum().backward()
+    out["ppermute"] = (y.detach(), x.grad)
+    raised = []
+    for bad in inp["bad_pairs"]:
+        try:
+            ppermute(x.detach(), bad, group)
+            raised.append(False)
+        except ValueError:
+            raised.append(True)
+    out["raised"] = raised
+    torch.save(out, os.path.join(out_dir, f"coll_{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def pipeline_rank(rank: int, out_dir: str, shape, port: int) -> None:
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import make_host_mesh
+
+    def stage(w, h):
+        for wi in w:
+            h = torch.tanh(h @ wi)
+        return h
+
+    cases = torch.load(os.path.join(out_dir, "pipe_inputs.pt"), weights_only=False)
+    out = {}
+    for name, case in cases.items():
+        mesh, _ = make_host_mesh(case["mesh"], case["axes"], backend="gloo", rank=rank,
+                                 init_method=f"tcp://localhost:{port}")
+        w, x = torch.from_numpy(case["w"]), torch.from_numpy(case["x"])
+        plain = pipeline_apply(stage, w, x, mesh, axis="model")
+        i = mesh.get_local_rank("model")
+        placements = [Shard(0) if a == "model" else Replicate() for a in case["axes"]]
+        wd = DTensor.from_local(w[i:i + 1].contiguous(), mesh, placements)
+        sharded = pipeline_apply(lambda p, h: stage(p["w"], h), {"w": wd}, x, mesh,
+                                 axis="model")
+        out[name] = (plain, sharded)
+    torch.save(out, os.path.join(out_dir, f"pipe_{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+MODES = {"step": step_rank, "moe": moe_rank, "decode": decode_rank,
+         "collectives": collectives_rank, "pipeline": pipeline_rank}
 
 if __name__ == "__main__":
     mode, out_dir, d, m, port = sys.argv[1:6]

@@ -230,7 +230,7 @@ from repro_torch.launch.steps import make_train_step
 from repro_torch.models import api
 from repro_torch.optim import adamw
 cfg = smoke_config(ARCHS["chatglm3-6b"]).replace(**SMOKE)
-mesh, spec = make_host_mesh((2, 4), ("data", "model"), backend="fake")
+mesh, spec = make_host_mesh((2, 4), ("data", "model"), backend="fake", device="cpu")
 pl = sh.param_placements(cfg, mesh)
 params = sh.distribute_params(api.init_params(cfg, 0, device="cpu", dtype=torch.float32), mesh, pl)
 oc = adamw.AdamWConfig()

@@ -11,7 +11,6 @@ amount in [-lr, lr] in one AdamW step) and all but 1e-4 of them within 1e-6.
 A checkpoint saved on 2x4 restores exactly onto 4x2, 8x1 and 1x8.
 """
 import os
-import socket
 import subprocess
 import sys
 
@@ -20,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_dist_worker import free_port
 from _torch_parity import batch_pair, model_pair
 from repro.launch import presets as jpresets
 from repro.launch.steps import make_train_step as jax_train_step
@@ -32,12 +32,6 @@ from repro_torch.optim import adamw
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F32_TOL = 2e-5
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 def _env():
@@ -75,7 +69,7 @@ def _check_sharded_step(arch, st, tmp_path):
     torch.save({"cfg": cfg, "opt_cfg": oc, "settings": st, "params": params,
                 "batch": {k: v.numpy() for k, v in batch.items()}}, tmp_path / "inputs.pt")
     res = subprocess.run([sys.executable, os.path.join(REPO, "tests", "_torch_dist_worker.py"),
-                          "step", str(tmp_path), "2", "4", str(_free_port())],
+                          "step", str(tmp_path), "2", "4", str(free_port())],
                          env=_env(), capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-4000:]
     sharded = torch.load(tmp_path / "sharded.pt", weights_only=False)
@@ -104,7 +98,7 @@ def _check_sharded_step(arch, st, tmp_path):
 
 def _train_cli(mesh, ckpt, steps, extra=()):
     """The train CLI on 8 gloo ranks; returns rank 0's output."""
-    port = str(_free_port())
+    port = str(free_port())
     procs = []
     for rank in range(8):
         env = {**_env(), "RANK": str(rank), "WORLD_SIZE": "8", "MASTER_ADDR": "localhost",

@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_dist_worker import free_port
 from conftest import REPO, SRC, run_subprocess
 
 F32_TOL = 2e-5
@@ -67,10 +68,10 @@ def walk(tree, path=""):
     return [[path, list(tree.shape), str(tree.dtype).replace("torch.", "")]]
 
 jmesh = jax.make_mesh((2, 4), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
-mesh, _ = make_host_mesh((2, 4), ("data", "model"), backend="fake")
+mesh, _ = make_host_mesh((2, 4), ("data", "model"), backend="fake", device="cpu")
 pods = ("pod", "data", "model")
 jmesh3 = jax.make_mesh((2, 2, 2), pods, axis_types=(AxisType.Auto,) * 3)
-mesh3, _ = make_host_mesh((2, 2, 2), pods, backend="fake")
+mesh3, _ = make_host_mesh((2, 2, 2), pods, backend="fake", device="cpu")
 out = {"orders": [[list(JSHAPE_ORDER), list(SHAPE_ORDER)], [list(JARCH_ORDER), list(ARCH_ORDER)]],
        "skips": {}, "specs": {}, "mem": {}, "forced_mem": {}}
 
@@ -123,7 +124,7 @@ from repro_torch.launch import dryrun as dr
 from repro_torch.launch.mesh import make_host_mesh
 
 jmesh = jax.make_mesh((2, 4), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
-mesh, spec = make_host_mesh((2, 4), ("data", "model"), backend="fake")
+mesh, spec = make_host_mesh((2, 4), ("data", "model"), backend="fake", device="cpu")
 
 def rows(tr):
     return sorted({(e.semantic, e.kind, e.link_class.replace("ici.", "nvlink."))
@@ -478,7 +479,7 @@ out = {}
 for arch, shape, mshape, force in FORCED:
     axes = AXES[len(mshape)]
     jmesh = jax.make_mesh(mshape, axes, axis_types=(AxisType.Auto,) * len(axes))
-    mesh, spec = make_host_mesh(mshape, axes, backend="fake")
+    mesh, spec = make_host_mesh(mshape, axes, backend="fake", device="cpu")
     smoke = smoke_config(ARCHS[arch])
     over = {f: getattr(smoke, f) for f in FIELDS}
     got = {}
@@ -571,7 +572,7 @@ from repro_torch.launch import dryrun as dr
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.presets import StepSettings
 
-mesh, spec = make_host_mesh((2, 4), ("data", "model"), backend="fake")
+mesh, spec = make_host_mesh((2, 4), ("data", "model"), backend="fake", device="cpu")
 steps = [("chatglm3-6b", ShapeSpec("t", "train", 64, 8), StepSettings(accum=2, remat="full")),
          ("hymba-1.5b", ShapeSpec("t", "train", 32, 8), StepSettings(accum=2, remat="full")),
          ("hymba-1.5b", ShapeSpec("p", "prefill", 64, 4),
@@ -615,13 +616,6 @@ def test_fake_steps_trace_as_real_steps():
         assert fake[4] > 0 and real[4] == 0, (arch, kind)
 
 
-def _free_port() -> int:
-    import socket
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _decode_cases():
     """Smoke configs in fp32 with seed-0 params: chatglm3-6b (batch 2: rows over
     data, sequence over model), h2o-danube-3-4b's ring of 16 slots at batch 1
@@ -656,7 +650,7 @@ def test_decode_on_a_sequence_sharded_cache_matches_the_straight_decode(tmp_path
     cases = _decode_cases()
     torch.save(cases, tmp_path / "decode_inputs.pt")
     res = subprocess.run([sys.executable, os.path.join(REPO, "tests", "_torch_dist_worker.py"),
-                          "decode", str(tmp_path), "2", "4", str(_free_port())],
+                          "decode", str(tmp_path), "2", "4", str(free_port())],
                          env={**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "1"},
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-4000:]
@@ -793,7 +787,7 @@ from repro_torch.configs import ARCHS, ShapeSpec, smoke_config
 from repro_torch.launch import dryrun as dr
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.presets import StepSettings
-mesh, spec = make_host_mesh((2, 4), ("data", "model"), backend="fake")
+mesh, spec = make_host_mesh((2, 4), ("data", "model"), backend="fake", device="cpu")
 cfg = smoke_config(ARCHS["chatglm3-6b"])
 shape = ShapeSpec("t", "train", 64, 8)
 out = {}

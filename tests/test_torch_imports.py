@@ -49,7 +49,9 @@ def test_scan_covers_the_sharding_and_profiler_modules():
                  "repro_torch.core.detect", "repro_torch.distributed.moe_ep",
                  "repro_torch.core.persist", "repro_torch.core.diff",
                  "repro_torch.core.whatif", "repro_torch.core.synth",
-                 "repro_torch.core.report", "repro_torch.core.session"):
+                 "repro_torch.core.report", "repro_torch.core.session",
+                 "repro_torch.distributed.ppermute", "repro_torch.distributed.algorithms",
+                 "repro_torch.distributed.pipeline"):
         assert name in mods, name
     for name in ("store", "session", "synth"):
         text = (PKG / "core" / f"{name}.py").read_text()
@@ -58,8 +60,11 @@ def test_scan_covers_the_sharding_and_profiler_modules():
 
 
 def test_sources_have_no_jax_or_repro_import():
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                         REPO / "examples" / "torch_quickstart.py"]
+    examples = sorted((REPO / "examples").glob("torch_*.py"))
+    assert {f.name for f in examples} >= {
+        "torch_quickstart.py", "torch_detect_misconfig.py", "torch_profile_arch.py",
+        "torch_diff_configs.py", "torch_serve_lm.py", "torch_train_lm.py"}
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"] + examples
     assert len(files) >= 15
     offenders = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
                  for f in files for m in FORBIDDEN.finditer(f.read_text())]

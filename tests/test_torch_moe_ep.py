@@ -12,7 +12,6 @@ mesh under the fake process group for the capture.
 """
 import json
 import os
-import socket
 import subprocess
 import sys
 
@@ -20,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_dist_worker import free_port
 from conftest import run_subprocess
 from repro_torch.configs import ARCHS, smoke_config
 from repro_torch.models import moe as moe_mod
@@ -116,7 +116,7 @@ from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import moe as pmoe
 from repro_torch.models.meta import tree_map_meta
 pcfg = cfg.replace(compute_dtype="float32")
-pm, spec = make_host_mesh((2, 4), ("data", "model"), backend="fake")
+pm, spec = make_host_mesh((2, 4), ("data", "model"), backend="fake", device="cpu")
 psizes = sh.mesh_axis_sizes(pm)
 pspecs = tree_map_meta(lambda _p, mm: sh.spec_for(mm.shape, mm.logical, sh.TRAIN_RULES, psizes),
                        pmoe.moe_meta(pcfg))
@@ -167,12 +167,6 @@ def reference(tmp_path_factory):
         return json.load(f)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture(scope="module")
 def port(reference, tmp_path_factory):
     """The port's runs on 8 gloo ranks (`_torch_dist_worker.MOE_RUNS`)."""
@@ -183,7 +177,7 @@ def port(reference, tmp_path_factory):
                d / "moe_inputs.pt")
     env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src"), "OMP_NUM_THREADS": "1"}
     res = subprocess.run([sys.executable, os.path.join(REPO, "tests", "_torch_dist_worker.py"),
-                          "moe", str(d), "2", "4", str(_free_port())],
+                          "moe", str(d), "2", "4", str(free_port())],
                          env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-4000:]
     return torch.load(d / "moe.pt", weights_only=False)

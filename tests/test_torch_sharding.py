@@ -33,7 +33,7 @@ from repro_torch.distributed import sharding as sh
 from repro_torch.launch.mesh import make_host_mesh
 
 jmesh = jax.make_mesh((2, 4), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
-mesh, _ = make_host_mesh((2, 4), ("data", "model"), backend="fake")
+mesh, _ = make_host_mesh((2, 4), ("data", "model"), backend="fake", device="cpu")
 
 def plain(tree):
     if isinstance(tree, dict):
