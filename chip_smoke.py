@@ -92,27 +92,40 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                bytes over `data` equal to the gradients' bytes with `data`
                replicated (worked out from the placements) once per micro-batch
                (the gradients are synchronised in backward), no K1 or K2 launch
-  16. shard   — Trainer(mesh=(1, 1)) on a real nccl group of world size 1 against
+  16. ingest  — live ingest of the card's own captures (host code): the same step
+               captured 3 more times, each trace written with dump.write_capture to
+               build/chip_smoke_session/dump/host000_step00{k}.jsonl as the step ends,
+               while a WatchDaemon polls the directory from a background thread
+               (settle 0.25 s); every file ingested ok (none salvaged or
+               quarantined), each ingested trace identical to its in-memory one;
+               `run(once=True)`'s JSON and HTML reports byte for byte against batch
+               from_captures + report and against `session ingest` + `session
+               report`; the six corrupt modes on copies of the first capture through
+               `session ingest --errors salvage` (exit 3; binary quarantined, the
+               rest salvaged); bytes per file, host seconds to write, read + parse
+               and fold (per file and per site), the step-end-to-ingest latency and
+               the daemon's rounds; no K1 or K2 launch
+  17. shard   — Trainer(mesh=(1, 1)) on a real nccl group of world size 1 against
                the straight Trainer: qwen2-vl-2b at the train phase's shape, 2
                steps each, deterministic algorithms; losses and grad norms within
                a relative 1e-3 (the first loss equal), no kernel launched; and a
                third, straight run with the mesh's vocab-parallel loss formulation
                (the one mesh-only difference in the model's maths), reported
                against the mesh run bit for bit
-  17. moe     — one qwen3-moe-235b-a22b MoE layer at full width (d_model 4096, 128
+  18. moe     — one qwen3-moe-235b-a22b MoE layer at full width (d_model 4096, 128
                experts, top-8, moe_d_ff 1536), fp32, no-drop capacity factor 16, x of
                2 x 1024 from seed 0, on a one-rank nccl mesh: apply_moe with the sort
                dispatch against the einsum dispatch, output relative 1e-4, aux 1e-5, and
                after a backward of mean(y^2) + 0.01 * aux every gradient finite, non-zero
                and within a relative 1e-4; no kernel launched; each one's forward +
                backward ms (CUDA events) and the peak GB it adds
-  18. moe-trace — qwen3-moe-235b-a22b at full width, 2 of its 94 layers, as rank 0
+  19. moe-trace — qwen3-moe-235b-a22b at full width, 2 of its 94 layers, as rank 0
                of (2, 4) under the fake process group: fp32 master weights and moments,
                accum 2, remat "full", global batch 8 x 2048, captured once with each
                dispatch (a warm-up step, the captured step, a step with the capture
                off); checks: a moe_combine all-reduce on nvlink.model in the sort's
                trace, no all-to-all in either, grad_sync in both, no launch
-  19. session — the back half on the card's own traces: one TraceSession of [trace]'s
+  20. session — the back half on the card's own traces: one TraceSession of [trace]'s
                chatglm3-6b trace, the same re-priced with `data` on InfiniBand and the
                two [moe-trace] captures, saved as json, npz and uncompressed npz under
                build/chip_smoke_session/ and reloaded (the last with mmap) with equal
@@ -121,7 +134,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                IB re-pricing raises cross_node_bulk with the saving `ib_saving` gives);
                the what-if sweep (ib-2x only for the IB variant); HTML and JSON reports;
                host seconds of each step and the files' sizes
-  20. dryrun  — the dry-run (launch/dryrun.py) on the card: (a) fake against real:
+  21. dryrun  — the dry-run (launch/dryrun.py) on the card: (a) fake against real:
                [trace]'s chatglm3-6b step traced again by dryrun.trace_cell on fake
                tensors, and hymba-1.5b's prefill (4 x 2048, bf16, attn "flash") as rank
                0 of (2, 4) under the fake group, run for real (K1 and K2 launched once a
@@ -138,18 +151,19 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                (fake-run seconds, collectives, bytes, the roofline's terms, dominant,
                mfu_bound, the memory model against 80 GB, fake peak), no decode cell
                gathering its cache, no launch, and a `[dryrun] result` line
-  21. collectives — each all-reduce of distributed/algorithms.py (builtin: c10d's; ring,
+  22. collectives — each all-reduce of distributed/algorithms.py (builtin: c10d's; ring,
                rsag, recursive doubling) as rank 0 of an (8,) ("data",) DeviceMesh under
                the fake process group, on the card, at 4 MiB and 100 MB fp32 and at
                chatglm3-6b's whole bf16 gradient (6.24e9 parameters, 12.49 GB): the
                capture against the reference's signature written out here (ring 7 + 7
                permutes of the padded payload / 8 with pairs (i, i+1 mod 8); rsag one
-               reduce-scatter and one all-gather; recursive doubling 3 permutes of the
+               reduce-scatter and one all-gather, each of the padded payload (an
+               all-gather's operand is its gathered bytes); recursive doubling 3 permutes of the
                payload with pairs i ^ 2^k; builtin one all-reduce; every site on
                nvlink.data with group size 8), finite outputs, no kernel launched; the
                rank-local ms (CUDA events), the modelled us on NVLink and with `data` on
                InfiniBand, and costmodel.allreduce_time's closed form beside each
-  22. pipeline — distributed/pipeline.py's GPipe with chatglm3-6b at full width (d_model
+  23. pipeline — distributed/pipeline.py's GPipe with chatglm3-6b at full width (d_model
                4096, 32 heads, 2 KV heads, head dim 128), bf16, seed-0 weights, each stage
                its layers through transformer.apply_layers(attn_impl="flash") on plain
                local tensors: (a) P = 4 over (4,) ("model",), rank 0 under the fake group
@@ -160,7 +174,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                fraction, the hop's modelled us on NVLink and with `model` on InfiniBand;
                (b) P = 1 on a one-rank nccl mesh, all 28 layers one stage, M = 4: equal
                bit for bit to the straight apply_layers per micro-batch, 112 K1 launches
-  23. a JSON line of every kernel: K1's bf16 wgmma kernel (at chatglm3-6b's shape; its
+  24. a JSON line of every kernel: K1's bf16 wgmma kernel (at chatglm3-6b's shape; its
                variants at gemma3-4b's global and hymba-1.5b's rank shard shapes), K1's
                3xTF32 fp32 kernel (at hymba-1.5b's fp32 mesh prefill's global shape; also
                gemma3-4b's fp32 check's and the windowed one), and K2 (the fused entry
@@ -318,6 +332,13 @@ MOE = dict(arch="qwen3-moe-235b-a22b", B=2, S=1024, rel=1e-4, aux=1e-5, grad_rel
 MOE_TRACE = dict(arch="qwen3-moe-235b-a22b", layers=2, mesh=(2, 4), B=8, S=2048)
 # the back half's files, under the git-ignored build/
 SESSION_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_session"
+# [ingest]: capture-on steps of [trace]'s step written as dumps, the daemon's clock
+INGEST = dict(steps=3, settle_s=0.25, interval_s=0.05)
+INGEST_DIR = SESSION_DIR / "dump"
+# each corrupt mode's ingest status under --errors salvage, as the CPU tests hold it
+# (tests/test_torch_chaos.py): every damage but undecodable bytes is salvaged
+CORRUPT_STATUS = {"truncate": "salvaged", "splice": "salvaged", "dup_lines": "salvaged",
+                  "drop_lines": "salvaged", "mangle_rg": "salvaged", "binary": "quarantined"}
 # [dryrun]: the fidelity prefill (hymba-1.5b, bf16, K1 and K2 on each rank's shards)
 # as rank 0 of (2, 4) under the fake group, and the same prefill on a one-rank nccl
 # mesh against the straight one-card prefill, in fp32 (relative FP32_TOL) and in
@@ -982,8 +1003,9 @@ def link_table(events):
 
 def trace_phase(rt):
     """The capture of the sharded train step at full width (see the module's
-    docstring).  Keeps the trace for the session phase in `rt.kept`.  Returns
-    its launches (every count 0)."""
+    docstring).  Keeps the trace for the session phase in `rt.kept`, and the
+    live step for [ingest], which releases it.  Returns its launches (every
+    count 0)."""
     torch, api, sh, core = rt.torch, rt.api, rt.sharding, rt.core
     cfg = rt.get_config(TRACE["arch"])
     mesh, spec = rt.make_host_mesh(TRACE["mesh"], ("data", "model"), backend="fake",
@@ -1065,9 +1087,169 @@ def trace_phase(rt):
                launches=launches)
     print("[trace] result " + json.dumps(res))
     rt.kept["trace"] = (tr, spec)
-    del params, opt, batch, tr
-    torch.cuda.empty_cache()
-    rt.dist.destroy_process_group()
+
+    def release():
+        nonlocal params, opt, batch
+        del params, opt, batch
+        torch.cuda.empty_cache()
+        rt.dist.destroy_process_group()
+    # the step stays live for [ingest], which captures it again and then releases it
+    rt.kept["trace step"] = (lambda: timed(True), spec, release)
+    return launches
+
+
+def ingest_phase(rt):
+    """Live ingest of the card's own captures (host only; see the module's
+    docstring): [trace]'s step captured INGEST["steps"] more times, each
+    trace written with `dump.write_capture` into INGEST_DIR as the step ends
+    while a `WatchDaemon` polls the directory from a background thread.
+    Then: every file ingested `ok`, each ingested trace identical to its
+    in-memory one; `run(once=True)`'s JSON and HTML reports against batch
+    `from_captures` + `report`, and against `session ingest` + `session
+    report`; the six corrupt modes on copies of the card's first capture
+    through `session ingest --errors salvage` (exit 3).  Host seconds to
+    write, read and fold each file, its bytes, the step-end-to-ingest
+    latency and the daemon's rounds.  Releases [trace]'s step.  Returns its
+    launches (every count 0)."""
+    import contextlib
+    import io
+    import threading
+    from repro_torch.core import dump, synth
+    from repro_torch.core import session as session_mod
+    from repro_torch.core.session import TraceSession
+    from repro_torch.core.watch import WatchConfig, WatchDaemon
+    capture, spec, release = rt.kept.pop("trace step")
+    shutil.rmtree(INGEST_DIR, ignore_errors=True)
+    INGEST_DIR.mkdir(parents=True)
+    zero_counts(rt.counters)
+    daemon = WatchDaemon(WatchConfig(root=str(INGEST_DIR), mesh=spec, quiet=True,
+                                     settle_s=INGEST["settle_s"]))
+    seen, stop = {}, threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            for path in daemon.poll_once()[0]:
+                seen[path] = time.time()
+            time.sleep(INGEST["interval_s"])
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+    traces, ends, write_s, step_ms = {}, {}, {}, []
+    try:
+        for k in range(INGEST["steps"]):
+            ms, tr = capture()
+            ends_k = time.time()
+            path = dump.capture_path(str(INGEST_DIR), 0, k)
+            t0 = time.perf_counter()
+            dump.write_capture(tr, path, mesh=spec)
+            write_s[path] = time.perf_counter() - t0
+            traces[path], ends[path] = tr, ends_k
+            step_ms.append(ms)
+        deadline = time.time() + 60
+        while len(seen) < len(traces) and time.time() < deadline:
+            time.sleep(INGEST["interval_s"])
+    finally:
+        stop.set()
+        poller.join()
+        release()
+    launches = read_counts(rt.counters)
+    check(all(n == 0 for n in launches.values()), f"captured steps launched kernels {launches}")
+    paths = sorted(traces)
+    check(sorted(seen) == paths, f"the daemon ingested {sorted(seen)} of {paths}")
+    check(not daemon.degraded() and all(daemon._records[p]["status"] == "ok" for p in paths),
+          f"degraded ingest {daemon.degraded()}")
+    live = daemon.session()
+    for p in paths:
+        got, want = live.get(os.path.splitext(os.path.basename(p))[0]), traces[p]
+        check(got.store.identical(want.store)
+              and (got.sites, int(got.store.multiplicity.sum()),
+                   got.total_collective_bytes(), got.total_est_time_s())
+              == (want.sites, int(want.store.multiplicity.sum()),
+                  want.total_collective_bytes(), want.total_est_time_s()),
+              f"{p}: the ingested trace differs from the captured one")
+    # host seconds of each part, per file: read + parse, and the daemon's fold
+    read_s, fold_s = {}, {}
+    timing = WatchDaemon(WatchConfig(root=str(INGEST_DIR), mesh=spec, quiet=True))
+    for p in paths:
+        t0 = time.perf_counter()
+        tr = dump.trace_from_capture(dump.read_capture(p), spec,
+                                     label=os.path.splitext(os.path.basename(p))[0])
+        read_s[p] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        timing._fold(tr)
+        fold_s[p] = time.perf_counter() - t0
+    # the daemon's --once reports against batch ingest + report
+    out = SESSION_DIR / "ingest"
+    out.mkdir(parents=True, exist_ok=True)
+    once = WatchDaemon(WatchConfig(
+        root=str(INGEST_DIR), mesh=spec, quiet=True, once=True, settle_s=INGEST["settle_s"],
+        interval_s=INGEST["interval_s"], report_json=str(out / "watch.json"),
+        report_html=str(out / "watch.html")))
+    t0 = time.perf_counter()
+    rc = once.run()
+    once_s = time.perf_counter() - t0
+    check(rc == 0, f"watch --once exited {rc}")
+    t0 = time.perf_counter()
+    batch = TraceSession.from_captures("dump", paths, spec)
+    batch_s = time.perf_counter() - t0
+    cli = io.StringIO()
+    with contextlib.redirect_stdout(cli):
+        rcs = [session_mod._main(["ingest", str(out / "batch.json"), *paths,
+                                  "--mesh", ",".join(map(str, spec.shape)),
+                                  "--axes", ",".join(spec.axes)])]
+        for fmt in ("json", "html"):
+            rcs.append(session_mod._main(["report", str(out / "batch.json"), "--format", fmt,
+                                          "--out", str(out / f"cli.{fmt}")]))
+    check(rcs == [0, 0, 0], f"session ingest/report exited {rcs}")
+    for fmt in ("json", "html"):
+        daemon_bytes = (out / f"watch.{fmt}").read_bytes()
+        check(daemon_bytes == (batch.report(fmt=fmt) + "\n").encode()
+              == (out / f"cli.{fmt}").read_bytes(),
+              f"watch --once {fmt} report differs from batch ingest + report")
+    # the six corrupt modes on copies of the card's first capture
+    chaos = SESSION_DIR / "chaos"
+    shutil.rmtree(chaos, ignore_errors=True)
+    chaos.mkdir(parents=True)
+    text = dump.read_capture(paths[0])
+    for i, mode in enumerate(synth.CORRUPT_MODES):
+        seed = i
+        while synth.corrupt_capture(text, mode, seed=seed) == text:
+            seed += 1           # a line mode that picked no line of this file
+        damaged = synth.corrupt_capture(text, mode, seed=seed)
+        with open(chaos / f"capture_{mode}.jsonl",
+                  "wb" if isinstance(damaged, bytes) else "w") as f:
+            f.write(damaged)
+    files = sorted(str(p) for p in chaos.glob("*.jsonl"))
+    with contextlib.redirect_stdout(io.StringIO()) as buf, \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = session_mod._main(["ingest", str(chaos / "chaos.json"), *files, "--errors",
+                                "salvage", "--retries", "0", "--json", "--workers", "1",
+                                "--mesh", ",".join(map(str, spec.shape)),
+                                "--axes", ",".join(spec.axes)])
+    statuses = {os.path.basename(r["source"])[len("capture_"):-len(".jsonl")]: r["status"]
+                for r in json.loads(buf.getvalue())["records"]}
+    check(rc == 3, f"session ingest --errors salvage over the corrupt copies exited {rc}")
+    check(statuses == CORRUPT_STATUS, f"corrupt modes: {statuses} != {CORRUPT_STATUS}")
+    sizes = {os.path.basename(p): os.path.getsize(p) for p in paths}
+    latency = {os.path.basename(p): seen[p] - ends[p] for p in paths}
+    sites = {os.path.basename(p): traces[p].sites for p in paths}
+    for p in paths:
+        b, n = os.path.basename(p), traces[p].sites
+        print(f"[ingest] {b}: {sizes[b]} bytes, {n} sites; host s write {write_s[p]:.6f} "
+              f"({write_s[p] / n * 1e6:.2f} us a site), read + parse {read_s[p]:.6f} "
+              f"({read_s[p] / n * 1e6:.2f} us a site), fold {fold_s[p]:.6f} "
+              f"({fold_s[p] / n * 1e6:.2f} us a site); step end to ingest {latency[b]:.3f} s")
+    print(f"[ingest] daemon: {daemon.rounds} rounds at {INGEST['interval_s']} s, settle "
+          f"{INGEST['settle_s']} s; watch --once {once_s:.3f} s in {once.rounds} rounds, "
+          f"batch from_captures {batch_s:.3f} s; corrupt copies {statuses}")
+    res = dict(arch=rt.kept["trace"][0].label, steps=INGEST["steps"], step_ms=step_ms,
+               file_bytes=sizes, sites=sites,
+               write_s={os.path.basename(p): write_s[p] for p in paths},
+               read_parse_s={os.path.basename(p): read_s[p] for p in paths},
+               fold_s={os.path.basename(p): fold_s[p] for p in paths},
+               latency_s=latency, daemon_rounds=daemon.rounds, settle_s=INGEST["settle_s"],
+               interval_s=INGEST["interval_s"], once_s=once_s, once_rounds=once.rounds,
+               batch_s=batch_s, corrupt=statuses, launches=launches)
+    print("[ingest] result " + json.dumps(res))
     return launches
 
 
@@ -1555,8 +1737,9 @@ def dryrun_cell(cell, device):
 def collective_signature(alg, n, elements, esize):
     """The reference algorithm's signature on an (n,) mesh, from its semantics:
     [(kind, scope, multiplicity, operand bytes, pairs or None)].  The capture
-    records an op's input: the ring's hop carries the padded payload / n, the
-    reduce-scatter takes the padded payload and the all-gather its shard."""
+    records an op's input, but an all-gather's gathered output: the ring's hop
+    carries the padded payload / n, the reduce-scatter takes the padded
+    payload and the all-gather gives it back whole."""
     chunk = -(-elements // n) * esize
     ring = [(i, (i + 1) % n) for i in range(n)]
     return {
@@ -1564,7 +1747,7 @@ def collective_signature(alg, n, elements, esize):
         "ring": [("collective-permute", "ring_rs_hop", n - 1, chunk, ring),
                  ("collective-permute", "ring_ag_hop", n - 1, chunk, ring)],
         "rsag": [("reduce-scatter", "rsag_rs", 1, chunk * n, None),
-                 ("all-gather", "rsag_ag", 1, chunk, None)],
+                 ("all-gather", "rsag_ag", 1, chunk * n, None)],
         "recursive_doubling": [("collective-permute", f"recdbl_round{k}", 1, elements * esize,
                                 [(i, i ^ (1 << k)) for i in range(n)])
                                for k in range(int(math.log2(n)))],
@@ -1981,26 +2164,26 @@ def main(argv=None) -> int:
         for kname, n in train_model(rt, spec).items():
             main_launches[kname] += n
 
-    # 15-18. the sharded train step: its capture, and one card's mesh against the
-    # straight Trainer; the MoE sort dispatch against the einsum dispatch, and
+    # 15-19. the sharded train step: its capture, live ingest of its captures, and
+    # one card's mesh against the straight Trainer; the MoE sort dispatch against the einsum dispatch, and
     # the captures of a sharded MoE step with each
-    for phase in (trace_phase, shard_phase, moe_phase, moe_trace_phase):
+    for phase in (trace_phase, ingest_phase, shard_phase, moe_phase, moe_trace_phase):
         for kname, n in phase(rt).items():
             main_launches[kname] += n
 
-    # 19. the profiler's back half on the card's own traces
+    # 20. the profiler's back half on the card's own traces
     session_phase(rt)
 
-    # 20. the dry-run: fake against real, the prefill on a mesh, the production cells
+    # 21. the dry-run: fake against real, the prefill on a mesh, the production cells
     for kname, n in dryrun_phase(rt).items():
         main_launches[kname] += n
 
-    # 21-22. the all-reduce algorithms' captures; the GPipe pipeline of chatglm3-6b's layers
+    # 22-23. the all-reduce algorithms' captures; the GPipe pipeline of chatglm3-6b's layers
     collectives_phase(rt)
     for kname, n in pipeline_phase(rt).items():
         main_launches[kname] += n
 
-    # 23. results: launches are the main paths' (every MODELS row's two prefills, each
+    # 24. results: launches are the main paths' (every MODELS row's two prefills, each
     # train phase's flash eval and straight run, the dry-run's three real prefills on a
     # mesh, the pipeline's two runs; the sharded, MoE, fake and collective steps launch
     # none)

@@ -4,7 +4,6 @@ model, scope/semantic attribution and the roofline (the front half); and
 persistence, sessions, diffs, reports, what-if sweeps, the detectors, the
 static lint and synthetic traces (the back half).
 """
-from repro_torch.core.capture import trace_step
 from repro_torch.core.events import CollectiveEvent, Trace
 from repro_torch.core.roofline import RooflineReport, roofline
 from repro_torch.core.store import TraceStore
@@ -25,4 +24,9 @@ def __getattr__(name):
     if name == "TraceSession":
         from repro_torch.core.session import TraceSession
         return TraceSession
+    # lazy so the host-only back half (sessions, ingest, the watch daemon and
+    # its worker processes) does not import torch
+    if name == "trace_step":
+        from repro_torch.core.capture import trace_step
+        return trace_step
     raise AttributeError(name)

@@ -10,7 +10,9 @@ and records each collective that the step actually dispatches:
       * a `TorchDispatchMode` that lets DTensor desugar its ops (it returns
         `NotImplemented` for DTensor arguments, as `CommDebugMode` does) and
         then sees the `_c10d_functional` collectives on the local shards,
-        with their bytes, dtype and process group ("recording UCT"), and the
+        with their bytes (an op's input, but an all-gather's gathered
+        output, as the reference's parser reads one and the cost model's
+        (n-1)/n expects), dtype and process group ("recording UCT"), and the
         port's point-to-point op (`repro_torch::ppermute`,
         `distributed.ppermute`) as a `collective-permute` with its pairs;
       * a `TorchFunctionMode` that tags each autograd node with the scope
@@ -404,8 +406,12 @@ class _Recorder(TorchDispatchMode):
         tensors = [t for t in tree_leaves(args) if isinstance(t, torch.Tensor)]
         # a permute's (source, target) pairs, ranks of its group
         pairs = tuple(zip(args[1], args[2])) if func.namespace == _PERMUTE[0] else None
+        # an all-gather's payload is the gathered tensor, as the reference's HLO
+        # parser reads it and the cost model's (n-1)/n expects; every other
+        # kind's is its input (a reduce-scatter's the pre-scatter tensor)
+        payload = out if KINDS[func._opname] == "all-gather" else args
         return (func._opname, f"{func.namespace}.{func._opname}", names, backward, group,
-                _nbytes(args), _nbytes(out), str(tensors[0].dtype).replace("torch.", ""),
+                _nbytes(payload), _nbytes(out), str(tensors[0].dtype).replace("torch.", ""),
                 pairs)
 
 

@@ -1,6 +1,7 @@
 """commcheck — static collective-correctness analysis over `TraceStore`
-(a copy of the reference's `core/commcheck.py`; risk is priced on the H100
-model when a store arrives unpriced).
+(a copy of the reference's `core/commcheck.py`, its streaming
+`CommcheckState` included; risk is priced on the H100 model when a store
+arrives unpriced).
 
 Everything else in the tracer is *dynamic*: detectors fire after a trace
 is ingested and priced.  This module is the static pass — it verifies the
@@ -167,8 +168,9 @@ def _table_counts(table, nd: int) -> np.ndarray:
 
 
 # --------------------------------------------------------------------------
-# per-unit analysis bodies — computed from table *values*, so the same
-# unit gives the same findings whichever store's codes carried it
+# per-unit analysis bodies — computed from table *values*, so the batch
+# checkers below and the streaming `CommcheckState` produce identical
+# findings for the same unit regardless of which store's codes carried it
 # --------------------------------------------------------------------------
 
 def _group_table_finding(table, mesh: MeshSpec, sites: int,
@@ -623,3 +625,162 @@ def check_trace(trace: Trace, mesh: Optional[MeshSpec] = None,
         except (ValueError, IndexError, KeyError):
             pass    # un-annotatable (e.g. out-of-range devices): rank by 0
     return rank_findings(check_store(store, mesh))
+
+
+# --------------------------------------------------------------------------
+# streaming analysis — fold appended chunks, re-render fresh findings
+# --------------------------------------------------------------------------
+
+class CommcheckState:
+    """Streaming `check_store`: absorb ingested chunks, render on demand.
+
+    `update(store)` folds one (annotated) chunk in; `findings()` then
+    returns the ranked findings a batch `check_trace` would produce over
+    the union of all chunks seen so far.  Retained state is
+    compiled-program-shaped: unique group/pair tables with per-table
+    site/risk sums, plus one small member record per channel-carrying
+    row — channel match classes cannot be collapsed early because a
+    later chunk may add members that flip a singleton into a multi-site
+    class.  The analysis bodies (`_group_table_finding`,
+    `_class_findings`, `_permute_table_findings`) are shared with the
+    batch checkers, so messages are string-identical; accumulated risk
+    sums group per chunk and are close, not bitwise-equal, to one batch
+    pass.
+    """
+
+    def __init__(self, mesh: MeshSpec):
+        self.mesh = mesh
+        self._off = 0    # global row offset across chunks
+        # value-key -> table, insertion order == the union store's
+        # first-seen table code order (chunks intern in row order, and
+        # we fold chunk tables in their code order, exactly like merge)
+        self._gtables: Dict[Tuple, List] = {}
+        self._ptables: Dict[Tuple, List] = {}
+        self._gstat: Dict[Tuple, Dict] = {}     # ring rows per group table
+        self._pstat: Dict[Tuple, Dict] = {}     # permute rows per pair table
+        self._nochan: Dict[Tuple, Dict] = {}    # channel-less ring rows
+        self._chan: Dict[int, List[Dict]] = {}  # channel -> member records
+
+    @staticmethod
+    def _fold(stat: Dict[Tuple, Dict], key: Tuple, sites: int, wb: float,
+              ts: float, first: Optional[Tuple[int, str]]) -> None:
+        st = stat.setdefault(key, {"sites": 0, "wb": 0.0, "ts": 0.0,
+                                   "first": None})
+        st["sites"] += sites
+        st["wb"] += wb
+        st["ts"] += ts
+        if first is not None and (st["first"] is None
+                                  or first < st["first"]):
+            st["first"] = first
+
+    def update(self, store: TraceStore) -> None:
+        gkeys = []
+        for table in store.group_tables:
+            key = tuple(tuple(int(x) for x in g) for g in table)
+            self._gtables.setdefault(key, table)
+            gkeys.append(key)
+        pkeys = []
+        for t in store.stp_tables:
+            key = tuple((int(a), int(b)) for a, b in t)
+            self._ptables.setdefault(key, t)
+            pkeys.append(key)
+        if store.n == 0:
+            return
+        w = store.wire_total * store.weights
+        t_s = store.est_time_s * store.weights
+        ring_rows = np.flatnonzero(store.stp_code < 0)
+        stp_rows = np.flatnonzero(store.stp_code >= 0)
+
+        def fold_rows(stat, rows, code, keys):
+            n_t = len(keys)
+            if not n_t or not len(rows):
+                return
+            c = code[rows]
+            wb = np.bincount(c, weights=w[rows], minlength=n_t)
+            ts = np.bincount(c, weights=t_s[rows], minlength=n_t)
+            nrows = np.bincount(c, minlength=n_t)
+            first = _first_row_per_code(c, rows, n_t)
+            for t in np.flatnonzero(nrows):
+                fi = int(first[t])
+                self._fold(stat, keys[t], int(nrows[t]), float(wb[t]),
+                           float(ts[t]),
+                           (self._off + fi, store.names[fi]))
+
+        fold_rows(self._gstat, ring_rows, store.group_code, gkeys)
+        fold_rows(self._pstat, stp_rows, store.stp_code, pkeys)
+
+        ch = store.channel_id
+        chan_rows = ring_rows[ch[ring_rows] >= 0]
+        for r in chan_rows.tolist():
+            self._chan.setdefault(int(ch[r]), []).append({
+                "kind": store.kind.value(r),
+                "bytes": int(store.operand_bytes[r]),
+                "dtype": store.dtype.value(r),
+                "mult": int(store.multiplicity[r]),
+                "table": gkeys[store.group_code[r]],
+                "wb": float(w[r]), "ts": float(t_s[r]),
+                "gidx": self._off + r, "name": store.names[r]})
+        nochan_rows = ring_rows[ch[ring_rows] < 0]
+        fold_rows(self._nochan, nochan_rows, store.group_code, gkeys)
+        self._off += store.n
+
+    def findings(self) -> List[Finding]:
+        mesh = self.mesh
+        nd = mesh.num_devices
+        out: List[Finding] = []
+        # family 2: replica-group structure, in union table order
+        for key, table in self._gtables.items():
+            st = self._gstat.get(key)
+            if not st:
+                continue
+            kw = dict(wasted_bytes=st["wb"], time_at_risk_s=st["ts"],
+                      site=st["first"][1])
+            f = _group_table_finding(table, mesh, st["sites"], kw)
+            if f is not None:
+                out.append(f)
+        # family 1: matches.  Singleton classes = channel-less rows plus
+        # channels that (so far) have exactly one member.
+        singles: Dict[Tuple, Dict] = {}
+        for key, st in self._nochan.items():
+            self._fold(singles, key, st["sites"], st["wb"], st["ts"],
+                       st["first"])
+        for chan in sorted(self._chan):
+            members = self._chan[chan]
+            if len(members) == 1:
+                m = members[0]
+                self._fold(singles, m["table"], 1, m["wb"], m["ts"],
+                           (m["gidx"], m["name"]))
+        for key, table in self._gtables.items():
+            st = singles.get(key)
+            if not st:
+                continue
+            present = _table_counts(table, nd) > 0
+            missing = np.flatnonzero(~present)
+            if len(missing):
+                out.append(_f_coverage_singleton(
+                    st["sites"], missing, nd, site=st["first"][1],
+                    wasted_bytes=st["wb"], time_at_risk_s=st["ts"]))
+        for chan in sorted(self._chan):
+            members = self._chan[chan]
+            if len(members) < 2:
+                continue
+            kw = dict(site=f"channel {chan}",
+                      wasted_bytes=sum(m["wb"] for m in members),
+                      time_at_risk_s=sum(m["ts"] for m in members))
+            tables = {}
+            for m in members:
+                tables.setdefault(m["table"], self._gtables[m["table"]])
+            out += _class_findings(
+                chan,
+                [(m["kind"], m["bytes"], m["dtype"], m["mult"], m["table"])
+                 for m in members],
+                tables, mesh, kw)
+        # permute pair tables, in union table order
+        for key, pairs in self._ptables.items():
+            st = self._pstat.get(key)
+            if not st:
+                continue
+            kw = dict(wasted_bytes=st["wb"], time_at_risk_s=st["ts"],
+                      site=st["first"][1])
+            out += _permute_table_findings(pairs, nd, st["sites"], kw)
+        return rank_findings(_advise(out))

@@ -131,9 +131,9 @@ class Trace:
     computed requires an explicit `invalidate()`.
     """
 
-    # set by a salvage ingest (`tracer.trace_from_hlo(recover=True)`):
-    # the `hlo_parser.SalvageReport` describing what the damaged module
-    # lost, None for a clean/strict parse
+    # set by a salvage read of a capture dump
+    # (`dump.trace_from_capture(recover=True)`): the `dump.SalvageReport`
+    # describing what the damaged capture lost, None for a strict read
     salvage = None
 
     def __init__(self, label: str, mesh_shape: Tuple[int, ...],

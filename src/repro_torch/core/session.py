@@ -9,17 +9,22 @@ persist them as one artifact (compact JSON or compressed npz of the
 columnar stores), and render n-way comparison views.
 
 The file format is the reference's: a session saved by either package
-loads in the other, with the same columns and scalars.  The reference's
-HLO-text inputs are cut, since the port captures its traces and parses no
-HLO: its `hlo_parser.AUTO_SHARD_BYTES` import (reference `session.py:104`)
-and its `tracer.trace_from_hlo` calls (`:316`, `:401`, `:1317`, `:1349`),
-and with them `TraceSession.from_hlo` and its ingest pipeline, the
-`ingest` and `watch` commands (`watch.py`), and the HLO-file inputs of
-`lint` and `whatif`.  A saved session's `ingest_report` (the reference's
-per-file ingest provenance) is kept through load and save.
+loads in the other, with the same columns and scalars.
+
+Bulk ingest (`TraceSession.from_captures`) reads many capture dumps
+(`core.dump`: the file a running rank writes of its captured step, the
+port's counterpart of the HLO dumps the reference's `from_hlo` parses),
+fanning the files out across worker processes.  The reference splits one
+large module across workers by its computations (`--shards`); a capture
+has no computations, and is small (one line a collective site), so the
+port has no counterpart of that.
 
 CLI:
     python -m repro_torch.core.session demo  [--out PATH] [--format json|npz]
+    python -m repro_torch.core.session ingest OUT FILE [FILE ...] [--mesh 2,4]
+                                        [--axes data,model] [--workers N]
+                                        [--errors raise|skip|salvage]
+                                        [--retries N] [--timeout S] [--json]
     python -m repro_torch.core.session show  PATH
     python -m repro_torch.core.session table PATH [--by kind_link|semantic|site] \\
                                             [--metric bytes|time|count]
@@ -33,24 +38,53 @@ CLI:
     python -m repro_torch.core.session report PATH [LABEL] [--format json|html] \\
                                         [--out FILE] [--stream] \\
                                         [--chunk-sites N]
-    python -m repro_torch.core.session lint  PATH [PATH ...] [--json] \\
+    python -m repro_torch.core.session watch ROOT [--pattern *.jsonl] [--mesh 2,4] \\
+                                        [--axes data,model] [--out PATH] \\
+                                        [--report-json PATH] \\
+                                        [--report-html PATH] \\
+                                        [--summary PATH] [--settle S] \\
+                                        [--interval S] [--once] \\
+                                        [--fail-on SEV] [--max-rounds N] \\
+                                        [--errors raise|skip|salvage] \\
+                                        [--checkpoint PATH]
+    python -m repro_torch.core.session lint  PATH [PATH ...] [--mesh 2,4] \\
+                                        [--axes data,model] [--json] \\
                                         [--fail-on critical|warn|info|never]
     python -m repro_torch.core.session detect PATH [LABEL] [--json] \\
                                         [--fail-on critical|warn|info|never]
-    python -m repro_torch.core.session whatif PATH [LABEL] [--top N] [--json]
+    python -m repro_torch.core.session whatif PATH [LABEL] [--mesh 2,4] \\
+                                        [--axes data,model] [--top N] [--json]
 
 `lint` runs the static analyzer (`commcheck`) over saved sessions
-(.json/.npz); `detect` runs the dynamic detectors over a saved session.
-Both emit the same stable finding schema under --json and exit 1 when any
-finding reaches the --fail-on severity (default: critical for lint, never
-for detect), 2 on input errors.
+(.json/.npz) or capture dumps (.jsonl, read on --mesh/--axes); `detect`
+runs the dynamic detectors over a saved session.  Both emit the same stable
+finding schema under --json and exit 1 when any finding reaches the
+--fail-on severity (default: critical for lint, never for detect), 2 on
+input errors: a missing file, a file that is neither a session nor a
+capture (the reference's HLO text among them), or a capture whose header
+mesh is not --mesh/--axes.
 
 `whatif` is the hardwareless config sweep (`repro_torch.core.whatif`): it
-re-prices one trace of a saved session under a grid of counterfactual
-scenarios — mesh axis permutations, rendezvous-threshold tiers, NVLink and
-InfiniBand bandwidth/latency tiers — by re-running the columnar annotation
-pass (no re-capture, no hardware), and ranks the scenarios by estimated
-step time saved.  Exits 0 on success, 2 on input errors.
+re-prices one trace of a saved session or a capture dump under a grid of
+counterfactual scenarios — mesh axis permutations, rendezvous-threshold
+tiers, NVLink and InfiniBand bandwidth/latency tiers — by re-running the
+columnar annotation pass (no re-capture, no hardware), and ranks the
+scenarios by estimated step time saved.  Exits 0 on success, 2 on input
+errors.
+
+`watch` is the live-profiling daemon (see `repro_torch.core.watch`): it
+tails a directory that running ranks write capture dumps into, ingests
+new/changed files incrementally (append-mode stores + streaming
+detector/lint state), and re-emits its outputs atomically every poll;
+`--once` drains the directory and exits.  Damaged dumps are salvaged or
+quarantined instead of crashing the loop (exit 3 when anything was
+degraded, after the `--fail-on` alert exit 1), and `--checkpoint` makes the
+daemon crash-resumable.
+
+`ingest` exits 0 on full success; with `--errors=skip|salvage` it exits
+3 when any input was skipped, salvaged or quarantined (the session is
+still written, carrying the machine-readable ingest report), and 2 for
+hard failures.
 
 `query` is the warehouse slice view: filter the session's traces by
 host/step (parsed from trace labels, `host012_step003`-style) and its
@@ -58,9 +92,9 @@ rows by op/kind globs, then aggregate the slice — without merging or
 materializing anything.  `diff` and `report` accept the same slice
 specs (`host=00*,step=1`) in place of a trace label: matching traces
 tree-merge into one side of the comparison.  `--mmap` opens an
-*uncompressed* npz (`TraceSession.save(..., compress=False)`) zero-copy,
-so fleet-scale sessions slice without loading; exit codes follow
-`detect`/`lint` (0 ok, 2 input errors).
+*uncompressed* npz (`ingest --no-compress`) zero-copy, so fleet-scale
+sessions slice without loading; exit codes follow `detect`/`lint`
+(0 ok, 2 input errors).
 """
 from __future__ import annotations
 
@@ -70,7 +104,8 @@ import json
 import os
 import re
 import sys
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+import time
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -184,21 +219,32 @@ def _step_match(step: int, spec: str) -> bool:
 
 
 # --------------------------------------------------------------------------
-# ingest provenance — the reference's bulk HLO ingest records it in saved
-# sessions; the port keeps it through load and save
+# bulk ingest — many capture dumps -> one session, fanned out across processes
 # --------------------------------------------------------------------------
+
+class IngestError(RuntimeError):
+    """A specific input failed to ingest.
+
+    Raised by `TraceSession.from_captures` with the offending file/label in
+    the message (chained to the original error) — a genuine per-file
+    failure must not be mistaken for pool unavailability and silently
+    retried serially.
+    """
+
 
 @dataclasses.dataclass
 class IngestRecord:
-    """Per-input provenance of one reference `from_hlo` ingest.
+    """Per-input provenance of one `from_captures` ingest (the reference's
+    `from_hlo` writes the same record; a saved session keeps it).
 
     `status` is the outcome class:
-      * `ok`          — parsed cleanly (possibly after retries);
-      * `salvaged`    — strict parse failed, salvage parsing recovered a
-        partial trace (`salvage` holds the `SalvageReport` dict);
+      * `ok`          — read cleanly (possibly after retries);
+      * `salvaged`    — the strict read failed, the salvage read recovered
+        a partial trace (`salvage` holds the `SalvageReport` dict);
       * `skipped`     — failed under `errors="skip"`, input excluded;
-      * `quarantined` — failed even recovery (unreadable bytes, hung
-        worker that also failed serially), input excluded.
+      * `quarantined` — failed even recovery (unreadable bytes, a header
+        mesh that is not the ingest's, hung worker that also failed
+        serially), input excluded.
     """
 
     source: str
@@ -237,8 +283,10 @@ class IngestRecord:
 class IngestReport:
     """Machine-readable record of every input a bulk ingest touched.
 
-    Persisted with the session, so a partial session carries the
-    provenance of what was skipped, salvaged, or quarantined.
+    Attached to the session `from_captures` returns (and persisted with
+    it), so a partial session carries the provenance of what was skipped,
+    salvaged, or quarantined — the contract the `session ingest` exit
+    codes (0 clean / 3 degraded) and the watch-daemon summary build on.
     """
 
     errors: str = "raise"
@@ -263,14 +311,120 @@ class IngestReport:
                             for r in d.get("records", ())])
 
 
+def _retry_delays(retries: int, backoff_s: float):
+    """Exponential backoff schedule: backoff, 2*backoff, 4*backoff, ..."""
+    return [backoff_s * (1 << i) for i in range(max(retries, 0))]
+
+
+def _ingest_one(job) -> Trace:
+    """Worker: read one (label, capture text) strictly into its trace.
+
+    Module-level so it pickles into `ProcessPoolExecutor` workers; the
+    returned `Trace` ships back as its columnar store (rows stay lazy).
+    """
+    label, text, mesh = job
+    from repro_torch.core.dump import trace_from_capture
+    return trace_from_capture(text, mesh, label=label)
+
+
+def _errstr(e: BaseException) -> str:
+    return f"{type(e).__name__}: {e}"
+
+
+def _read_text(path) -> str:
+    from repro_torch.core.dump import read_capture
+    return read_capture(path)
+
+
+def _ingest_jobs(items, mesh: MeshSpec, *, errors: str = "raise",
+                 retries: int = 0, backoff_s: float = 0.0) -> List:
+    """One entry per input: (source, item, job | None, IngestRecord | None).
+
+    A `None` job means the input could not even be read (missing file,
+    undecodable bytes); under a non-raise policy that failure is
+    pre-recorded as quarantined — after read retries with backoff, the
+    file may still be landing — instead of raised, and the entry is
+    excluded from parsing.
+    """
+    entries = []
+    for it in items:
+        if isinstance(it, (tuple, list)):
+            label, text = it
+            entries.append((label, it, (label, text, mesh), None))
+            continue
+        src = str(it)
+        label = os.path.splitext(os.path.basename(src))[0]
+        attempts, err, text = 1, None, None
+        try:
+            text = _read_text(src)
+        except Exception as e:
+            err = e
+            if errors == "raise":
+                if isinstance(e, FileNotFoundError):
+                    raise      # CLI reports the filename specially
+                raise IngestError(f"failed to read {src!r}: {e}") from e
+            for delay in _retry_delays(retries, backoff_s):
+                time.sleep(delay)
+                attempts += 1
+                try:
+                    text = _read_text(src)
+                    err = None
+                    break
+                except Exception as e2:
+                    err = e2
+        if err is not None:
+            entries.append((src, it, None,
+                            IngestRecord(src, label, "quarantined", attempts,
+                                         error=_errstr(err))))
+        else:
+            entries.append((src, it, (label, text, mesh), None))
+    return entries
+
+
+def _recover_one(src: str, item, job, err: BaseException, errors: str,
+                 retries: int, backoff_s: float):
+    """Recovery ladder for one input whose strict read failed.
+
+    retry with exponential backoff (re-reading path inputs — the dump
+    may have still been landing) -> salvage read (`errors="salvage"`) ->
+    skip/quarantine.  Returns (Trace | None, IngestRecord); a None trace
+    means the input is excluded.
+    """
+    label, text, mesh = job
+    attempts, last = 1, err
+    for delay in _retry_delays(retries, backoff_s):
+        if delay > 0:
+            time.sleep(delay)
+        attempts += 1
+        try:
+            if not isinstance(item, (tuple, list)):
+                text = _read_text(item)
+            return (_ingest_one((label, text, mesh)),
+                    IngestRecord(src, label, "ok", attempts))
+        except Exception as e:
+            last = e
+    if errors == "salvage" and isinstance(text, str):
+        from repro_torch.core.dump import trace_from_capture
+        try:
+            tr = trace_from_capture(text, mesh, label=label, recover=True)
+            return tr, IngestRecord(src, label, "salvaged", attempts,
+                                    error=_errstr(last),
+                                    salvage=tr.salvage.to_dict())
+        except Exception as e:
+            last = e
+    status = "skipped" if errors == "skip" else "quarantined"
+    return None, IngestRecord(src, label, status, attempts,
+                              error=_errstr(last))
+
+
 class TraceSession:
     """An ordered, label-addressed collection of traces."""
 
     def __init__(self, name: str, traces: Optional[Sequence[Trace]] = None):
         self.name = name
-        # provenance of the bulk ingest that built this session (the
-        # reference's `from_hlo`; persisted through save/load); None for
-        # captured, hand-built or legacy-loaded sessions
+        # provenance of the bulk ingest that built this session (set by
+        # `from_captures`, persisted through save/load); None for captured,
+        # hand-built or legacy-loaded sessions
         self.ingest_report: Optional[IngestReport] = None
         self._traces: List[Trace] = []
         for t in traces or ():
@@ -503,6 +657,149 @@ class TraceSession:
         fp.write("\n")
         return None
 
+    # -- bulk ingest ---------------------------------------------------------
+
+    @classmethod
+    def from_captures(cls, name: str,
+                      items: Sequence[Union[str, Tuple[str, str]]],
+                      mesh: MeshSpec, *,
+                      max_workers: Optional[int] = None,
+                      errors: str = "raise",
+                      retries: int = 1,
+                      retry_backoff_s: float = 0.1,
+                      timeout_s: Optional[float] = None) -> "TraceSession":
+        """Ingest many capture dumps (`core.dump`) into one session, in
+        parallel (the reference's `from_hlo`).
+
+        `items` are either `(label, capture_text)` pairs or paths to
+        capture files (label = file stem).  Each file is read in its own
+        worker process; results come back as columnar stores.  Every
+        capture's header mesh must be `mesh` (shape and axes), and its
+        pricing (the H100 model on the job's links) is kept as written.
+        Falls back to serial ingest when the *pool* is unavailable
+        (restricted environments, spawn bootstrap failure, pool death) or
+        for a single file.
+
+        `errors` is the per-input failure policy:
+          * `"raise"` (default) — a genuine per-file failure raises
+            `IngestError` naming the offending input instead of silently
+            re-running everything serially.  Zero overhead on clean
+            inputs; the returned session still carries an all-ok
+            `ingest_report`.
+          * `"skip"` — failed inputs are retried (`retries` attempts
+            with exponential backoff from `retry_backoff_s`, re-reading
+            path inputs) then dropped; the session holds the survivors.
+          * `"salvage"` — like skip, but a damaged capture is first
+            re-read with salvage recovery
+            (`dump.trace_from_capture(recover=True)`): its intact rows are
+            kept as a partial trace, and only inputs that defeat even
+            salvage (unreadable bytes, another mesh) are quarantined.
+
+        Every input's outcome lands in `session.ingest_report`
+        (an `IngestReport`, persisted through save/load), so a partial
+        session is never silently partial.
+
+        `timeout_s` bounds each worker's result: a hung worker kills the
+        pool, and the stuck input plus everything still pending is
+        retried serially under the same `errors` policy (quarantined if
+        it fails again).
+        """
+        if errors not in ("raise", "skip", "salvage"):
+            raise ValueError(f"errors must be 'raise', 'skip' or 'salvage', "
+                             f"got {errors!r}")
+        pool_files = max_workers is None or max_workers > 1
+        if max_workers is None:
+            max_workers = min(len(items), os.cpu_count() or 1)
+        pool_files = pool_files and max_workers > 1 and len(items) > 1
+        entries = _ingest_jobs(items, mesh, errors=errors, retries=retries,
+                               backoff_s=retry_backoff_s)
+        # input-order maps: results[i] -> Trace, recs[i] -> IngestRecord
+        results: Dict[int, Trace] = {}
+        recs: Dict[int, IngestRecord] = {
+            i: rec for i, (_s, _it, job, rec) in enumerate(entries)
+            if job is None}
+        live = [(i, src, it, job)
+                for i, (src, it, job, _rec) in enumerate(entries)
+                if job is not None]
+        pending = live      # the live subset to (re)run serially
+        if pool_files:
+            import concurrent.futures as cf
+            import multiprocessing
+            import pickle
+            from concurrent.futures import ProcessPoolExecutor
+            from concurrent.futures.process import BrokenProcessPool
+            from repro_torch.core.store import _SPAWN_PROBE_TIMEOUT_S
+
+            # spawn, not fork: the parent often has torch loaded (and so
+            # multiple live threads) by the time a sweep is ingested, and
+            # forking a multithreaded process can deadlock workers.
+            ex = None
+            try:
+                ex = ProcessPoolExecutor(
+                    max_workers=max_workers,
+                    mp_context=multiprocessing.get_context("spawn"))
+                # no-op probe: where spawn cannot bootstrap workers the
+                # map below hangs rather than raising, so pool *startup*
+                # failure — and only that — is detected here and falls
+                # back to serial ingest
+                ex.submit(int).result(timeout=_SPAWN_PROBE_TIMEOUT_S)
+            except Exception:
+                if ex is not None:
+                    ex.shutdown(wait=False, cancel_futures=True)
+                ex = None
+            if ex is not None:
+                futs = [ex.submit(_ingest_one, job)
+                        for _i, _s, _it, job in live]
+                pending = []
+                dead = False
+                try:
+                    for (i, src, it, job), fut in zip(live, futs):
+                        if dead:
+                            pending.append((i, src, it, job))
+                            continue
+                        try:
+                            results[i] = fut.result(timeout=timeout_s)
+                            recs[i] = IngestRecord(src, job[0])
+                        except (BrokenProcessPool, pickle.PicklingError):
+                            # the pool died, not the input: retry serially
+                            dead = True
+                            pending.append((i, src, it, job))
+                        except cf.TimeoutError:
+                            # hung worker: kill the pool; this input and
+                            # everything still pending retries serially
+                            # (quarantined under skip/salvage if it fails
+                            # again)
+                            dead = True
+                            pending.append((i, src, it, job))
+                        except Exception as e:
+                            if errors == "raise":
+                                raise IngestError(
+                                    f"failed to ingest {src!r}: {e}") from e
+                            tr, rec = _recover_one(src, it, job, e, errors,
+                                                   retries, retry_backoff_s)
+                            if tr is not None:
+                                results[i] = tr
+                            recs[i] = rec
+                finally:
+                    ex.shutdown(wait=False, cancel_futures=True)
+        for i, src, it, job in pending:
+            try:
+                results[i] = _ingest_one(job)
+                recs[i] = IngestRecord(src, job[0])
+            except Exception as e:
+                if errors == "raise":
+                    raise IngestError(f"failed to ingest {src!r}: {e}") from e
+                tr, rec = _recover_one(src, it, job, e, errors,
+                                       retries, retry_backoff_s)
+                if tr is not None:
+                    results[i] = tr
+                recs[i] = rec
+        report = IngestReport(errors=errors,
+                              records=[recs[i] for i in sorted(recs)])
+        sess = cls(name, [results[i] for i in sorted(results)])
+        sess.ingest_report = report
+        return sess
+
     # -- persistence ---------------------------------------------------------
 
     def save(self, path: str, *, compress: bool = True,
@@ -647,6 +944,112 @@ def _main(argv: Optional[Sequence[str]] = None) -> int:
                    help="synthetic collective sites per trace "
                         "(default 2000)")
 
+    p = sub.add_parser(
+        "ingest",
+        help="read capture dumps into a session (parallel ingest)",
+        description="Read capture dumps (.jsonl, written by running ranks) "
+                    "into one saved session. "
+                    "Exit codes: with --errors=raise (default), 0 on "
+                    "success and 2 on the first bad input; with "
+                    "--errors=skip|salvage, 0 only when every input "
+                    "ingested cleanly, 3 when any input was skipped, "
+                    "salvaged or quarantined (the session is still "
+                    "written with the survivors and carries the ingest "
+                    "report), and 2 for hard failures (unwritable "
+                    "output, bad arguments).")
+    p.add_argument("out", help="output session path (.json or .npz)")
+    p.add_argument("files", nargs="+", help="capture dump files (.jsonl)")
+    p.add_argument("--mesh", default="2,4",
+                   help="mesh shape, comma-separated (default 2,4); every "
+                        "capture's header must match")
+    p.add_argument("--axes", default="data,model",
+                   help="mesh axis names, comma-separated")
+    p.add_argument("--workers", type=int, default=None,
+                   help="worker processes for the per-file fan-out "
+                        "(default: one per file, capped at CPU count; "
+                        "1 = serial)")
+    p.add_argument("--errors", choices=("raise", "skip", "salvage"),
+                   default="raise",
+                   help="per-input failure policy: raise (default) aborts "
+                        "with exit 2 on the first bad input; skip retries "
+                        "then drops bad inputs; salvage additionally "
+                        "recovers the intact rows of damaged captures as "
+                        "partial traces. skip/salvage exit 0 on full "
+                        "success, 3 when anything was degraded")
+    p.add_argument("--retries", type=int, default=1,
+                   help="re-attempts per failed input, with exponential "
+                        "backoff (default 1; skip/salvage only)")
+    p.add_argument("--retry-backoff", type=float, default=0.1,
+                   help="initial retry backoff in seconds, doubling per "
+                        "attempt (default 0.1)")
+    p.add_argument("--timeout", type=float, default=None,
+                   help="per-file worker timeout in seconds: a hung "
+                        "worker kills the pool and the file is retried "
+                        "serially, then quarantined (default: none)")
+    p.add_argument("--json", action="store_true", dest="as_json",
+                   help="print the machine-readable ingest report "
+                        "(every input's outcome) to stdout")
+    p.add_argument("--no-compress", action="store_true",
+                   help="store npz members raw instead of DEFLATE'd — "
+                        "the layout `query`/`diff --mmap` opens "
+                        "zero-copy (larger file, instant open)")
+
+    p = sub.add_parser("watch", help="tail a capture dump directory: ingest "
+                                     "new/changed files, keep rolling "
+                                     "reports fresh (live profiling)")
+    p.add_argument("root", help="dump directory to watch")
+    p.add_argument("--pattern", default="*.jsonl",
+                   help="glob for dump files inside ROOT (default *.jsonl)")
+    p.add_argument("--mesh", default="2,4",
+                   help="mesh shape, comma-separated (default 2,4)")
+    p.add_argument("--axes", default="data,model",
+                   help="mesh axis names, comma-separated")
+    p.add_argument("--out", default=None,
+                   help="rolling session save path (.json or .npz)")
+    p.add_argument("--report-json", default=None,
+                   help="rolling JSON report path (first trace)")
+    p.add_argument("--report-html", default=None,
+                   help="rolling HTML report path (first trace)")
+    p.add_argument("--summary", default=None,
+                   help="rolling machine summary JSON (aggregates + "
+                        "findings)")
+    p.add_argument("--settle", type=float, default=0.25,
+                   help="seconds a file's size+mtime must hold still "
+                        "before it is ingested (default 0.25)")
+    p.add_argument("--interval", type=float, default=1.0,
+                   help="seconds between polls (default 1.0)")
+    p.add_argument("--once", action="store_true",
+                   help="ingest until the directory is quiescent, then "
+                        "exit (CI/testing mode)")
+    p.add_argument("--fail-on", choices=("critical", "warn", "info", "never"),
+                   default="never",
+                   help="print alerts and exit 1 when any finding reaches "
+                        "this severity (default: never); without alerts "
+                        "the daemon exits 3 when any input was salvaged "
+                        "or quarantined, else 0")
+    p.add_argument("--max-rounds", type=int, default=None,
+                   help="stop after this many polls (default: unbounded)")
+    p.add_argument("--quiet", action="store_true",
+                   help="suppress per-round progress lines")
+    p.add_argument("--errors", choices=("raise", "skip", "salvage"),
+                   default="salvage",
+                   help="per-file failure policy: salvage (default) "
+                        "recovers the intact rows of damaged dumps, skip "
+                        "quarantines them whole, raise crashes the daemon "
+                        "(strict mode)")
+    p.add_argument("--max-retries", type=int, default=3,
+                   help="same-signature re-attempts (with exponential "
+                        "backoff) before a failing file's quarantine "
+                        "seals until the file changes (default 3)")
+    p.add_argument("--retry-backoff", type=float, default=0.5,
+                   help="initial quarantine retry backoff in seconds, "
+                        "doubling per failure (default 0.5)")
+    p.add_argument("--checkpoint", default=None,
+                   help="crash-resume checkpoint path (.npz): atomically "
+                        "rewritten after every state-changing poll; a "
+                        "daemon restarted on the same checkpoint resumes "
+                        "without re-reading already-ingested files")
+
     p = sub.add_parser("show", help="per-trace summaries of a saved session")
     p.add_argument("path", help="saved session (.json or .npz)")
 
@@ -716,8 +1119,13 @@ def _main(argv: Optional[Sequence[str]] = None) -> int:
                         "(saved with compress=False)")
 
     p = sub.add_parser("lint", help="static collective-correctness analysis "
-                                    "(commcheck) over saved sessions")
-    p.add_argument("paths", nargs="+", help="saved sessions (.json/.npz)")
+                                    "(commcheck) over sessions or capture dumps")
+    p.add_argument("paths", nargs="+",
+                   help="saved sessions (.json/.npz) or capture dumps (.jsonl)")
+    p.add_argument("--mesh", default="2,4",
+                   help="mesh shape for capture inputs, comma-separated")
+    p.add_argument("--axes", default="data,model",
+                   help="mesh axis names for capture inputs, comma-separated")
     p.add_argument("--json", action="store_true", dest="as_json",
                    help="emit the stable machine schema (same as "
                         "`detect --json`) instead of text")
@@ -768,9 +1176,16 @@ def _main(argv: Optional[Sequence[str]] = None) -> int:
                     "without re-capture or hardware, and rank scenarios "
                     "by estimated step time saved vs the baseline. "
                     "Exit codes: 0 on success, 2 on input errors.")
-    p.add_argument("path", help="saved session (.json/.npz)")
+    p.add_argument("path", help="saved session (.json/.npz) or capture "
+                                "dump (.jsonl)")
     p.add_argument("label", nargs="?", default=None,
-                   help="trace label (default: the session's first trace)")
+                   help="trace label (default: the session's first trace; "
+                        "ignored for capture inputs)")
+    p.add_argument("--mesh", default="2,4",
+                   help="mesh shape for capture inputs, comma-separated "
+                        "(saved sessions carry their own mesh)")
+    p.add_argument("--axes", default="data,model",
+                   help="mesh axis names for capture inputs, comma-separated")
     p.add_argument("--top", type=int, default=5,
                    help="top per-site savings kept per scenario "
                         "(default 5)")
@@ -798,14 +1213,71 @@ def _main(argv: Optional[Sequence[str]] = None) -> int:
         print(loaded.table(by="semantic", metric="time"))
         return 0
 
+    if args.cmd == "ingest":
+        mesh = _mesh_arg(args)
+        if mesh is None:
+            return 2
+        try:
+            sess = TraceSession.from_captures(
+                os.path.splitext(os.path.basename(args.out))[0],
+                args.files, mesh, max_workers=args.workers,
+                errors=args.errors, retries=args.retries,
+                retry_backoff_s=args.retry_backoff, timeout_s=args.timeout)
+        except FileNotFoundError as e:
+            print(f"error: no such file: {e.filename}", file=sys.stderr)
+            return 2
+        except IngestError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        path = sess.save(args.out, compress=not args.no_compress)
+        rep = sess.ingest_report
+        if args.as_json:
+            print(json.dumps(rep.to_dict(), indent=1))
+        else:
+            print(f"session '{sess.name}': ingested {len(sess)} traces "
+                  f"-> {path}")
+            if len(sess):
+                _print_totals(sess)
+        for r in rep.degraded:
+            print(f"ingest: [{r.status}] {r.source} "
+                  f"({r.attempts} attempt(s)): {r.error}", file=sys.stderr)
+        return 3 if rep.degraded else 0
+
+    if args.cmd == "watch":
+        from repro_torch.core.watch import WatchConfig, WatchDaemon
+        mesh = _mesh_arg(args)
+        if mesh is None:
+            return 2
+        if not os.path.isdir(args.root):
+            print(f"error: no such directory: {args.root}", file=sys.stderr)
+            return 2
+        for out in (args.out, args.report_json, args.report_html,
+                    args.summary, args.checkpoint):
+            if out:
+                os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+        cfg = WatchConfig(
+            root=args.root, mesh=mesh,
+            pattern=args.pattern, out=args.out,
+            report_json=args.report_json, report_html=args.report_html,
+            summary=args.summary, settle_s=args.settle,
+            interval_s=args.interval, once=args.once,
+            fail_on=args.fail_on, max_rounds=args.max_rounds,
+            quiet=args.quiet, errors=args.errors,
+            max_retries=args.max_retries,
+            retry_backoff_s=args.retry_backoff, checkpoint=args.checkpoint)
+        return WatchDaemon(cfg).run()
+
     if args.cmd == "lint":
         from repro_torch.core import commcheck
+        mesh = _mesh_arg(args)
+        if mesh is None:
+            return 2
         results = []
         for path in args.paths:
             try:
-                _require_session_path(path)
-                for t in TraceSession.load(path):
-                    results.append((path, t.label, commcheck.check_trace(t)))
+                for t, m in _input_traces(path, mesh):
+                    results.append((path, t.label, commcheck.check_trace(t, m)))
             except FileNotFoundError:
                 print(f"error: no such file: {path}", file=sys.stderr)
                 return 2
@@ -817,13 +1289,18 @@ def _main(argv: Optional[Sequence[str]] = None) -> int:
     if args.cmd == "whatif":
         from repro_torch.core import whatif as whatif_mod
         try:
-            _require_session_path(args.path)
-            sess = TraceSession.load(args.path)
-            if not len(sess):
-                print(f"error: session {sess.name!r} has no traces",
-                      file=sys.stderr)
-                return 2
-            tr = sess.get(args.label) if args.label else list(sess)[0]
+            if args.path.endswith(_SESSION_EXTS):
+                sess = TraceSession.load(args.path)
+                if not len(sess):
+                    print(f"error: session {sess.name!r} has no traces",
+                          file=sys.stderr)
+                    return 2
+                tr = sess.get(args.label) if args.label else list(sess)[0]
+            else:
+                mesh = _mesh_arg(args)
+                if mesh is None:
+                    return 2
+                (tr, _m), = _input_traces(args.path, mesh)
         except FileNotFoundError:
             print(f"error: no such file: {args.path}", file=sys.stderr)
             return 2
@@ -928,12 +1405,36 @@ def _main(argv: Optional[Sequence[str]] = None) -> int:
     return 0
 
 
-def _require_session_path(path: str) -> None:
-    """`lint` and `whatif` read saved sessions only: the reference's HLO-text
-    inputs are not ported (raises ValueError, exit 2)."""
-    if not path.endswith((".json", ".npz")):
-        raise ValueError(f"{path!r} is not a saved session (.json or .npz); "
-                         f"HLO text input is not supported")
+_SESSION_EXTS = (".json", ".npz")
+_CAPTURE_EXT = ".jsonl"
+
+
+def _mesh_arg(args) -> Optional[MeshSpec]:
+    """`--mesh`/`--axes` as a MeshSpec; None (after the error line) when
+    their ranks differ."""
+    shape = tuple(int(x) for x in args.mesh.split(","))
+    axes = tuple(args.axes.split(","))
+    if len(shape) != len(axes):
+        print("error: --mesh and --axes must have the same rank",
+              file=sys.stderr)
+        return None
+    return MeshSpec(shape, axes)
+
+
+def _input_traces(path: str, mesh: MeshSpec):
+    """The (trace, mesh to read it on) pairs of a `lint`/`whatif` input: a
+    saved session's traces on their own meshes, or a capture dump read
+    strictly on `mesh` (the reference's HLO text file's place).  Any other
+    file raises ValueError (exit 2): the port reads no HLO text."""
+    if path.endswith(_SESSION_EXTS):
+        return [(t, None) for t in TraceSession.load(path)]
+    if not path.endswith(_CAPTURE_EXT):
+        raise ValueError(f"{path!r} is neither a saved session (.json or .npz) "
+                         f"nor a capture dump ({_CAPTURE_EXT}); HLO text input "
+                         f"is not supported")
+    from repro_torch.core.dump import read_capture, trace_from_capture
+    label = os.path.splitext(os.path.basename(path))[0]
+    return [(trace_from_capture(read_capture(path), mesh, label=label), mesh)]
 
 
 def _emit_findings(results, as_json: bool, fail_on: str) -> int:

@@ -1,7 +1,8 @@
 """Synthetic trace generation — controlled workloads for sessions/benches
-(a copy of the reference's `core/synth.py` priced on the H100 model; the
-reference's HLO-text generators are not copied: the port captures traces,
-it parses no HLO).
+(a copy of the reference's `core/synth.py` priced on the H100 model).  The
+reference's HLO-text generators (`synthetic_hlo`, `corrupt_hlo`, the
+`write_*_dump` writers) become generators of the port's capture dumps
+(`core.dump`): the port captures traces, it parses no HLO.
 
 The paper's comparison experiments need *many* traces from *different*
 configurations.  On hardwareless CI we synthesize them: random-but-seeded
@@ -13,7 +14,9 @@ for a seed are the reference's; link names and prices are the H100's.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import os
+import re
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -209,3 +212,134 @@ def misconfigured_trace(n_sites: int = 400, seed: int = 3
     trace = synthetic_trace("misconfigured", mesh, n_sites=n_sites,
                             seed=seed, axis_weights=(1.0, 0.0))
     return trace, mesh, "mesh:data,pod"
+
+
+# --------------------------------------------------------------------------
+# capture dumps — the inputs of batch ingest and the watch daemon
+# --------------------------------------------------------------------------
+
+DUMP_MESH = MeshSpec((2, 4), ("data", "model"))
+
+
+def synthetic_capture(n_sites: int = 1000, seed: int = 0,
+                      mesh: MeshSpec = DUMP_MESH, hw: Hardware = H100,
+                      label: str = "synthetic") -> str:
+    """The capture-dump text (`core.dump`) of `synthetic_trace(label, mesh,
+    hw, n_sites=n_sites, seed=seed)`: what a rank running that workload
+    would write, the counterpart of the reference's `synthetic_hlo`."""
+    from repro_torch.core.dump import capture_text
+    return capture_text(synthetic_trace(label, mesh, hw, n_sites=n_sites, seed=seed),
+                        mesh)
+
+
+# every injector `corrupt_capture` supports (the reference's six); the chaos
+# tests iterate this matrix, so a new failure mode added here is exercised
+# everywhere automatically
+CORRUPT_MODES = ("truncate", "splice", "dup_lines", "drop_lines",
+                 "mangle_rg", "binary")
+
+_GARBAGE = ("@@@ CORRUPT <<<%%%>>> \x01\x02 not-a-capture-line ((((\n"
+            '{"format": "TRUNCATED HEADER\n')
+
+
+def corrupt_capture(text: str, mode: str, seed: int = 0,
+                    at: Optional[int] = None) -> Union[str, bytes]:
+    """Damage a capture dump the way fleet ingest sees damage (the
+    reference's `corrupt_hlo`, on the port's dump).
+
+    Modes (see `CORRUPT_MODES`):
+      * `truncate`   — cut the text at character `at` (default: a seeded
+        offset), the half-written dump;
+      * `splice`     — insert a block of garbage lines at `at` (default:
+        seeded), the interleaved-writer / corrupted-block case;
+      * `dup_lines`  — duplicate a random ~10% of lines (a retrying writer);
+      * `drop_lines` — delete a random ~10% of lines (lost writes);
+      * `mangle_rg`  — corrupt the first row's `replica_groups` (a device id
+        that is not a number) so the row is refused on its content while
+        its line stays JSON;
+      * `binary`     — splice invalid UTF-8 bytes and return `bytes` (even
+        salvage cannot decode it: the input is quarantined).
+
+    Returns the damaged dump as `str` (`bytes` for `binary`), deterministic
+    in `(text, mode, seed, at)`.
+    """
+    rng = np.random.default_rng(seed)
+    if mode == "truncate":
+        k = int(at) if at is not None \
+            else int(rng.integers(1, max(len(text), 2)))
+        return text[:k]
+    if mode == "splice":
+        k = int(at) if at is not None \
+            else int(rng.integers(0, max(len(text), 1)))
+        return text[:k] + _GARBAGE + text[k:]
+    if mode in ("dup_lines", "drop_lines"):
+        lines = text.splitlines(keepends=True)
+        pick = rng.random(len(lines)) < 0.1
+        out = []
+        for keep, line in zip(pick, lines):
+            if mode == "dup_lines":
+                out.append(line)
+                if keep:
+                    out.append(line)
+            elif not keep:
+                out.append(line)
+        return "".join(out)
+    if mode == "mangle_rg":
+        m = re.search(r'"replica_groups":\[\[(\d+)', text)
+        if m is None:
+            raise ValueError("capture has no row with replica_groups to mangle")
+        return text[:m.start(1)] + '"' + m.group(1) + 'x"' + text[m.end(1):]
+    if mode == "binary":
+        k = int(at) if at is not None \
+            else int(rng.integers(0, max(len(text), 1)))
+        return text[:k].encode() + b"\xff\xfe\x00\xc3\x28garbage\xff" \
+            + text[k:].encode()
+    raise ValueError(f"unknown corruption mode {mode!r} "
+                     f"(have {CORRUPT_MODES})")
+
+
+def _write(path: str, data: Union[str, bytes]) -> str:
+    from repro_torch.core.persist import atomic_open
+    with atomic_open(path, "wb" if isinstance(data, bytes) else "w") as f:
+        f.write(data)
+    return path
+
+
+def write_corrupt_dump(root: str, modes: Sequence[str] = CORRUPT_MODES,
+                       sites_per_file: int = 120, seed: int = 0,
+                       prefix: str = "corrupt") -> List[str]:
+    """One damaged capture per injector mode under `root`: a
+    `synthetic_capture` (seed `seed + i`) through `corrupt_capture`, named
+    `{prefix}_{mode}.jsonl`, each landed atomically.  Returns the paths."""
+    os.makedirs(root, exist_ok=True)
+    return [_write(os.path.join(root, f"{prefix}_{mode}.jsonl"),
+                   corrupt_capture(synthetic_capture(sites_per_file, seed=seed + i),
+                                   mode, seed=seed + i))
+            for i, mode in enumerate(modes)]
+
+
+def write_capture_dump(root: str, n_files: int = 3, sites_per_file: int = 200,
+                       seed: int = 0, prefix: str = "module",
+                       start: int = 0) -> List[str]:
+    """A dump directory of `n_files` synthetic captures (seeds `seed+start
+    ..`) named `{prefix}_{i:04d}.jsonl`, the input the watch daemon tails.
+    `start` offsets the numbering and the seed, so a second call extends the
+    directory with new captures (the grows-mid-run case).  Each file lands
+    atomically.  Returns the paths in order."""
+    os.makedirs(root, exist_ok=True)
+    return [_write(os.path.join(root, f"{prefix}_{i:04d}.jsonl"),
+                   synthetic_capture(sites_per_file, seed=seed + i))
+            for i in range(start, start + n_files)]
+
+
+def write_fleet_dump(root: str, n_hosts: int = 4, steps: int = 1,
+                     sites_per_file: int = 120, seed: int = 0) -> List[str]:
+    """A fleet-shaped dump: one synthetic capture per host x step, named
+    `host{h:03d}_step{s:03d}.jsonl` (the naming `session.label_meta`
+    reads), seed `seed + h * steps + s`, each landed atomically.  Returns the
+    paths, hosts outer, steps inner."""
+    from repro_torch.core.dump import capture_path
+    os.makedirs(root, exist_ok=True)
+    return [_write(capture_path(root, h, s),
+                   synthetic_capture(sites_per_file, seed=seed + h * steps + s))
+            for h in range(n_hosts) for s in range(steps)]

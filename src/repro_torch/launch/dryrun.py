@@ -121,9 +121,11 @@ def _local_count(shape, spec, sizes) -> int:
 
 
 def cache_gathers(trace, cfg, shape, mesh):
-    """The all-gather sites of a decode trace's attention whose operand is one
-    rank's shard of a k/v cache leaf (a gather of the cache); `mesh` a
-    DeviceMesh or `MeshSpec`.  Empty when decode reads the cache where it lies."""
+    """The all-gather sites of a decode trace's attention whose input is one
+    rank's shard of a k/v cache leaf (a gather of the cache; the capture
+    records an all-gather's gathered bytes, its group times its input);
+    `mesh` a DeviceMesh or `MeshSpec`.  Empty when decode reads the cache
+    where it lies."""
     sizes = sh.mesh_axis_sizes(mesh)
     specs, pspecs = model_api.cache_specs(cfg, shape), sh.cache_pspecs(cfg, shape, mesh)
     entries = [(specs, pspecs)] if isinstance(specs, dict) else list(zip(specs, pspecs))
@@ -131,7 +133,7 @@ def cache_gathers(trace, cfg, shape, mesh):
              // (cfg.num_layers if isinstance(specs, dict) else 1)
              for e, p in entries for k in e if k in ("k", "v")}
     return [e for e in trace.events if e.kind == "all-gather" and "attn_decode" in e.op_name
-            and e.operand_bytes in shard]
+            and e.operand_bytes // e.group_size in shard]
 
 
 def _serve_rules(cfg, mesh, st):

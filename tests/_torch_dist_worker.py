@@ -32,7 +32,11 @@ mesh.  MODE is
     (stage weights [P, L, D, D], micro-batches [M, mb, D], the mesh) and runs
     `distributed.pipeline.pipeline_apply` with a tanh stage of L layers, the
     weights as plain tensors and as a DTensor placed Shard(0) on `model`.
-    Each rank writes OUT_DIR/pipe_{rank}.pt.
+    Each rank writes OUT_DIR/pipe_{rank}.pt;
+  * `capture`: each rank loads the config, fp32 params, host batch and
+    settings of OUT_DIR/capture_inputs.pt, runs one sharded train step under
+    `core.trace_step` (`capture_step`) and writes the trace as a capture dump,
+    OUT_DIR/host{rank:03d}_step000.jsonl, as a running job's ranks do.
 """
 import os
 import socket
@@ -247,8 +251,46 @@ def pipeline_rank(rank: int, out_dir: str, shape, port: int) -> None:
     dist.destroy_process_group()
 
 
+def capture_step(mesh, spec, inp):
+    """The trace of one train step of `inp` (config, fp32 params, host batch,
+    settings) on `mesh`: the params placed by the training rules, the batch
+    by its specs.  Used by the `capture` ranks and by the fake-group capture
+    the tests hold them against."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core import trace_step
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.autoshard import activation_sharding
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+
+    cfg, oc, st, host = inp["cfg"], inp["opt_cfg"], inp["settings"], inp["batch"]
+    B, S = host["tokens"].shape
+    params = sharding.distribute_params(inp["params"], mesh,
+                                        sharding.param_placements(cfg, mesh))
+    specs = sharding.batch_pspecs(cfg, ShapeSpec("t", "train", S, B), mesh)
+    batch = shard_batch(host, mesh, {k: sharding.placements_for(s, mesh)
+                                     for k, s in specs.items()})
+    with activation_sharding(mesh, seq_shard=st.seq_shard):
+        return trace_step(make_train_step(cfg, oc, st), (params, adamw.init(oc, params), batch),
+                          mesh, spec, label="smoke")
+
+
+def capture_rank(rank: int, out_dir: str, shape, port: int) -> None:
+    from repro_torch.core.dump import capture_path, write_capture
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh, spec = make_host_mesh(shape, ("data", "model"), backend="gloo", rank=rank,
+                                init_method=f"tcp://localhost:{port}")
+    inp = torch.load(os.path.join(out_dir, "capture_inputs.pt"), weights_only=False)
+    write_capture(capture_step(mesh, spec, inp), capture_path(out_dir, rank, 0), mesh=spec)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 MODES = {"step": step_rank, "moe": moe_rank, "decode": decode_rank,
-         "collectives": collectives_rank, "pipeline": pipeline_rank}
+         "collectives": collectives_rank, "pipeline": pipeline_rank,
+         "capture": capture_rank}
 
 if __name__ == "__main__":
     mode, out_dir, d, m, port = sys.argv[1:6]

@@ -133,7 +133,7 @@ for name, (shape, axes, axis) in MESHES.items():
         big = torch.ones(PIN, dtype=torch.float32)
         ib = MeshSpec(spec.shape, spec.axes, axis_kind={{"data": "ib"}})
         out["pin"] = {{}}
-        for alg in ("ring", "recursive_doubling"):
+        for alg in ("ring", "recursive_doubling", "rsag"):
             tr = trace_step(allreduce_fn(alg, mesh, axis), (big,), mesh, spec, label=alg)
             ib_store = tr.store.annotation_clone()
             from repro_torch.core import costmodel
@@ -259,19 +259,18 @@ def test_make_host_mesh_fake_without_a_device_needs_a_card():
 # signatures
 # --------------------------------------------------------------------------
 
-# (mesh, algorithm, kind, scope): (reference operand bytes, port operand bytes, why)
+# (mesh, algorithm, kind, scope): (reference operand bytes, port operand bytes, why).
+# An all-gather's payload is its gathered bytes in both packages.
 DIFFERENCES = {
     ("8", "rsag", "reduce-scatter", "rsag_rs"): (28, 224, (
-        "the reference's parser reads a reduce-scatter's operand off its result "
-        "shape (the 7-element shard); the port records the op's input, the "
-        "padded 56-element payload")),
-    ("8", "rsag", "all-gather", "rsag_ag"): (224, 28, (
-        "the reference's parser reads an all-gather's operand off its result "
-        "shape (the gathered 56 elements); the port records the input shard")),
+        "both take a reduce-scatter's payload as its pre-scatter input, but the "
+        "reference's parser reads it as the result shard times the group only "
+        "for iota replica groups (hlo_parser.py:431-436); these groups are "
+        "explicit, so it falls back to the result shard (7 elements) where the "
+        "port records the padded 56-element input")),
     ("2x4", "rsag", "reduce-scatter", "rsag_rs"): (52, 208, (
-        "as on (8,): the result shard (13 elements) against the padded input (52)")),
-    ("2x4", "rsag", "all-gather", "rsag_ag"): (208, 52, (
-        "as on (8,): the gathered result (52 elements) against the input shard (13)")),
+        "as on (8,): the reference's non-iota fallback reads the result shard "
+        "(13 elements) against the padded input (52)")),
 }
 _HLO_DTYPES = {"f32": "float32", "bf16": "bfloat16"}
 
@@ -380,6 +379,38 @@ def test_a_corrupted_pair_table_is_flagged_as_the_reference_flags_it(captured, c
     assert code in {f[0] for f in findings[1]}
 
 
+_GATHER = r"""
+import json
+import torch
+import torch.distributed._functional_collectives as fc
+from repro_torch.core import trace_step
+from repro_torch.launch.mesh import make_host_mesh
+mesh, spec = make_host_mesh((2,), ("data",), backend="fake", device="cpu")
+x = torch.ones({k} // 4, dtype=torch.float32)
+def step(t):
+    return fc.reduce_scatter_tensor(fc.all_gather_tensor(t, 0, mesh), "sum", 0, mesh)
+tr = trace_step(step, (x,), mesh, spec, label="gather")
+print("GATHER" + json.dumps([[e.kind, e.operand_bytes, e.result_bytes,
+                              e.wire_bytes_per_device, e.group_size] for e in tr.events]))
+"""
+
+
+def test_an_all_gather_is_captured_on_its_gathered_bytes():
+    """A hand-built 2-rank all-gather of k bytes of input (rank 0 of (2,)
+    under the fake group): its operand is the gathered 2k bytes, as the
+    reference's parser reads an all-gather, and the cost model's (n-1)/n of
+    it, k, is what each rank sends; the reduce-scatter of that 2k back to k
+    keeps its 2k input as its operand."""
+    k = 4096
+    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
+    res = subprocess.run([sys.executable, "-c", _GATHER.format(k=k)], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-4000:]
+    line = next(l for l in res.stdout.splitlines() if l.startswith("GATHER"))
+    assert json.loads(line[len("GATHER"):]) == [["all-gather", 2 * k, 2 * k, k, 2],
+                                                ["reduce-scatter", 2 * k, k, k, 2]]
+
+
 @pytest.mark.parametrize("link", ["nvlink", "ib"])
 @pytest.mark.parametrize("alg", ["ring", "recursive_doubling"])
 def test_captured_modelled_time_equals_the_closed_form(alg, link, captured):
@@ -391,3 +422,21 @@ def test_captured_modelled_time_equals_the_closed_form(alg, link, captured):
                else (H100.ib_bw, H100.ib_latency_s))
     closed = costmodel.allreduce_time(alg, PIN_ELEMENTS * 4, 8, bw, lat, H100)
     assert closed == pytest.approx(nv if link == "nvlink" else ib, rel=1e-12)
+
+
+@pytest.mark.parametrize("link", ["nvlink", "ib"])
+def test_captured_rsag_time_is_its_closed_form_but_for_the_latency_hops(link, captured):
+    """On (8,), rsag's reduce-scatter of b and all-gather of b (its gathered
+    bytes) move 2 (n-1)/n b, the closed form's bandwidth term, to 1e-12; the
+    per-event model prices each of the two ring phases' n-1 hops, where the
+    closed form (`reduce_scatter_allgather`) takes 2 log2 n, so the two
+    differ by (2 (n-1) - 2 log2 n) hop latencies (8 at n = 8)."""
+    nv, ib = captured["pin"]["rsag"]
+    bw, lat = ((H100.nvlink_bw, H100.nvlink_latency_s) if link == "nvlink"
+               else (H100.ib_bw, H100.ib_latency_s))
+    closed = costmodel.allreduce_time("reduce_scatter_allgather", PIN_ELEMENTS * 4, 8, bw,
+                                      lat, H100)
+    got = nv if link == "nvlink" else ib
+    assert got - 2 * 7 * lat == pytest.approx(closed - 2 * 3 * lat, rel=1e-12)
+    ring = costmodel.allreduce_time("ring", PIN_ELEMENTS * 4, 8, bw, lat, H100)
+    assert got == pytest.approx(ring, rel=1e-12)

@@ -1,5 +1,6 @@
 """The port's examples (`examples/torch_*.py` beside `torch_quickstart.py`),
-each run in a subprocess with `--device cpu`.
+each run in a subprocess with `--device cpu` (`torch_session_compare.py`
+also with `--synthetic`).
 
 `torch_detect_misconfig.py` is held against the reference's example
 (`examples/detect_misconfig.py`, whose step it imports and compiles on 8
@@ -23,7 +24,8 @@ from conftest import run_subprocess
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLES = ["torch_detect_misconfig.py", "torch_profile_arch.py", "torch_diff_configs.py",
-            "torch_serve_lm.py", "torch_train_lm.py"]
+            "torch_serve_lm.py", "torch_train_lm.py", "torch_lint_collectives.py",
+            "torch_session_compare.py"]
 
 
 def _run(name, *args, timeout=300, tmpdir=None):
@@ -62,16 +64,20 @@ print("REFERENCE" + json.dumps(out))
 
 # what the two examples print differently: (reference, port, why)
 EXAMPLE_DIFFERENCES = {
-    "wire MB good -> bad": ((411.0, 1094.7), (299.4, 499.6), (
+    "wire MB good -> bad": ((411.0, 1094.7), (323.0, 897.6), (
         "XLA reduces the layers' bf16 products in f32 (2 MiB operands where "
         "DTensor reduces the bf16 1 MiB) and moves the stale layout by "
         "all-to-all, collective-permute and f32 gathers, where DTensor "
-        "all-gathers the bf16 activations over data and cuts them locally")),
-    "redundant_collective findings good, bad": ((2, 10), (0, 0), (
+        "all-gathers the bf16 activations over data and cuts them locally; "
+        "both price an all-gather on its gathered bytes")),
+    "redundant_collective findings good, bad": ((2, 10), (0, 1), (
         "the reference's HLO repeats each layer's collective as its own site "
         "(8x, 7x identical all-reduces in the good program), which the "
         "detector reads as re-gathers; the capture folds a layer loop's "
-        "repeats into one site's multiplicity (its example prints 5 of 10)")),
+        "repeats into one site's multiplicity (its example prints 5 of 10).  "
+        "The port's one: two all-gather sites of the bad program's 2.1 MB "
+        "activation over data in scope `layer`, above the detector's 1 MiB "
+        "floor since an all-gather is read on its gathered bytes")),
 }
 
 
@@ -160,6 +166,41 @@ def test_train_lm_trains(tmp_path):
     assert "15.7M params, 3 steps, batch 2 x seq 32" in res.stdout
     assert f"checkpoints in {tmp_path / 'repro_torch_train_lm_small'}" in res.stdout
     assert re.search(r"loss: [\d.]+ -> [\d.]+; stragglers flagged: \d+", res.stdout)
+
+
+def test_lint_collectives_finds_every_injected_bug_and_nothing_in_clean_dumps():
+    """The three passes: the clean synthetic trace and both capture dumps (a
+    synthetic one and the captured smoke step's) without a finding, every
+    injected bug class found, the sharding plan's two bad specs."""
+    res = _run("torch_lint_collectives.py", "--device", "cpu")
+    assert res.returncode == 0, res.stderr[-4000:]
+    out = res.stdout
+    assert "== clean synthetic trace: 0 finding(s)" in out
+    assert re.search(r"== capture dump synthetic\.jsonl \(400 sites, \d+ bytes\): 0 finding",
+                     out)
+    assert re.search(r"== capture dump smoke_step\.jsonl \(\d+ sites, \d+ bytes\): 0 finding",
+                     out)
+    assert "all 6 injected bug classes detected" in out
+    assert "pspec_dup_axis @ w2" in out and "pspec_unknown_axis @ w3" in out
+
+
+@pytest.mark.parametrize("mode", ["--device", "--synthetic"])
+def test_session_compare_ingests_each_layout_s_dump(mode, tmp_path):
+    """Each mesh layout's capture dump ingested into one session, saved under
+    `--out`, reloaded and tabled."""
+    args = ("--device", "cpu") if mode == "--device" else ("--synthetic",)
+    res = _run("torch_session_compare.py", *args, "--out", str(tmp_path))
+    assert res.returncode == 0, res.stderr[-4000:]
+    for label in ("dp8", "dp4xtp2", "dp2xtp4"):
+        assert re.search(rf"^{label}: \d+ bytes of capture dump, \d+ sites ingested$",
+                         res.stdout, re.M)
+    assert "saved + reloaded 'mesh-layout-sweep'" in res.stdout
+    assert "session comparison (3 traces, by kind_link)" in res.stdout
+    assert "trace diff: 'dp8' -> 'dp2xtp4'" in res.stdout
+    from repro_torch.core.session import TraceSession
+    sess = TraceSession.load(str(tmp_path / "torch_mesh_layout_sweep.npz"))
+    assert sess.labels() == ["dp8", "dp4xtp2", "dp2xtp4"] and sess.ingest_report.ok
+    assert [t.mesh_shape for t in sess] == [(8, 1), (4, 2), (2, 4)]
 
 
 @pytest.mark.parametrize("name", EXAMPLES)

@@ -37,8 +37,8 @@ def test_every_module_imports_without_jax_or_repro():
 
 def test_scan_covers_the_sharding_and_profiler_modules():
     """The walk above reaches the sharding, MoE and profiler modules, and the
-    store, session and synth copies import none of the reference's HLO parser,
-    tracer or watch daemon."""
+    store, session, synth, capture-dump and watch-daemon copies import none of
+    the reference's HLO parser or tracer (the port reads its own captures)."""
     mods = _modules()
     for name in ("repro_torch.scope", "repro_torch.launch.mesh",
                  "repro_torch.distributed.sharding", "repro_torch.distributed.autoshard",
@@ -51,11 +51,12 @@ def test_scan_covers_the_sharding_and_profiler_modules():
                  "repro_torch.core.whatif", "repro_torch.core.synth",
                  "repro_torch.core.report", "repro_torch.core.session",
                  "repro_torch.distributed.ppermute", "repro_torch.distributed.algorithms",
-                 "repro_torch.distributed.pipeline"):
+                 "repro_torch.distributed.pipeline", "repro_torch.core.dump",
+                 "repro_torch.core.watch"):
         assert name in mods, name
-    for name in ("store", "session", "synth"):
+    for name in ("store", "session", "synth", "dump", "watch"):
         text = (PKG / "core" / f"{name}.py").read_text()
-        assert not re.search(r"import .*(hlo_parser|tracer|watch)|(hlo_parser|tracer|watch) import",
+        assert not re.search(r"import .*(hlo_parser|tracer)|(hlo_parser|tracer) import",
                              text), name
 
 
@@ -63,7 +64,8 @@ def test_sources_have_no_jax_or_repro_import():
     examples = sorted((REPO / "examples").glob("torch_*.py"))
     assert {f.name for f in examples} >= {
         "torch_quickstart.py", "torch_detect_misconfig.py", "torch_profile_arch.py",
-        "torch_diff_configs.py", "torch_serve_lm.py", "torch_train_lm.py"}
+        "torch_diff_configs.py", "torch_serve_lm.py", "torch_train_lm.py",
+        "torch_lint_collectives.py", "torch_session_compare.py"}
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"] + examples
     assert len(files) >= 15
     offenders = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
