@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py        # from the repo root, on a machine with one CUDA card
     python3 chip_smoke.py --only kernel   # phases 1-3 alone: build and check the kernels
+    python3 chip_smoke.py --only train    # phases 1-2, then 13-16 and 19 (training, [shard])
 
 Phases (any failure exits non-zero; nothing is caught and skipped):
   1. device  — the card's name and power limit, as nvidia-smi reports them
@@ -64,7 +65,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                   serve driver does; prefill + decode vs forward in fp32
   12. ring    — h2o-danube-3-4b at full width, window cut to 64, 2 layers: ring-cache
                decode against full-cache decode for 80 steps, fp32 (< 2e-5 once wrapped)
-  13-14. training at full width (TRAINS), fp32 master weights, Trainer with
+  13-16. training at full width (TRAINS), fp32 master weights, Trainer with
                StepSettings(accum=2, remat="dots"): the eval step at the step-0 params,
                naive and flash (flash launches K1 once per attention layer and must
                agree with naive within the bf16 limit), a profiler breakdown of one
@@ -74,11 +75,22 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                grad norms must equal the straight run's bit for bit; every loss and grad
                norm finite, the step-0 loss equal to the naive eval's within the bf16
                limit, the resumed checkpoint's count 4 and its params moved.  Step ms,
-               tokens/s, peak GB and the model-FLOP share of the data-sheet peak
+               tokens/s, peak GB and the model-FLOP share of the data-sheet peak.  The
+               SSM and hybrid rows then run again with `ssm_inloop` (each chunk of the
+               training scan discretised inside its checkpoint): the naive and flash
+               evals, a profile of one train step and a straight run of 4 steps under
+               deterministic algorithms; every eval loss and the step-0 loss equal to
+               the flag-off run's bit for bit, every later loss and grad norm within
+               INLOOP_REL, no launch in the steps, and one `[train] <arch> inloop`
+               line of step ms, tokens/s, peak GB and model-FLOP share off and on
                13. qwen2-vl-2b (vlm, 1.78e9 params): 4 x 2048 with 512 patch embeddings,
                    28 tensor-core K1 per flash eval
                14. whisper-tiny: 8 x 448 tokens over 1500 frames, no kernel
-  15. trace   — the sharded train step's collective capture at full width:
+               15. hymba-1.5b (hybrid, 8 of its 32 layers, for time: see TRAINS):
+                   4 x 2048, 8 tensor-core K1 and 8 fused K2 per flash eval
+               16. falcon-mamba-7b (ssm, 4 of its 64 layers, for time): 4 x 2048, 4
+                   fused K2 per flash eval and no K1
+  17. trace   — the sharded train step's collective capture at full width:
                chatglm3-6b (28 layers; its 2 kv heads do not divide `model`, so the
                k/v projections are gathered before their heads split) as rank 0 of
                a (2, 4) ("data", "model") DeviceMesh under the fake process group,
@@ -92,7 +104,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                bytes over `data` equal to the gradients' bytes with `data`
                replicated (worked out from the placements) once per micro-batch
                (the gradients are synchronised in backward), no K1 or K2 launch
-  16. ingest  — live ingest of the card's own captures (host code): the same step
+  18. ingest  — live ingest of the card's own captures (host code): the same step
                captured 3 more times, each trace written with dump.write_capture to
                build/chip_smoke_session/dump/host000_step00{k}.jsonl as the step ends,
                while a WatchDaemon polls the directory from a background thread
@@ -105,27 +117,29 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                rest salvaged); bytes per file, host seconds to write, read + parse
                and fold (per file and per site), the step-end-to-ingest latency and
                the daemon's rounds; no K1 or K2 launch
-  17. shard   — Trainer(mesh=(1, 1)) on a real nccl group of world size 1 against
+  19. shard   — Trainer(mesh=(1, 1)) on a real nccl group of world size 1 against
                the straight Trainer: qwen2-vl-2b at the train phase's shape, 2
                steps each, deterministic algorithms; losses and grad norms within
                a relative 1e-3 (the first loss equal), no kernel launched; and a
                third, straight run with the mesh's vocab-parallel loss formulation
                (the one mesh-only difference in the model's maths), reported
-               against the mesh run bit for bit
-  18. moe     — one qwen3-moe-235b-a22b MoE layer at full width (d_model 4096, 128
+               against the mesh run bit for bit; then the same pair (mesh and
+               straight, the same checks) for hymba-1.5b at full width, 4 of its 32
+               layers, with `ssm_inloop`: the in-loop scan per rank under local_map
+  20. moe     — one qwen3-moe-235b-a22b MoE layer at full width (d_model 4096, 128
                experts, top-8, moe_d_ff 1536), fp32, no-drop capacity factor 16, x of
                2 x 1024 from seed 0, on a one-rank nccl mesh: apply_moe with the sort
                dispatch against the einsum dispatch, output relative 1e-4, aux 1e-5, and
                after a backward of mean(y^2) + 0.01 * aux every gradient finite, non-zero
                and within a relative 1e-4; no kernel launched; each one's forward +
                backward ms (CUDA events) and the peak GB it adds
-  19. moe-trace — qwen3-moe-235b-a22b at full width, 2 of its 94 layers, as rank 0
+  21. moe-trace — qwen3-moe-235b-a22b at full width, 2 of its 94 layers, as rank 0
                of (2, 4) under the fake process group: fp32 master weights and moments,
                accum 2, remat "full", global batch 8 x 2048, captured once with each
                dispatch (a warm-up step, the captured step, a step with the capture
                off); checks: a moe_combine all-reduce on nvlink.model in the sort's
                trace, no all-to-all in either, grad_sync in both, no launch
-  20. session — the back half on the card's own traces: one TraceSession of [trace]'s
+  22. session — the back half on the card's own traces: one TraceSession of [trace]'s
                chatglm3-6b trace, the same re-priced with `data` on InfiniBand and the
                two [moe-trace] captures, saved as json, npz and uncompressed npz under
                build/chip_smoke_session/ and reloaded (the last with mmap) with equal
@@ -134,7 +148,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                IB re-pricing raises cross_node_bulk with the saving `ib_saving` gives);
                the what-if sweep (ib-2x only for the IB variant); HTML and JSON reports;
                host seconds of each step and the files' sizes
-  21. dryrun  — the dry-run (launch/dryrun.py) on the card: (a) fake against real:
+  23. dryrun  — the dry-run (launch/dryrun.py) on the card: (a) fake against real:
                [trace]'s chatglm3-6b step traced again by dryrun.trace_cell on fake
                tensors, and hymba-1.5b's prefill (4 x 2048, bf16, attn "flash") as rank
                0 of (2, 4) under the fake group, run for real (K1 and K2 launched once a
@@ -151,7 +165,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                (fake-run seconds, collectives, bytes, the roofline's terms, dominant,
                mfu_bound, the memory model against 80 GB, fake peak), no decode cell
                gathering its cache, no launch, and a `[dryrun] result` line
-  22. collectives — each all-reduce of distributed/algorithms.py (builtin: c10d's; ring,
+  24. collectives — each all-reduce of distributed/algorithms.py (builtin: c10d's; ring,
                rsag, recursive doubling) as rank 0 of an (8,) ("data",) DeviceMesh under
                the fake process group, on the card, at 4 MiB and 100 MB fp32 and at
                chatglm3-6b's whole bf16 gradient (6.24e9 parameters, 12.49 GB): the
@@ -163,7 +177,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                nvlink.data with group size 8), finite outputs, no kernel launched; the
                rank-local ms (CUDA events), the modelled us on NVLink and with `data` on
                InfiniBand, and costmodel.allreduce_time's closed form beside each
-  23. pipeline — distributed/pipeline.py's GPipe with chatglm3-6b at full width (d_model
+  25. pipeline — distributed/pipeline.py's GPipe with chatglm3-6b at full width (d_model
                4096, 32 heads, 2 KV heads, head dim 128), bf16, seed-0 weights, each stage
                its layers through transformer.apply_layers(attn_impl="flash") on plain
                local tensors: (a) P = 4 over (4,) ("model",), rank 0 under the fake group
@@ -174,13 +188,15 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                fraction, the hop's modelled us on NVLink and with `model` on InfiniBand;
                (b) P = 1 on a one-rank nccl mesh, all 28 layers one stage, M = 4: equal
                bit for bit to the straight apply_layers per micro-batch, 112 K1 launches
-  24. a JSON line of every kernel: K1's bf16 wgmma kernel (at chatglm3-6b's shape; its
+  26. a JSON line of every kernel: K1's bf16 wgmma kernel (at chatglm3-6b's shape; its
                variants at gemma3-4b's global and hymba-1.5b's rank shard shapes), K1's
                3xTF32 fp32 kernel (at hymba-1.5b's fp32 mesh prefill's global shape; also
                gemma3-4b's fp32 check's and the windowed one), and K2 (the fused entry
                point at falcon-mamba-7b's shape; both entry points as variants), each
                with its main-path launches; then the JSON result line.
-With `--only kernel` it stops after phase 3 and prints no result line.
+With `--only kernel` it stops after phase 3 and prints no result line; with `--only
+train` it builds the kernels, runs the train phases and [shard], and prints no
+result line.
 Each model's weights are freed before the next model is built.  Without a CUDA
 device, or outside a checkout of the repo, it exits non-zero and prints no result.
 """
@@ -302,12 +318,27 @@ MODELS = [
     Model("whisper-tiny", 4, 64, ("auto",), (4, 64), {}),
 ]
 # training at full width: arch, batch and sequence length, steps, the step of the
-# checkpoint the resume starts from, and K1's launches per flash eval (one per
-# attention layer; whisper's attention is always `auto`, so none)
-Train = namedtuple("Train", "arch B S steps ckpt_at per_eval")
+# checkpoint the resume starts from, each kernel's launches per flash eval (K1 one
+# per attention layer, whisper's attention is always `auto`, so none; the fused K2
+# one per SSM layer) and, where cut, the depth.  The SSM and hybrid rows are cut
+# for time: their train step runs the plain chunked scan, whose many small ops
+# leave it host-bound (on the H100 at 4 x 2048: hymba-1.5b 17.1 s a step at 32
+# layers, 4.1 s at 8; falcon-mamba-7b 2.7 s at 4), and each row runs ~18 steps
+# (falcon-mamba-7b's 64 layers would not fit 80 GB in any case: ~116 GB of fp32
+# weights, gradients and AdamW moments)
+Train = namedtuple("Train", "arch B S steps ckpt_at per_eval depth", defaults=(None,))
 TRAINS = [Train("qwen2-vl-2b", 4, 2048, 4, 2,
                 {"flash_attention": 28, "flash_attention/tensor_core": 28}),
-          Train("whisper-tiny", 8, 448, 4, 2, {})]
+          Train("whisper-tiny", 8, 448, 4, 2, {}),
+          Train("hymba-1.5b", 4, 2048, 4, 2,
+                {"flash_attention": 8, "flash_attention/tensor_core": 8, "mamba_scan": 8,
+                 "mamba_scan/fused": 8}, depth=8),
+          Train("falcon-mamba-7b", 4, 2048, 4, 2, {"mamba_scan": 4, "mamba_scan/fused": 4},
+                depth=4)]
+# the SSM and hybrid rows run again with `ssm_inloop`: its evals and step-0 loss
+# equal the flag-off run's bit for bit, every later loss and grad norm within this
+# relative limit (the in-loop backward sums A's gradient chunk by chunk)
+INLOOP_REL = 1e-4
 # bf16 results against each other: the parity tests' bf16 limit (relative)
 BF16_REL = 0.02
 CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
@@ -318,8 +349,11 @@ N_DECODE = 16
 # the traced step: chatglm3-6b at full width on a (2, 4) mesh under the fake
 # process group, global batch x sequence, accum 2, remat "full"
 TRACE = dict(arch="chatglm3-6b", mesh=(2, 4), B=8, S=2048)
-# the one-card mesh against the straight Trainer: the first TRAINS row's shape
+# the one-card mesh against the straight Trainer: the first TRAINS row's shape;
+# then hymba-1.5b at full width and 4 of its 32 layers with `ssm_inloop` (the
+# in-loop scan per rank under local_map) at the same shape
 SHARD_REL = 1e-3
+SHARD_INLOOP = dict(arch="hymba-1.5b", layers=4)
 # one qwen3-moe-235b-a22b MoE layer at full width (d_model 4096, 128 experts, top-8,
 # moe_d_ff 1536), fp32, at the no-drop capacity E/k, on a one-rank nccl mesh: the
 # sort dispatch against the einsum dispatch.  Its sort buffer [E*C + 1, D] with
@@ -462,6 +496,9 @@ def device_breakdown(torch, fn, host=False):
     in which no kernel ran; top_other lists the five kernels of the "other"
     group with the most time.  With `host`, also the five host-side entries
     with the most self CPU time (ms; the profiler's own cost inflates them).
+    The device side reads the profiler's raw events: building its event
+    tree (`prof.events()`, which `host` needs) takes tens of seconds for a
+    step of ~10^5 ops, such as an SSM train step.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -472,11 +509,12 @@ def device_breakdown(torch, fn, host=False):
     groups = {"flash_attention": 0.0, "mamba_scan": 0.0, "matmul": 0.0, "elementwise": 0.0,
               "other": 0.0}
     starts, ends, other = [], [], {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
             continue
-        dur = e.time_range.elapsed_us() / 1e3
-        name = e.name.lower()
+        dur = e.duration_ns() / 1e6
+        full = e.name()
+        name = full.lower()
         if "flash_fwd" in name:     # flash_fwd_wgmma_kernel and flash_fwd_tf32x3_kernel
             groups["flash_attention"] += dur
         elif "mamba_scan" in name:        # both K2 kernels
@@ -487,12 +525,12 @@ def device_breakdown(torch, fn, host=False):
             groups["elementwise"] += dur
         else:
             groups["other"] += dur
-            other[e.name[:80]] = other.get(e.name[:80], 0.0) + dur
-        starts.append(e.time_range.start)
-        ends.append(e.time_range.end)
+            other[full[:80]] = other.get(full[:80], 0.0) + dur
+        starts.append(e.start_ns())
+        ends.append(e.start_ns() + e.duration_ns())
     check(starts, "profiler saw no device activity")
     busy = sum(groups.values())
-    span = (max(ends) - min(starts)) / 1e3
+    span = (max(ends) - min(starts)) / 1e6
     top = sorted(other.items(), key=lambda kv: -kv[1])[:5]
     out = dict(busy_ms=busy, span_ms=span, idle_share=1 - busy / span,
                **{f"{k}_ms": v for k, v in groups.items()},
@@ -879,30 +917,39 @@ def train_model(rt, spec):
     eval and of the straight run (every count 0), the two paths of this phase."""
     torch, api = rt.torch, rt.api
     cfg = rt.get_config(spec.arch)
+    full_depth = cfg.num_layers
+    if spec.depth:
+        cfg = cfg.replace(num_layers=spec.depth, window_pattern=cfg.window_pattern[:spec.depth])
     settings = rt.StepSettings(accum=2, remat="dots")
     tokens = spec.B * spec.S
     n_flops = api.flops_param_count(cfg)
 
-    def trainer(steps, **kw):
-        return rt.Trainer(cfg, steps=steps, batch=spec.B, seq=spec.S, settings=settings,
+    def trainer(steps, c=cfg, **kw):
+        return rt.Trainer(c, steps=steps, batch=spec.B, seq=spec.S, settings=settings,
                           log_every=1, **kw)
 
+    def run_evals(c, params, batch):
+        evals, launches = {}, {}
+        for impl in ("naive", "flash"):
+            zero_counts(rt.counters)
+            t0 = time.perf_counter()
+            evals[impl] = float(rt.make_eval_step(c, rt.StepSettings(attn_impl=impl))(
+                params, batch))
+            torch.cuda.synchronize()
+            launches[impl] = read_counts(rt.counters)
+            print(f"[train] {cfg.name}{' inloop' if c.ssm_inloop else ''} eval {impl}: loss "
+                  f"{evals[impl]:.6f} in {(time.perf_counter() - t0) * 1e3:.1f} ms (cold), "
+                  f"launches {launches[impl]}")
+        return evals, launches
+
     print(f"[train] {cfg.name}: {api.param_count(cfg) / 1e9:.3f}B params in fp32 "
-          f"({n_flops / 1e9:.3f}B in the model-FLOP count), B={spec.B} S={spec.S}, "
-          f"accum 2, remat dots, AdamW with fp32 moments")
+          f"({n_flops / 1e9:.3f}B in the model-FLOP count), {cfg.num_layers} of {full_depth} "
+          f"layers{' (reduced depth)' if spec.depth else ''}, "
+          f"B={spec.B} S={spec.S}, accum 2, remat dots, AdamW with fp32 moments")
     tr = trainer(spec.steps)
     params, opt, _ = tr.init_state(0)
     batch = rt.to_device(tr.data.batch_at(0), "cuda")
-    evals, eval_launches = {}, {}
-    for impl in ("naive", "flash"):
-        zero_counts(rt.counters)
-        t0 = time.perf_counter()
-        evals[impl] = float(rt.make_eval_step(cfg, rt.StepSettings(attn_impl=impl))(
-            params, batch))
-        torch.cuda.synchronize()
-        eval_launches[impl] = read_counts(rt.counters)
-        print(f"[train] {cfg.name} eval {impl}: loss {evals[impl]:.6f} in "
-              f"{(time.perf_counter() - t0) * 1e3:.1f} ms (cold), launches {eval_launches[impl]}")
+    evals, eval_launches = run_evals(cfg, params, batch)
     want = {name: spec.per_eval.get(name, 0) for name in read_counts(rt.counters)}
     check(eval_launches["flash"] == want, f"{cfg.name} flash eval launches "
                                           f"{eval_launches['flash']}, want {want}")
@@ -925,7 +972,9 @@ def train_model(rt, spec):
         step_fn_ms[remat] = (time.perf_counter() - t0) * 1e3
     print(f"[train] {cfg.name} one step's data {data_ms:.1f} ms (host); the step function "
           f"alone, remat dots {step_fn_ms['dots']:.1f} ms, full {step_fn_ms['full']:.1f} ms")
-    prof = device_breakdown(torch, lambda: tr.step_fn(params, opt, batch), host=True)
+    # (no host-side table for the SSM and hybrid steps: see device_breakdown)
+    prof = device_breakdown(torch, lambda: tr.step_fn(params, opt, batch),
+                            host=cfg.family not in ("ssm", "hybrid"))
     print(f"[profile] {cfg.name} train step " + json.dumps(prof))
     del params, opt, batch, tr
     torch.cuda.empty_cache()
@@ -976,8 +1025,8 @@ def train_model(rt, spec):
     torch.cuda.empty_cache()
     warm = [m["sec"] for m in log_a[1:]]
     step_s = sum(warm) / len(warm)
-    res = dict(arch=cfg.name, B=spec.B, S=spec.S, steps=spec.steps, accum=2, remat="dots",
-               step_ms=step_s * 1e3, cold_step_ms=log_a[0]["sec"] * 1e3,
+    res = dict(arch=cfg.name, layers=cfg.num_layers, B=spec.B, S=spec.S, steps=spec.steps,
+               accum=2, remat="dots", step_ms=step_s * 1e3, cold_step_ms=log_a[0]["sec"] * 1e3,
                tok_s=tokens / step_s, peak_gb=peak_gb,
                model_tflops=6 * n_flops * tokens / step_s / 1e12,
                model_flop_share=6 * n_flops * tokens / step_s / PEAK_FLOPS["bfloat16"],
@@ -987,6 +1036,65 @@ def train_model(rt, spec):
                data_ms=data_ms, step_fn_ms=step_fn_ms,
                launches_train=train_launches, launches_flash_eval=eval_launches["flash"])
     print(f"[train] {cfg.name} result " + json.dumps(res))
+    launches = {name: eval_launches["flash"][name] + train_launches[name]
+                for name in train_launches}
+    if cfg.family in ("ssm", "hybrid"):
+        for name, n in train_inloop(rt, spec, cfg, trainer, run_evals, res, want).items():
+            launches[name] += n
+    return launches
+
+
+def train_inloop(rt, spec, cfg, trainer, run_evals, off, want):
+    """The SSM or hybrid row again with `ssm_inloop`: the naive and flash evals at
+    the step-0 params, a profile of one train step and a straight run under
+    deterministic algorithms, held against the flag-off run `off` (see INLOOP_REL);
+    step ms, tokens/s, peak GB and model-FLOP share beside the flag-off ones.
+    Returns the launches of its flash eval and straight run."""
+    torch, api = rt.torch, rt.api
+    icfg = cfg.replace(ssm_inloop=True)
+    tokens, n_flops = spec.B * spec.S, api.flops_param_count(cfg)
+    tr = trainer(spec.steps, c=icfg)
+    params, opt, _ = tr.init_state(0)
+    batch = rt.to_device(tr.data.batch_at(0), "cuda")
+    evals, eval_launches = run_evals(icfg, params, batch)
+    check(eval_launches["flash"] == want, f"{cfg.name} inloop flash eval launches "
+                                          f"{eval_launches['flash']}, want {want}")
+    check(evals == {"naive": off["eval_naive"], "flash": off["eval_flash"]},
+          f"{cfg.name} inloop evals {evals} != flag-off {off['eval_naive']}, "
+          f"{off['eval_flash']}")
+    prof = device_breakdown(torch, lambda: tr.step_fn(params, opt, batch))
+    print(f"[profile] {cfg.name} inloop train step " + json.dumps(prof))
+    del params, opt, batch, tr
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(True)
+    try:
+        zero_counts(rt.counters)
+        torch.cuda.reset_peak_memory_stats()
+        log = trainer(spec.steps, c=icfg).run()
+        train_launches = read_counts(rt.counters)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+    check(all(n == 0 for n in train_launches.values()),
+          f"{cfg.name} inloop train steps launched kernels: {train_launches}")
+    check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in log),
+          f"{cfg.name} inloop: non-finite loss or grad norm")
+    check(log[0]["loss"] == off["losses"][0],
+          f"{cfg.name} inloop step-0 loss {log[0]['loss']} != flag-off {off['losses'][0]}")
+    worst = max(abs(m[k] - ref) / abs(ref) for m, ref_l, ref_g in
+                zip(log, off["losses"], off["grad_norms"])
+                for k, ref in (("loss", ref_l), ("grad_norm", ref_g)))
+    check(worst < INLOOP_REL, f"{cfg.name} inloop vs flag-off: {worst}")
+    step_s = sum(m["sec"] for m in log[1:]) / (len(log) - 1)
+    on = dict(step_ms=step_s * 1e3, tok_s=tokens / step_s, peak_gb=peak_gb,
+              model_flop_share=6 * n_flops * tokens / step_s / PEAK_FLOPS["bfloat16"])
+    res = dict(arch=cfg.name, layers=cfg.num_layers, B=spec.B, S=spec.S, steps=spec.steps,
+               off={k: off[k] for k in on}, on=on,
+               losses=[m["loss"] for m in log], grad_norms=[m["grad_norm"] for m in log],
+               max_rel_to_off=worst, evals_bitwise=True, step0_bitwise=True,
+               launches_train=train_launches, launches_flash_eval=eval_launches["flash"])
+    print(f"[train] {cfg.name} inloop result " + json.dumps(res))
     return {name: eval_launches["flash"][name] + train_launches[name] for name in train_launches}
 
 
@@ -1264,21 +1372,29 @@ def shard_phase(rt):
     module's docstring), and the witness: the straight Trainer with the mesh's
     vocab-parallel loss formulation on plain tensors, which must give the
     mesh's readings bit for bit when that formulation is the whole of the
-    difference.  Returns its launches (every count 0)."""
+    difference; then SHARD_INLOOP's pair.  Returns its launches (every count 0)."""
     torch, spec, losses = rt.torch, TRAINS[0], rt.losses
     cfg = rt.get_config(spec.arch)
     os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(free_port()), RANK="0",
                       WORLD_SIZE="1")
+    inloop = SHARD_INLOOP
+    icfg = rt.get_config(inloop["arch"])
+    icfg = icfg.replace(num_layers=inloop["layers"], ssm_inloop=True,
+                        window_pattern=icfg.window_pattern[:inloop["layers"]])
     settings = rt.StepSettings(accum=2, remat="dots")
     logs = {}
     plain_pick = losses._lse_and_target
     zero_counts(rt.counters)
     torch.use_deterministic_algorithms(True)
     try:
-        for name, mesh in (("straight", None), ("mesh 1x1", (1, 1)), ("witness", None)):
+        for name, c, mesh in (("straight", cfg, None), ("mesh 1x1", cfg, (1, 1)),
+                              ("witness", cfg, None), ("inloop straight", icfg, None),
+                              ("inloop mesh 1x1", icfg, (1, 1))):
             if name == "witness":
                 losses._lse_and_target = losses._lse_and_target_vocab_parallel
-            tr = rt.Trainer(cfg, steps=2, batch=spec.B, seq=spec.S, settings=settings,
+            else:
+                losses._lse_and_target = plain_pick
+            tr = rt.Trainer(c, steps=2, batch=spec.B, seq=spec.S, settings=settings,
                             log_every=1, mesh=mesh)
             logs[name] = tr.run()
             del tr
@@ -1294,19 +1410,28 @@ def shard_phase(rt):
     def same(a, b):
         return all(x["loss"] == y["loss"] and x["grad_norm"] == y["grad_norm"]
                    for x, y in zip(a, b))
-    pairs = list(zip(logs["straight"], logs["mesh 1x1"]))
-    worst = max(max(abs(a[k] - b[k]) / abs(a[k]) for k in ("loss", "grad_norm"))
-                for a, b in pairs)
+
+    def worst(a, b):
+        return max(max(abs(x[k] - y[k]) / abs(x[k]) for k in ("loss", "grad_norm"))
+                   for x, y in zip(a, b))
+    rows = {k.replace(" ", "_"): [(m["loss"], m["grad_norm"], m["sec"] * 1e3) for m in v]
+            for k, v in logs.items()}
     res = dict(arch=cfg.name, B=spec.B, S=spec.S, steps=2, accum=2, remat="dots",
-               **{k.replace(" ", "_"): [(m["loss"], m["grad_norm"], m["sec"] * 1e3)
-                                         for m in v] for k, v in logs.items()},
-               bitwise=same(logs["straight"], logs["mesh 1x1"]), max_rel=worst,
+               **{k: v for k, v in rows.items() if not k.startswith("inloop")},
+               bitwise=same(logs["straight"], logs["mesh 1x1"]),
+               max_rel=worst(logs["straight"], logs["mesh 1x1"]),
                witness_bitwise_to_mesh=same(logs["witness"], logs["mesh 1x1"]),
+               inloop=dict(arch=icfg.name, layers=icfg.num_layers, ssm_inloop=True,
+                           **{k: v for k, v in rows.items() if k.startswith("inloop")},
+                           bitwise=same(logs["inloop straight"], logs["inloop mesh 1x1"]),
+                           max_rel=worst(logs["inloop straight"], logs["inloop mesh 1x1"])),
                launches=launches)
     print("[shard] result " + json.dumps(res))
     check(all(n == 0 for n in launches.values()), f"sharded steps launched kernels {launches}")
-    check(pairs[0][0]["loss"] == pairs[0][1]["loss"], "step-0 losses differ")
-    check(worst < SHARD_REL, f"mesh 1x1 vs straight: {worst}")
+    for pre, r in (("", res), ("inloop ", res["inloop"])):
+        check(logs[pre + "straight"][0]["loss"] == logs[pre + "mesh 1x1"][0]["loss"],
+              f"{pre}step-0 losses differ")
+        check(r["max_rel"] < SHARD_REL, f"{pre}mesh 1x1 vs straight: {r['max_rel']}")
     return launches
 
 
@@ -1994,9 +2119,10 @@ def kernels_line(main_launches, variant_path, scan_variants):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="drive the port on one CUDA card")
-    ap.add_argument("--only", choices=("kernel",), default=None,
-                    help="stop after the kernels' phase (build, and each kernel "
-                         "against its plain version with its times)")
+    ap.add_argument("--only", choices=("kernel", "train"), default=None,
+                    help="kernel: stop after the kernels' phase (build, and each kernel "
+                         "against its plain version with its times); train: build, then "
+                         "the train phases and [shard] alone")
     args = ap.parse_args(argv)
     # a fixed cuBLAS workspace, set before cuBLAS starts: the train phase's
     # deterministic algorithms require it (32 MiB, H100's default size in PyTorch)
@@ -2085,6 +2211,14 @@ def main(argv=None) -> int:
         for entry in spilling(report):
             check("wgmma" not in entry, f"ptxas reports spills in {entry}")
 
+    if args.only == "train":
+        for spec in TRAINS:
+            train_model(rt, spec)
+        shard_phase(rt)
+        print(f"[done] train phases only, {time.perf_counter() - t_start:.1f}s")
+        print(smi)
+        return 0
+
     # 3. kernels vs plain versions
     results = [flash_case(torch, F, fa, ref, case, seed=i) for i, case in enumerate(FLASH_CASES)]
     results.append(flash_case(torch, F, fa, ref, (1, 2, 2, 256, 128, True, 0, "float32", 2e-5),
@@ -2148,45 +2282,62 @@ def main(argv=None) -> int:
         print(smi)
         return 0
 
+    t_lap = [t_start]
+
+    def lap(name):
+        """Print the seconds since the last lap: the phases' share of the time limit."""
+        now = time.perf_counter()
+        print(f"[time] {name}: {now - t_lap[0]:.1f}s")
+        t_lap[0] = now
+
+    lap("build and kernels")
     # 4-11. the models at full width, one at a time
     main_launches = {kname: 0 for kname in read_counts(counters)}
     for model in MODELS:
         for kname, n in serve_model(rt, model).items():
             main_launches[kname] += n
+    lap("serve")
 
     # 12. the ring cache
     ring_cache(rt)
+    lap("ring")
 
-    # 13-14. training at full width
+    # 13-16. training at full width
     print(f"[train] checkpoints under {CKPT_DIR}; disk free "
           f"{shutil.disk_usage(CKPT_DIR.parent if CKPT_DIR.parent.exists() else '.').free / 1e9:.0f} GB")
     for spec in TRAINS:
         for kname, n in train_model(rt, spec).items():
             main_launches[kname] += n
+        lap(f"train {spec.arch}")
 
-    # 15-19. the sharded train step: its capture, live ingest of its captures, and
+    # 17-21. the sharded train step: its capture, live ingest of its captures, and
     # one card's mesh against the straight Trainer; the MoE sort dispatch against the einsum dispatch, and
     # the captures of a sharded MoE step with each
     for phase in (trace_phase, ingest_phase, shard_phase, moe_phase, moe_trace_phase):
         for kname, n in phase(rt).items():
             main_launches[kname] += n
+        lap(phase.__name__)
 
-    # 20. the profiler's back half on the card's own traces
+    # 22. the profiler's back half on the card's own traces
     session_phase(rt)
+    lap("session_phase")
 
-    # 21. the dry-run: fake against real, the prefill on a mesh, the production cells
+    # 23. the dry-run: fake against real, the prefill on a mesh, the production cells
     for kname, n in dryrun_phase(rt).items():
         main_launches[kname] += n
+    lap("dryrun_phase")
 
-    # 22-23. the all-reduce algorithms' captures; the GPipe pipeline of chatglm3-6b's layers
+    # 24-25. the all-reduce algorithms' captures; the GPipe pipeline of chatglm3-6b's layers
     collectives_phase(rt)
+    lap("collectives_phase")
     for kname, n in pipeline_phase(rt).items():
         main_launches[kname] += n
+    lap("pipeline_phase")
 
-    # 24. results: launches are the main paths' (every MODELS row's two prefills, each
-    # train phase's flash eval and straight run, the dry-run's three real prefills on a
-    # mesh, the pipeline's two runs; the sharded, MoE, fake and collective steps launch
-    # none)
+    # 26. results: launches are the main paths' (every MODELS row's two prefills, each
+    # train phase's flash eval and straight run, with `ssm_inloop` too, the dry-run's
+    # three real prefills on a mesh, the pipeline's two runs; the sharded, MoE, fake and
+    # collective steps launch none)
     print(f"[done] main-path launches {main_launches}")
 
     kernels = kernels_line(main_launches, variant_path, scan_variants)

@@ -106,6 +106,22 @@ _TIMELINE_HEAD = (f"{'t_start_us':>10s} {'dur_us':>9s} {'x':>5s} {'kind':18s} "
                   f"{'link':16s} {'semantic':14s} scope")
 
 
+def ascii_matrix(mat: np.ndarray, labels: Optional[List[str]] = None) -> str:
+    """A square matrix as rows of shade characters, each cell scaled to the
+    matrix's largest value (" " none, "@" the largest); `labels` name the
+    rows (default: their indices)."""
+    n = mat.shape[0]
+    labels = labels or [str(i) for i in range(n)]
+    peak = mat.max() or 1.0
+    shades = " .:-=+*#%@"
+    out = []
+    for i in range(n):
+        row = "".join(shades[min(int(mat[i, j] / peak * (len(shades) - 1)),
+                                 len(shades) - 1)] for j in range(n))
+        out.append(f"{labels[i]:>6s} |{row}|")
+    return "\n".join(out)
+
+
 def timeline(trace: Trace, top: int = 30) -> str:
     """Modeled serialized schedule of the heaviest collectives (Fig 3a)."""
     lines = [_TIMELINE_HEAD]

@@ -167,6 +167,21 @@ def _site_codes(store: TraceStore) -> Tuple[np.ndarray, List[str]]:
     return store._join_codes((store.op_name, store.kind))
 
 
+def site_deltas(base: TraceStore, alt: TraceStore) -> Dict[str, float]:
+    """Per-site `est_time_s` change (alt - base), multiplicity-weighted.
+
+    `alt` must be a re-annotation of `base`'s rows (same row order).
+    Antisymmetric by construction: `site_deltas(a, b)[k] ==
+    -site_deltas(b, a)[k]` for every site key `k`.
+    """
+    if base.n == 0:
+        return {}
+    codes, labels = _site_codes(base)
+    d = (alt.est_time_s - base.est_time_s) * base.weights
+    sums = np.bincount(codes, weights=d, minlength=len(labels))
+    return {lab: float(sums[i]) for i, lab in enumerate(labels)}
+
+
 def _site_times(store: TraceStore) -> Tuple[List[str], np.ndarray]:
     codes, labels = _site_codes(store)
     t = np.bincount(codes, weights=store.est_time_s * store.weights,

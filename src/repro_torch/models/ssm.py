@@ -14,14 +14,19 @@ differentiable scan in plain PyTorch on a_bar and bx, chunked as the
 reference's (`scan_chunked`: an associative scan within chunks of 256
 steps, the state carried from chunk to chunk, each chunk recomputed in
 backward), not the kernel's sequential plain version, whose S Python steps
-a step on a mesh would dispatch one by one.
+a step on a mesh would dispatch one by one.  With `cfg.ssm_inloop` the plain
+path discretises inside each chunk instead, as the reference's in-loop scan
+does (`scan_inloop`): autograd then keeps delta, x, B and C ([B, S, di] and
+[B, S, N]) and the carried states, and no [B, S, di, N] tensor or gradient
+outlives one chunk.  The kernel path is already that form, whatever the flag.
 
-On a mesh (DTensor inputs) either scan runs per rank under `local_map`:
-the fused kernel on delta, x and A sharded on the channel dim `di` over
-`model` (`_fused_local`), the plain scan on a_bar and bx sharded so
-(`_scan_local`), as `in_proj` and the `ssm` cache shard the channels; B and
-C are whole over `model`.  The recurrence is independent per (b, d, n), so
-each rank's scan of its own channels is exact and needs no collective.
+On a mesh (DTensor inputs) each scan runs per rank under `local_map`:
+the fused kernel and the in-loop scan on delta, x and A sharded on the
+channel dim `di` over `model` (`_params_local`), the plain scan on a_bar
+and bx sharded so (`_scan_local`), as `in_proj` and the `ssm` cache shard
+the channels; B and C are whole over `model`.  The recurrence
+is independent per (b, d, n), so each rank's scan of its own channels is
+exact and needs no collective.
 
 Decode carries (conv_state [B, d_conv-1, d_inner] fp32, ssm_state
 [B, d_inner, N] fp32).
@@ -83,6 +88,14 @@ def _ssm_params(cfg, p, xc):
     return delta, a, b_ssm.float(), c_ssm.float()
 
 
+def _discretise(delta, x, a, b):
+    """a_bar = exp(delta * A) and bx = (delta * x) * B, [B,S,di,N] fp32, from
+    delta and x [B,S,di] (x fp32), A [di,N] and B [B,S,N]."""
+    a_bar = (delta[..., None] * a).exp_()
+    bx = (delta * x)[..., None] * b[..., None, :]
+    return a_bar, bx
+
+
 def _ssm_inputs(cfg, p, xc):
     """Common pre-scan computation. xc [B, S, di] (post-conv, post-silu).
 
@@ -90,9 +103,7 @@ def _ssm_inputs(cfg, p, xc):
       a_bar [B,S,di,N] = exp(delta * A), bx [B,S,di,N], c [B,S,N].
     """
     delta, a, b, c = _ssm_params(cfg, p, xc)
-    a_bar = (delta[..., None] * a).exp_()                        # [B,S,di,N]
-    bx = (delta * xc.float())[..., None] * b[..., None, :]
-    return a_bar, bx, c
+    return (*_discretise(delta, xc.float(), a, b), c)
 
 
 def _conv1d_causal(cfg, p, x, conv_state=None):
@@ -114,19 +125,60 @@ def _conv1d_causal(cfg, p, x, conv_state=None):
 SCAN_CHUNK = 256          # the reference's `apply_ssm(chunk=256)`
 
 
+def _combine(a1, b1, a2, b2):
+    """The recurrence's associative combine, (a1, b1) . (a2, b2) = (a1 a2, a2 b1 + b2)."""
+    return a1 * a2, a2 * b1 + b2
+
+
+def _interleave(even, odd):
+    """even[:, 0], odd[:, 0], even[:, 1], ... along dim 1 (even as long as odd
+    or one longer)."""
+    n = odd.shape[1]
+    out = torch.stack([even[:, :n], odd], dim=2).flatten(1, 2)
+    return out if even.shape[1] == n else torch.cat([out, even[:, n:]], dim=1)
+
+
+def _assoc_scan(a, b):
+    """The inclusive scan of `_combine` along dim 1, as `jax.lax.associative_scan`
+    computes it (the reference's): adjacent pairs combined, their scan taken
+    recursively, the even positions filled in from it.  O(C) work in log2(C)
+    levels, against C log2(C) for doubling."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    odd_a, odd_b = _assoc_scan(*_combine(a[:, 0:-1:2], b[:, 0:-1:2], a[:, 1::2], b[:, 1::2]))
+    k = odd_a.shape[1] - (n % 2 == 0)
+    even_a, even_b = _combine(odd_a[:, :k], odd_b[:, :k], a[:, 2::2], b[:, 2::2])
+    return (_interleave(torch.cat([a[:, :1], even_a], dim=1), odd_a),
+            _interleave(torch.cat([b[:, :1], even_b], dim=1), odd_b))
+
+
 def _chunk_scan(a, bx, c, h0):
     """One chunk, as the reference's `_chunk_scan`: the associative combine
-    (a1, b1) . (a2, b2) = (a1 a2, a2 b1 + b2) scanned along the chunk by
-    Hillis-Steele doubling (log2(C) steps), the carried state h0 (None
-    before the first chunk) applied, then the readout.  Returns (y, the
-    chunk's last state, apart from the chunk's storage)."""
-    C, off = a.shape[1], 1
-    while off < C:
-        bx = torch.cat([bx[:, :off], a[:, off:] * bx[:, :-off] + bx[:, off:]], dim=1)
-        a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
-        off *= 2
+    scanned along the chunk (`_assoc_scan`), the carried state h0 (None before
+    the first chunk) applied, then the readout.  Returns (y, the chunk's last
+    state, apart from the chunk's storage)."""
+    a, bx = _assoc_scan(a, bx)
     h = bx if h0 is None else a * h0[:, None] + bx
     return torch.einsum("bsdn,bsn->bsd", h, c), h[:, -1].clone()
+
+
+def _carried(chunk_fn, per_step, fixed, return_state, chunk):
+    """`chunk_fn(*per_step chunks, *fixed, h)` over chunks of `chunk` steps
+    (halved until it divides S), the state carried from chunk to chunk, each
+    chunk under `torch.utils.checkpoint`; the chunks' y concatenated."""
+    S = per_step[0].shape[1]
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk //= 2
+    h, ys = None, []
+    for s0 in range(0, S, chunk):
+        part = slice(s0, s0 + chunk)
+        y, h = checkpoint(chunk_fn, *(t[:, part] for t in per_step), *fixed, h,
+                          use_reentrant=False, preserve_rng_state=False)
+        ys.append(y)
+    y = torch.cat(ys, dim=1)
+    return (y, h) if return_state else y
 
 
 def scan_chunked(a_bar, bx, c, *, return_state=False, chunk=SCAN_CHUNK):
@@ -135,20 +187,22 @@ def scan_chunked(a_bar, bx, c, *, return_state=False, chunk=SCAN_CHUNK):
     `chunk` steps (halved until it divides S), each an associative scan, the
     state carried between them.  Each chunk runs under
     `torch.utils.checkpoint`, so autograd keeps its inputs and carried state
-    and backward recomputes its doubling levels, one chunk at a time: about
-    the memory of the sequential loop, not 2 log2(chunk) [B, S, Di, N]."""
-    S = a_bar.shape[1]
-    chunk = min(chunk, S)
-    while S % chunk:
-        chunk //= 2
-    h, ys = None, []
-    for s0 in range(0, S, chunk):
-        part = slice(s0, s0 + chunk)
-        y, h = checkpoint(_chunk_scan, a_bar[:, part], bx[:, part], c[:, part], h,
-                          use_reentrant=False, preserve_rng_state=False)
-        ys.append(y)
-    y = torch.cat(ys, dim=1)
-    return (y, h) if return_state else y
+    and backward recomputes its scan, one chunk at a time: about the memory
+    of the sequential loop, not the scan's levels over the whole sequence."""
+    return _carried(_chunk_scan, (a_bar, bx, c), (), return_state, chunk)
+
+
+def _discretised_chunk(delta, x, b, c, a, h0):
+    return _chunk_scan(*_discretise(delta, x, a, b), c, h0)
+
+
+def scan_inloop(delta, x, a, b, c, *, return_state=False, chunk=SCAN_CHUNK):
+    """`scan_chunked` of `_discretise(delta, x, a, b)` and c, each chunk's a_bar
+    and bx made inside its checkpoint (the reference's `ssm_inloop`): autograd
+    keeps delta, x [B,S,di], b, c [B,S,N], A and the carried states, and
+    backward makes one chunk's [B, C, di, N] terms at a time.  The same
+    function as the whole-sequence discretisation, element by element."""
+    return _carried(_discretised_chunk, (delta, x, b, c), (a,), return_state, chunk)
 
 
 def _scan_local(scan_fn, a_bar, bx, c, return_state):
@@ -173,23 +227,43 @@ def _scan_local(scan_fn, a_bar, bx, c, return_state):
                      device_mesh=mesh)(a_bar, bx, c)
 
 
-def _fused_local(delta, x, a, b, c, return_state):
-    """`kops.mamba_scan_fused` on each rank's shards of DTensor delta and x
-    (batch over the data axes, di over `model`), A (di over `model`), and B
-    and C (batch alone): see the module's docstring.  Forward only."""
+def _as_placed(t, placements):
+    """DTensor t on `placements`: as it is where it has them already, so that
+    its gradient leaves as autograd makes it, else through `constrain_to`."""
+    return t if tuple(t.placements) == tuple(placements) else constrain_to(t, placements)
+
+
+def _params_local(scan_fn, delta, x, a, b, c, return_state, grads=False):
+    """`scan_fn(delta, x, a, b, c, return_state=...)` on each rank's shards of
+    DTensor delta and x (batch over the data axes, di over `model`), A (di
+    over `model`), and B and C (batch alone): see the module's docstring.
+    With `grads`, the gradients' placements: A's and B's and C's are partial
+    over the axes their forward placements leave whole but the scan splits
+    (A's over the batch's, B's and C's over di's).  delta, x and C are
+    constrained as `_scan_local` constrains a_bar, bx and c; A and B, which
+    the whole-sequence path discretises outside its `local_map`, keep their
+    placements, so their partial gradients are reduced where that path
+    reduces them (A's with its parameter's gradient, B's with the x_proj
+    product's): the in-loop step makes the same collectives."""
     mesh = current_mesh() or delta.device_mesh
     d_pl = role_placements(delta.shape, ("batch", None, "model")) or \
         (Replicate(),) * mesh.ndim
     a_pl = tuple(Shard(0) if pl.is_shard(2) else Replicate() for pl in d_pl)
     bc_pl = tuple(pl if pl.is_shard(0) else Replicate() for pl in d_pl)
-    ins = [constrain_to(t, pl) for t, pl in
-           ((delta, d_pl), (x, d_pl), (a, a_pl), (b, bc_pl), (c, bc_pl))]
+    ins = [constrain_to(delta, d_pl), constrain_to(x, d_pl), _as_placed(a, a_pl),
+           _as_placed(b, bc_pl), constrain_to(c, bc_pl)]
     h_pl = tuple(Shard(1) if pl.is_shard(2) else pl for pl in d_pl)   # [B, di, N]
+    kw = {}
+    if grads:
+        a_grad = tuple(Partial() if d.is_shard(0) else a for d, a in zip(d_pl, a_pl))
+        bc_grad = tuple(Partial() if d.is_shard(2) else pl for d, pl in zip(d_pl, bc_pl))
+        kw["in_grad_placements"] = (d_pl, d_pl, a_grad, bc_grad, bc_grad)
 
     def core(dl, xl, al, bl, cl):
-        return kops.mamba_scan_fused(dl, xl, al, bl, cl, return_state=return_state)
+        return scan_fn(dl, xl, al, bl, cl, return_state=return_state)
     return local_map(core, out_placements=(list(d_pl), list(h_pl)) if return_state else list(d_pl),
-                     in_placements=(d_pl, d_pl, a_pl, bc_pl, bc_pl), device_mesh=mesh)(*ins)
+                     in_placements=(d_pl, d_pl, a_pl, bc_pl, bc_pl), device_mesh=mesh,
+                     **kw)(*ins)
 
 
 def apply_ssm(cfg, p, x, *, return_state=False, scan_impl="kernel"):
@@ -199,9 +273,12 @@ def apply_ssm(cfg, p, x, *, return_state=False, scan_impl="kernel"):
     (`kernels.ops.mamba_scan_fused`, forward only: it raises inside autograd);
     "plain" runs `scan_chunked` on a_bar and bx, differentiable, which
     training passes down, as the reference never trains through its kernel
-    either.  With `return_state`, returns (out, {"conv", "ssm"}): the last
-    d_conv-1 inputs of the conv in fp32 (zeros before the sequence's start)
-    and the scan's final state, from the same scan as `out`.
+    either; with `cfg.ssm_inloop`, `scan_inloop` on delta, x, A, B and C.
+    The flag leaves "kernel" as it is: the fused kernel makes each step's
+    a_bar and bx in registers, which is the in-loop form already.  With
+    `return_state`, returns (out, {"conv", "ssm"}): the last d_conv-1 inputs
+    of the conv in fp32 (zeros before the sequence's start) and the scan's
+    final state, from the same scan as `out`.
     """
     if scan_impl not in ("kernel", "plain"):
         raise ValueError(f"scan_impl {scan_impl!r} not in kernel|plain")
@@ -212,9 +289,16 @@ def apply_ssm(cfg, p, x, *, return_state=False, scan_impl="kernel"):
         if scan_impl == "kernel":
             delta, a, b, c = _ssm_params(cfg, p, xc)
             if isinstance(delta, DTensor):
-                scan = _fused_local(delta, xc, a, b, c, return_state)
+                scan = _params_local(kops.mamba_scan_fused, delta, xc, a, b, c, return_state)
             else:
                 scan = kops.mamba_scan_fused(delta, xc, a, b, c, return_state=return_state)
+        elif cfg.ssm_inloop:
+            delta, a, b, c = _ssm_params(cfg, p, xc)
+            if isinstance(delta, DTensor):
+                scan = _params_local(scan_inloop, delta, xc.float(), a, b, c, return_state,
+                                     grads=True)
+            else:
+                scan = scan_inloop(delta, xc.float(), a, b, c, return_state=return_state)
         else:
             a_bar, bx, c = _ssm_inputs(cfg, p, xc)
             if isinstance(a_bar, DTensor):

@@ -37,13 +37,10 @@ FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")   # encdec: models/encdec.py
 
 
 def check_supported(cfg) -> None:
-    """Raise for a family this module does not assemble, and for what the port
-    has not ported yet, naming its ROADMAP item."""
+    """Raise for a family this module does not assemble.  Every option of the
+    families it does is ported (`ssm_inloop`: `ssm.scan_inloop`)."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"{cfg.name}: family {cfg.family!r} is not one of {FAMILIES}")
-    if cfg.ssm_inloop and cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(f"{cfg.name}: ssm_inloop needs an initial-state input "
-                                  "to the scan kernel (ROADMAP queue 2, K2 follow-ups)")
 
 
 # --------------------------------------------------------------------------

@@ -28,7 +28,8 @@ from repro.core import whatif as jwhatif
 from repro.core.topology import MeshSpec as JMesh
 from repro.core.topology import V5E
 from repro_torch.core import commcheck, detect, persist, report, session, synth, whatif
-from repro_torch.core.topology import H100, MeshSpec
+from repro_torch.core.events import Trace
+from repro_torch.core.topology import H100, MeshSpec, comm_matrix, reduce_matrix
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORMATS = ("json", "npz", "npz-mmap")
@@ -366,6 +367,47 @@ def test_the_misconfigured_mesh_sweep_ranks_the_reshape_first():
     assert res[0].scenario.name == fix and res[0].saved_s > 0
     jtr, jmesh, jfix = jsynth.misconfigured_trace()
     assert jwhatif.sweep(jtr.store, jmesh)[0].scenario.name == jfix == fix
+
+
+@pytest.mark.parametrize("overrides", [{"nvlink_latency_s": 0.0, "ib_latency_s": 0.0},
+                                       {"ib_bw": 2 * H100.ib_bw}])
+def test_site_deltas_are_the_reference_s_and_antisymmetric(tmp_path, overrides):
+    """A trace and its re-pricing, saved as one session: the port's
+    `site_deltas` on the port's load equal the reference's on its own load of
+    the same file, key for key and bit for bit, both ways round."""
+    mesh = MeshSpec((2, 4), ("data", "model"), {"data": "ib", "model": "nvlink"})
+    tr = synth.synthetic_trace("base", mesh, n_sites=300, seed=8)
+    alt = whatif.reannotate(tr.store, whatif.Scenario("x", hw_overrides=overrides), mesh, H100)
+    alt_tr = Trace(label="alt", mesh_shape=mesh.shape, mesh_axes=mesh.axes,
+                   num_devices=mesh.num_devices, store=alt)
+    path = session.TraceSession("s", [tr, alt_tr]).save(str(tmp_path / "s.npz"))
+    port, ref = session.TraceSession.load(path), jsession.TraceSession.load(path)
+    fwd = whatif.site_deltas(port.get("base").store, port.get("alt").store)
+    rev = whatif.site_deltas(port.get("alt").store, port.get("base").store)
+    assert fwd == jwhatif.site_deltas(ref.get("base").store, ref.get("alt").store)
+    assert rev == jwhatif.site_deltas(ref.get("alt").store, ref.get("base").store)
+    assert set(fwd) == set(rev) and any(v != 0 for v in fwd.values())
+    assert all(rev[k] == -v for k, v in fwd.items())
+    assert whatif.site_deltas(synth.synthetic_trace("e", mesh, n_sites=0).store, alt) == {}
+
+
+def test_ascii_matrix_is_the_reference_s_text():
+    """The same string as the reference's for the same matrix: seeded ones with
+    zeros and ties, an all-zero one, labelled and not, and the trace's
+    device matrix reduced to each mesh axis."""
+    rng = np.random.default_rng(4)
+    mats = [rng.random((n, n)) * (rng.random((n, n)) > 0.3) for n in (1, 2, 5, 8)]
+    mats += [np.zeros((3, 3)), np.array([[0.0, 10.0], [5.0, 0.0]])]
+    mesh = MeshSpec((2, 4), ("data", "model"))
+    dev = comm_matrix(mesh, synth.synthetic_trace("t", mesh, n_sites=200, seed=2))
+    mats += [dev] + [reduce_matrix(dev, mesh, a) for a in mesh.axes]
+    for m in mats:
+        assert report.ascii_matrix(m) == jreport.ascii_matrix(m)
+        labels = [f"r{i}" for i in range(m.shape[0])]
+        assert report.ascii_matrix(m, labels=labels) == jreport.ascii_matrix(m, labels=labels)
+    out = report.ascii_matrix(np.array([[0.0, 10.0], [5.0, 0.0]]), labels=["a", "b"])
+    assert out.splitlines()[0].strip().startswith("a |") and out.count("@") == 1
+    assert "@" not in report.ascii_matrix(np.zeros((2, 2)))
 
 
 # --------------------------------------------------------------------------

@@ -325,3 +325,16 @@ def test_cli_watch_once_survives_chaos(chaos_dir, tmp_path, capsys):
     assert rc in (1, 3)
     summ = json.load(open(summary))
     assert summ["ingest"]["quarantined"], "binary file must be quarantined"
+
+
+def test_the_chaos_gate_script_passes():
+    """`scripts/torch_chaos_smoke.py`, the port's CI chaos gate, as a process:
+    it drives the session CLI over the corrupt-dump matrix and prints PASS."""
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, os.path.join(repo, "scripts", "torch_chaos_smoke.py")],
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert res.stdout.splitlines()[-1] == "torch_chaos_smoke: PASS"

@@ -391,6 +391,33 @@ def test_smoke_train_step_on_card_launches_no_kernel(arch):
     assert abs(float(flash) - float(naive)) / float(naive) < 0.02
 
 
+@pytest.mark.cuda
+def test_inloop_train_step_on_card_equals_the_flag_off_step():
+    """A smoke falcon-mamba-7b make_train_step(accum=2, remat="dots") at 4 x 512
+    (micro-batches of 2 rows, 2 chunks of 256) from the same fp32 weights with
+    `ssm_inloop` off and on: the step-0 loss equal bit for bit (the
+    discretisation is elementwise), the grad norm within 1e-4, no launch."""
+    from repro_torch.launch.presets import StepSettings
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+    _need_card()
+    cfg = smoke_config(get_config("falcon-mamba-7b"))
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    batch = api.demo_batch(cfg, 4, 512)
+    before = fa.launches, ms.launches
+    out = {}
+    for flag in (False, True):
+        params = api.init_params(cfg, 0, dtype=torch.float32)
+        c = cfg.replace(ssm_inloop=flag)
+        _, _, m = make_train_step(c, opt_cfg, StepSettings(accum=2, remat="dots"))(
+            params, adamw.init(opt_cfg, params), batch)
+        out[flag] = float(m["loss"]), float(m["grad_norm"])
+    torch.cuda.synchronize()
+    assert (fa.launches, ms.launches) == before
+    assert out[True][0] == out[False][0]
+    assert abs(out[True][1] - out[False][1]) / out[False][1] < 1e-4
+
+
 def _param_leaves(tree):
     from repro_torch.models.meta import leaves
     return list(leaves(tree))
@@ -622,7 +649,7 @@ def test_register_fake_shapes_match_the_kernels_outputs(dtype, D, return_state):
 @pytest.mark.cuda
 def test_kernels_under_local_map_on_a_one_rank_nccl_mesh():
     """K1 (through `attend`, flash) and K2 (through `ssm._scan_local`, and its
-    fused entry point through `ssm._fused_local`) on the DTensors of a one-rank
+    fused entry point through `ssm._params_local`) on the DTensors of a one-rank
     nccl mesh give the straight calls' outputs bit for bit, one launch each."""
     import socket
     _need_card()
@@ -660,7 +687,7 @@ before = (fa.launches, ms.launches)
 with torch.no_grad(), activation_sharding(mesh):
     o = attention.attend(cfg, d(q), d(k), d(v), impl="flash", window=16)
     y, h = ssm._scan_local(ops.mamba_scan, d(a), d(bx), d(c), True)
-    fy, fh = ssm._fused_local(d(delta), d(x), r(A), d(B_), d(C_), True)
+    fy, fh = ssm._params_local(ops.mamba_scan_fused, d(delta), d(x), r(A), d(B_), d(C_), True)
 assert (fa.launches - before[0], ms.launches - before[1]) == (1, 2)
 assert dist.get_backend() == "nccl"
 for got, want in ((o, want_o), (y, want_y), (h, want_h), (fy, want_fy), (fh, want_fh)):

@@ -60,8 +60,17 @@ def test_sequence_sharded_step_matches_unsharded_and_reference(tmp_path):
                         tmp_path)
 
 
-def _check_sharded_step(arch, st, tmp_path):
-    cfg, jcfg, jp, _ = model_pair(arch, "float32")
+def test_sharded_inloop_step_matches_unsharded_and_reference(tmp_path):
+    """hymba-1.5b with `ssm_inloop`: the in-loop scan per rank under
+    `local_map` (delta, x and A split on di over `model`, the batch over
+    `data`; A's gradient partial over `data`, B's and C's over `model`),
+    within the fp32 limits of the steps above."""
+    _check_sharded_step("hymba-1.5b", StepSettings(accum=2, remat="full"), tmp_path,
+                        ssm_inloop=True)
+
+
+def _check_sharded_step(arch, st, tmp_path, **change):
+    cfg, jcfg, jp, _ = model_pair(arch, "float32", **change)
     params = params_from_jax(jax.tree.map(np.array, jp), cfg, device="cpu", dtype=torch.float32)
     batch, jbatch = batch_pair(cfg, 8, 32)
     ocfg = dict(lr=1e-3, warmup_steps=2, total_steps=10)

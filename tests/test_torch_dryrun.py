@@ -413,6 +413,10 @@ BYTES_DIFFERENCES = {
     "chatglm3-6b/train_4k": ("low", 0.425, _SCORES_PASSES),
     "qwen2-vl-2b/train_4k": ("low", 0.427, _SCORES_PASSES),
     "whisper-tiny/train_4k": ("low", 0.432, _SCORES_PASSES),
+    "hymba-1.5b/train_4k": ("low", 0.447, _SCORES_PASSES + "; hymba-1.5b's attention bytes "
+                            "are 0.41x the reference's (313 against 771 GB), which its scan no "
+                            "longer offsets since the training scan runs the reference's "
+                            "odd-even associative scan (the doubling scan read 0.575)"),
     "chatglm3-6b/decode_32k": ("low", 0.417, _CACHE_UPDATE),
     "mixtral-8x22b/decode_32k": ("low", 0.417, _CACHE_UPDATE),
     "hymba-1.5b/decode_32k": ("low", 0.417, _CACHE_UPDATE),

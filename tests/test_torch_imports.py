@@ -66,7 +66,10 @@ def test_sources_have_no_jax_or_repro_import():
         "torch_quickstart.py", "torch_detect_misconfig.py", "torch_profile_arch.py",
         "torch_diff_configs.py", "torch_serve_lm.py", "torch_train_lm.py",
         "torch_lint_collectives.py", "torch_session_compare.py"}
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"] + examples
+    scripts = sorted((REPO / "scripts").glob("torch_*.py"))
+    assert {f.name for f in scripts} >= {"torch_chaos_smoke.py", "torch_peak_holders.py",
+                                         "torch_scan_chunks.py"}
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"] + examples + scripts
     assert len(files) >= 15
     offenders = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
                  for f in files for m in FORBIDDEN.finditer(f.read_text())]

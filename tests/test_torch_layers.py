@@ -22,6 +22,7 @@ from repro_torch.bridge import params_from_jax, params_to_jax
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.models import api
 from repro_torch.models import layers as L
+from repro_torch.models.meta import leaves
 
 TOL = {"float32": 1e-6, "bfloat16": 8e-3}
 DTYPES = ["float32", "bfloat16"]
@@ -157,10 +158,14 @@ def test_init_is_seeded_and_shaped_by_the_meta_tree():
     assert abs(float(wq.std()) - cfg.d_model ** -0.5) < 0.2 * cfg.d_model ** -0.5
 
 
-@pytest.mark.parametrize("change,match", [
-    (dict(family="ssm", ssm_state=4, ssm_inloop=True), "ssm_inloop.*ROADMAP queue 2"),
-])
-def test_unported_features_raise_naming_their_slice(change, match):
-    cfg = _cfgs("float32")[0].replace(**change)
-    with pytest.raises(NotImplementedError, match=match):
-        api.init_params(cfg, 0, device="cpu")
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b"])
+def test_ssm_inloop_is_accepted_by_init_params_and_forward(arch):
+    """`ssm_inloop` changes only the training scan: the params and the
+    forward (the scan kernel's path) are the flag-off ones."""
+    cfg = smoke_config(get_config(arch)).replace(compute_dtype="float32")
+    p = api.init_params(cfg.replace(ssm_inloop=True), 0, device="cpu")
+    for a, b in zip(leaves(p), leaves(api.init_params(cfg, 0, device="cpu"))):
+        assert torch.equal(a, b)
+    batch = api.demo_batch(cfg, 2, 8, device="cpu")
+    lg, _ = api.forward(cfg.replace(ssm_inloop=True), p, batch)
+    assert torch.equal(lg, api.forward(cfg, p, batch)[0])

@@ -21,7 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import MAMBA_CASES, max_abs_err, rel_err, scan_inputs, to_np
+from _torch_parity import (MAMBA_CASES, batch_pair, max_abs_err, model_pair, rel_err,
+                           scan_inputs, to_np)
 from repro.configs import ARCHS
 from repro.configs import smoke_config as jax_smoke
 from repro.kernels.mamba_scan import mamba_scan as ms_kernel
@@ -38,6 +39,7 @@ from repro_torch.kernels.ref import mamba_scan_ref
 from repro_torch.launch.presets import StepSettings
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import api, ssm, transformer
+from repro_torch.models.meta import leaves, tree_map
 
 ARCH_NAMES = ["falcon-mamba-7b", "hymba-1.5b"]
 DTYPES = ["float32", "bfloat16"]
@@ -295,10 +297,128 @@ def test_ssm_init_matches_reference():
     assert api.param_count(cfg) == jax_api.param_count(jcfg)
 
 
-def test_ssm_inloop_is_not_ported_yet():
-    cfg, _, _, p = _setup("falcon-mamba-7b", "float32")
-    with pytest.raises(NotImplementedError, match="ssm_inloop.*ROADMAP"):
-        api.forward(cfg.replace(ssm_inloop=True), p, api.demo_batch(cfg, 1, 4, device="cpu"))
+# --------------------------------------------------------------------------
+# ssm_inloop: each chunk discretised inside its checkpoint
+# --------------------------------------------------------------------------
+
+def _inloop_inputs(seed, B, S, Di, N):
+    """delta > 0, x, A < 0, B and C for the scan, fp32, as `_ssm_params` makes them."""
+    rng = np.random.default_rng(seed)
+    delta = np.log1p(np.exp(rng.standard_normal((B, S, Di)) - 2))
+    a = -np.exp(rng.standard_normal((Di, N)) * 0.5)
+    return [torch.from_numpy(t.astype(np.float32)) for t in
+            (delta, rng.standard_normal((B, S, Di)), a, rng.standard_normal((B, S, N)),
+             rng.standard_normal((B, S, N)))]
+
+
+@pytest.mark.parametrize("S,chunk", [(96, 32), (100, 32), (40, 64)])
+def test_inloop_scan_is_the_chunked_scan_of_the_discretised_inputs(S, chunk):
+    """`ssm.scan_inloop` against `scan_chunked` on `_discretise`'s a_bar and bx:
+    y and the final state equal bit for bit (the discretisation is elementwise),
+    and the gradients of delta, x, A, B and C within 2e-5 (A's sums its
+    chunks' parts in another order)."""
+    ins = _inloop_inputs(S, 2, S, 16, 4)
+    w = torch.from_numpy(np.random.default_rng(S).standard_normal((2, S, 16)).astype(np.float32))
+    got = []
+    for inloop in (True, False):
+        live = [t.clone().requires_grad_() for t in ins]
+        if inloop:
+            y, h = ssm.scan_inloop(*live, return_state=True, chunk=chunk)
+        else:
+            delta, x, a, b, c = live
+            y, h = ssm.scan_chunked(*ssm._discretise(delta, x, a, b), c, return_state=True,
+                                    chunk=chunk)
+        ((y * w).sum() + h.sum()).backward()
+        got.append((y, h, [t.grad for t in live]))
+    (y, h, grads), (y0, h0, want) = got
+    assert torch.equal(y, y0) and torch.equal(h, h0)
+    for g, ref in zip(grads, want):
+        assert rel_err(to_np(g), to_np(ref)) < 2e-5
+
+
+def _saved_bytes(fn):
+    """The bytes of the storages autograd saves for backward while `fn` runs."""
+    storages = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        storages[st.data_ptr()] = st.nbytes()
+        return t
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    return out, sum(storages.values())
+
+
+def test_inloop_ssm_keeps_less_than_one_discretised_tensor_for_backward():
+    """The plain path of `apply_ssm` at B=1, S=1024 (4 chunks of 256), Di=64,
+    N=16: with `ssm_inloop`, autograd's saved tensors come to less than one
+    [B, S, Di, N] fp32 tensor; without it, a_bar alone is saved whole (its
+    exp's output).  The gradients agree (the scan's, chunk by chunk)."""
+    cfg = smoke_config(get_config("falcon-mamba-7b")).replace(
+        compute_dtype="float32", d_model=32, ssm_state=16)
+    p = api.init_params(cfg, 0, device="cpu", dtype=torch.float32)["layers"][0]["ssm"]
+    x = torch.randn(1, 1024, cfg.d_model, generator=torch.Generator().manual_seed(0))
+    one = 1024 * cfg.d_inner * cfg.ssm_state * 4
+    grads = {}
+    for flag in (True, False):
+        live = {k: v.detach().requires_grad_() for k, v in p.items()}
+        out, saved = _saved_bytes(lambda: ssm.apply_ssm(cfg.replace(ssm_inloop=flag), live, x,
+                                                        scan_impl="plain"))
+        assert (saved < one) if flag else (saved >= one), (flag, saved, one)
+        out.square().mean().backward()
+        grads[flag] = {k: v.grad for k, v in live.items()}
+    for k in p:
+        assert rel_err(to_np(grads[True][k]), to_np(grads[False][k])) < 2e-5, k
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_inloop_forward_loss_and_gradients_match_reference(arch):
+    """With `ssm_inloop` in both packages, fp32, 2 x 320 (5 chunks of 64):
+    logits, the training loss and every parameter's gradient through
+    `scan_impl="plain"` against the reference's forward, loss_fn and
+    jax.grad, within 2e-5."""
+    cfg, jcfg, jp, _ = model_pair(arch, "float32", ssm_inloop=True)
+    p = params_from_jax(jax.tree.map(np.array, jp), cfg, device="cpu", dtype=torch.float32)
+    batch, jbatch = batch_pair(cfg, 2, 320)
+    with torch.no_grad():
+        lg, _ = api.forward(cfg, p, batch, attn_impl="naive")
+    jlg, _ = jax_api.forward(jcfg, jp, jbatch, attn_impl="naive")
+    assert rel_err(to_np(lg), jlg) < TOL["float32"]
+    live = tree_map(lambda t: t.detach().requires_grad_(), p)
+    loss = api.loss_fn(cfg, live, batch, scan_impl="plain", remat="dots")
+    grads = torch.autograd.grad(loss, list(leaves(live)))
+    jloss, jgrads = jax.value_and_grad(lambda q: jax_api.loss_fn(jcfg, q, jbatch))(jp)
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=TOL["float32"])
+    it = iter(grads)
+    port = jax.tree.leaves(params_to_jax(tree_map(lambda _: next(it), p)))
+    ref = jax.tree_util.tree_flatten_with_path(jgrads)[0]
+    assert len(port) == len(ref)
+    for a, (path, b) in zip(port, ref):
+        assert rel_err(a, b) < TOL["float32"], jax.tree_util.keystr(path)
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_inloop_prefill_launches_the_fused_scan_per_layer_and_equals_flag_off(arch,
+                                                                             monkeypatch):
+    """Prefill with `ssm_inloop` runs K2's fused wrapper once per SSM layer (the
+    kernel is the in-loop form) and gives the flag-off prefill's logits and
+    cache exactly."""
+    cfg, _, _, p = _setup(arch, "float32")
+    calls = []
+    real = ms.mamba_scan_fused
+    monkeypatch.setattr(ms, "mamba_scan_fused", lambda *a, **k: calls.append(1) or real(*a, **k))
+    batch = api.demo_batch(cfg, 2, 12, device="cpu")
+    out = {}
+    for flag in (True, False):
+        step = make_prefill_step(cfg.replace(ssm_inloop=flag), StepSettings(attn_impl="flash"),
+                                 cache_len=16)
+        out[flag] = step(p, batch)
+        assert len(calls) == cfg.num_layers, flag
+        calls.clear()
+    (lg, cache), (lg0, cache0) = out[True], out[False]
+    assert torch.equal(lg, lg0)
+    for a, b in zip(leaves(cache), leaves(cache0)):
+        assert torch.equal(a, b)
 
 
 # --------------------------------------------------------------------------
@@ -404,3 +524,49 @@ def test_bridge_round_trip(arch):
     assert jax.tree.structure(back) == jax.tree.structure(tree)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
         assert a.shape == b.shape and np.array_equal(a, b)
+
+
+_CAPTURE = r"""
+import json, sys
+sys.path.insert(0, {tests!r})
+import torch
+from _torch_dist_worker import capture_step
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.presets import StepSettings
+from repro_torch.models import api
+from repro_torch.optim import adamw
+cfg = smoke_config(get_config("hymba-1.5b")).replace(compute_dtype="float32")
+mesh, spec = make_host_mesh((2, 4), ("data", "model"), backend="fake", device="cpu")
+params = api.init_params(cfg, 0, device="cpu", dtype=torch.float32)
+batch = {{k: v.numpy() for k, v in api.demo_batch(cfg, 8, 64, device="cpu").items()}}
+out = {{}}
+for flag in (False, True):
+    tr = capture_step(mesh, spec, dict(cfg=cfg.replace(ssm_inloop=flag), opt_cfg=adamw.AdamWConfig(),
+                                       settings=StepSettings(accum=2, remat="dots"),
+                                       params=params, batch=batch))
+    out[str(flag)] = sorted([e.op_name, e.kind, str(e.replica_groups), e.operand_bytes, e.dtype,
+                             e.multiplicity, e.semantic] for e in tr.events)
+print("SITES" + json.dumps(out))
+"""
+
+
+def test_inloop_train_step_captures_the_flag_off_site_table():
+    """The smoke hymba-1.5b train step (fp32, 8 x 64, accum 2, remat "dots") as
+    rank 0 of (2, 4) under the fake process group, captured with and without
+    `ssm_inloop`: the same collective sites, since each rank scans its own
+    channels and rows (the in-loop scan's gradients leave as the plain
+    scan's do: A's partial over `data`, B's and C's over `model`)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    tests = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.path.join(os.path.dirname(tests), "src"),
+           "OMP_NUM_THREADS": "2"}
+    res = subprocess.run([sys.executable, "-c", _CAPTURE.format(tests=tests)], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    sites = json.loads(next(l for l in res.stdout.splitlines()
+                            if l.startswith("SITES"))[len("SITES"):])
+    assert sites["True"] and sites["True"] == sites["False"]
