@@ -1,0 +1,8 @@
+"""The host's time in the train step's `optimizer` span, AdamW's update
+(`optim/adamw.py` `update`): its inclusive ms per untraced step of the window,
+the mean over those steps, from the port's step records (`harness/spans.py`)."""
+from perfbench.harness import spans
+
+
+def read(ctx):
+    return spans.mean_inclusive_ms(ctx, "optimizer")

@@ -26,7 +26,9 @@ implementation gives y and, when asked, h_S, so that a step on fake tensors
 launch counted.  The FLOPs of each are counted as `torch.utils.flop_counter`
 counts its plain version (the readout's products, 2·B·S·Di·N; the
 recurrence and the discretisation are elementwise).  `launches` counts the
-calls that launched either kernel, `kernel_launches` each entry point's.
+calls that launched either kernel, `kernel_launches` each entry point's,
+`chunks` the chunks of time over the fused entry point's calls (one a call
+that takes one pass: more chunks than calls is the chunked-time branch).
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ CHANNELS_PER_BLOCK, MIN_CHUNK = 128, 128
 
 launches = 0   # kernel launches; a run zeroes it to count one path's launches
 kernel_launches = {"unfused": 0, "fused": 0}   # the same launches, by entry point
+chunks = 0     # chunks of time over the fused entry point's launches
 
 
 @functools.cache
@@ -192,7 +195,7 @@ def _mamba_scan_fused(delta: torch.Tensor, x: torch.Tensor, a: torch.Tensor, b: 
     """The launch(es) on the current stream: one pass, or two where time is
     chunked (`scan_chunks`).  Returns (y, h_S), h_S empty [0] when
     `return_state` is False."""
-    global launches
+    global launches, chunks
     B, S, Di = delta.shape
     N = a.shape[1]
     delta, x, a, b, c = (t.contiguous() for t in (delta, x, a, b, c))
@@ -201,11 +204,11 @@ def _mamba_scan_fused(delta: torch.Tensor, x: torch.Tensor, a: torch.Tensor, b: 
     h = torch.empty((B, Di, N) if return_state else (0,), dtype=torch.float32, device=dev)
     if B == 0 or Di == 0:
         return y, h
-    chunks = scan_chunks(B, S, Di, N, torch.cuda.get_device_properties(dev).multi_processor_count)
-    chunk = max(1, -(-S // chunks))
-    chunks = max(1, -(-S // chunk))
-    scratch = (torch.empty((2, chunks - 1, B, Di, N), dtype=torch.float32, device=dev)
-               if chunks > 1 else None)
+    parts = scan_chunks(B, S, Di, N, torch.cuda.get_device_properties(dev).multi_processor_count)
+    chunk = max(1, -(-S // parts))
+    parts = max(1, -(-S // chunk))
+    scratch = (torch.empty((2, parts - 1, B, Di, N), dtype=torch.float32, device=dev)
+               if parts > 1 else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().repro_mamba_scan_fused_fwd(
@@ -215,6 +218,7 @@ def _mamba_scan_fused(delta: torch.Tensor, x: torch.Tensor, a: torch.Tensor, b: 
     if err != 0:
         raise RuntimeError(f"fused mamba scan kernel launch failed: cudaError {err}")
     launches += 1
+    chunks += parts
     kernel_launches["fused"] += 1
     return y, h
 

@@ -16,6 +16,12 @@ reduce-scatter for a sharded weight, an all-reduce for a replicated one), in
 every micro-batch, as the reference's compiled step does it inside its scan
 over micro-batches.  No gradient is then held whole over `data` to the
 step's end.
+
+Each step a factory returns opens a step record (`repro_torch.scope.step`:
+`prefill_step`, `decode_step`, `train_step`) with its rows and length, and
+keeps the kernel counters' change over the call (`launch_counts`); the train
+step's `forward` and `backward` spans wrap each micro-batch's loss and
+gradient.
 """
 from __future__ import annotations
 
@@ -25,11 +31,27 @@ from typing import Dict, List
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch.kernels import flash_attention, mamba_scan
 from repro_torch.launch.presets import StepSettings
 from repro_torch.models import api as model_api
 from repro_torch.models.meta import leaves, tree_map
 from repro_torch.optim import adamw
-from repro_torch.scope import scope
+from repro_torch.scope import scope, span, step as step_record
+
+
+def launch_counts() -> Dict[str, int]:
+    """The kernel counters a step record keeps the change of: K1's and K2's
+    launches and K2's chunks of time (chunks per launch > 1: the chunked-time
+    branch)."""
+    return {"flash_attention.launches": flash_attention.launches,
+            "mamba_scan.launches": mamba_scan.launches,
+            "mamba_scan.chunks": mamba_scan.chunks}
+
+
+def _step(kind, tokens, length=None):
+    """The step record of a call on `tokens` [B, S] (`length` S unless given)."""
+    return step_record(kind, tokens.shape[0], tokens.shape[1] if length is None else length,
+                       launch_counts)
 
 
 def _split_micro(batch: Dict[str, torch.Tensor], accum: int) -> List[Dict[str, torch.Tensor]]:
@@ -59,12 +81,18 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, st: StepSettings):
         for t, p in zip(leaves(live), leaves(params)):
             if isinstance(p, DTensor):
                 t.register_hook(functools.partial(_sync_grad, p=p))
-        loss = model_api.loss_fn(cfg, live, micro, attn_impl=st.attn_impl, remat=st.remat,
-                                 scan_impl="plain")
-        grads = torch.autograd.grad(loss, list(leaves(live)), materialize_grads=True)
+        with span("forward"):
+            loss = model_api.loss_fn(cfg, live, micro, attn_impl=st.attn_impl, remat=st.remat,
+                                     scan_impl="plain")
+        with span("backward"):
+            grads = torch.autograd.grad(loss, list(leaves(live)), materialize_grads=True)
         return loss.detach(), grads
 
     def train_step(params, opt_state, batch):
+        with _step("train", batch["tokens"]):
+            return _train_step(params, opt_state, batch)
+
+    def _train_step(params, opt_state, batch):
         if st.accum > 1:
             acc_dt = getattr(torch, st.accum_dtype)
             grads, loss = None, 0.0
@@ -118,16 +146,19 @@ def make_eval_step(cfg, st: StepSettings):
 def make_prefill_step(cfg, st: StepSettings, cache_len=None):
     @torch.no_grad()
     def prefill_step(params, batch):
-        return model_api.prefill(cfg, params, batch, attn_impl=st.attn_impl,
-                                 cache_len=cache_len)
+        with _step("prefill", batch["tokens"]):
+            return model_api.prefill(cfg, params, batch, attn_impl=st.attn_impl,
+                                     cache_len=cache_len)
     return prefill_step
 
 
 def make_decode_step(cfg):
     """The reference's factory also takes a `StepSettings` and reads none of
-    it (decode attention is always naive), so the port's takes none."""
+    it (decode attention is always naive), so the port's takes none.  Its
+    step record's length is the positions attended, pos + 1."""
     @torch.no_grad()
     def decode_step(params, cache, tokens, pos, positions=None):
-        return model_api.decode_step(cfg, params, cache, tokens, pos,
-                                     positions=positions)
+        with _step("decode", tokens, pos + 1):
+            return model_api.decode_step(cfg, params, cache, tokens, pos,
+                                         positions=positions)
     return decode_step

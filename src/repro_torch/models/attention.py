@@ -38,7 +38,7 @@ from repro_torch.distributed.autoshard import (constrain, constrain_or_whole,
                                                role_placements)
 from repro_torch.models.layers import apply_rope, rms_norm_head
 from repro_torch.models.meta import ParamMeta
-from repro_torch.scope import mark, scope
+from repro_torch.scope import mark, scope, span
 
 NEG_INF = -1e30
 
@@ -124,19 +124,20 @@ def merge_heads(out):
 
 def project_qkv(cfg, p, x_q, x_kv, positions_q, positions_kv):
     """Project and rope. x_q [B,Sq,D], x_kv [B,Skv,D] -> q[B,Sq,H,Dh], k/v[B,Skv,K,Dh]."""
-    dt = x_q.dtype
-    H, K, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = _heads(x_q @ p["wq"].to(dt), H, Dh)
-    k = _heads(x_kv @ p["wk"].to(dt), K, Dh)
-    v = _heads(x_kv @ p["wv"].to(dt), K, Dh)
-    if cfg.qk_norm:
-        q = rms_norm_head(q, p["q_norm"])
-        k = rms_norm_head(k, p["k_norm"])
-    if positions_q is not None:
-        q = apply_rope(cfg, q, positions_q)
-    if positions_kv is not None:
-        k = apply_rope(cfg, k, positions_kv)
-    return q, k, v
+    with span("qkv"):
+        dt = x_q.dtype
+        H, K, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        q = _heads(x_q @ p["wq"].to(dt), H, Dh)
+        k = _heads(x_kv @ p["wk"].to(dt), K, Dh)
+        v = _heads(x_kv @ p["wv"].to(dt), K, Dh)
+        if cfg.qk_norm:
+            q = rms_norm_head(q, p["q_norm"])
+            k = rms_norm_head(k, p["k_norm"])
+        if positions_q is not None:
+            q = apply_rope(cfg, q, positions_q)
+        if positions_kv is not None:
+            k = apply_rope(cfg, k, positions_kv)
+        return q, k, v
 
 
 def _mask_bias(q_idx, k_idx, *, causal: bool, window) -> torch.Tensor:

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.distributed.autoshard import constrain_logits, constrain_residual
 from repro_torch.models.meta import ParamMeta
-from repro_torch.scope import scope
+from repro_torch.scope import scope, span
 
 
 # --------------------------------------------------------------------------
@@ -38,14 +38,15 @@ def apply_norm(cfg, p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     working dtype, means accumulated in fp32 (LayerNorm: var = E[x^2] - mu^2
     in fp32), mu and the rsqrt cast back to the working dtype before the
     (working-dtype) products."""
-    dtype = x.dtype
-    ms = torch.square(x).mean(dim=-1, keepdim=True, dtype=torch.float32)
-    if cfg.norm == "layernorm":
-        mu = x.mean(dim=-1, keepdim=True, dtype=torch.float32)
-        inv = torch.rsqrt(ms - torch.square(mu) + eps)
-        y = (x - mu.to(dtype)) * inv.to(dtype)
-        return y * p["scale"].to(dtype) + p["bias"].to(dtype)
-    return x * torch.rsqrt(ms + eps).to(dtype) * p["scale"].to(dtype)
+    with span("norm"):
+        dtype = x.dtype
+        ms = torch.square(x).mean(dim=-1, keepdim=True, dtype=torch.float32)
+        if cfg.norm == "layernorm":
+            mu = x.mean(dim=-1, keepdim=True, dtype=torch.float32)
+            inv = torch.rsqrt(ms - torch.square(mu) + eps)
+            y = (x - mu.to(dtype)) * inv.to(dtype)
+            return y * p["scale"].to(dtype) + p["bias"].to(dtype)
+        return x * torch.rsqrt(ms + eps).to(dtype) * p["scale"].to(dtype)
 
 
 def rms_norm_head(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -45,7 +45,7 @@ from repro_torch.distributed.autoshard import (constrain_or_whole, constrain_to,
                                                role_placements)
 from repro_torch.kernels import ops as kops
 from repro_torch.models.meta import ParamMeta
-from repro_torch.scope import scope
+from repro_torch.scope import scope, span
 
 
 def dt_rank(cfg) -> int:
@@ -284,31 +284,40 @@ def apply_ssm(cfg, p, x, *, return_state=False, scan_impl="kernel"):
         raise ValueError(f"scan_impl {scan_impl!r} not in kernel|plain")
     with scope("ssm"):
         dt = x.dtype
-        x_in, z = (x @ p["in_proj"].to(dt)).chunk(2, dim=-1)
-        xc = F.silu(_conv1d_causal(cfg, p, x_in))
+        with span("conv"):
+            x_in, z = (x @ p["in_proj"].to(dt)).chunk(2, dim=-1)
+            xc = F.silu(_conv1d_causal(cfg, p, x_in))
         if scan_impl == "kernel":
-            delta, a, b, c = _ssm_params(cfg, p, xc)
-            if isinstance(delta, DTensor):
-                scan = _params_local(kops.mamba_scan_fused, delta, xc, a, b, c, return_state)
-            else:
-                scan = kops.mamba_scan_fused(delta, xc, a, b, c, return_state=return_state)
+            with span("ssm_params"):
+                delta, a, b, c = _ssm_params(cfg, p, xc)
+            with span("scan"):
+                if isinstance(delta, DTensor):
+                    scan = _params_local(kops.mamba_scan_fused, delta, xc, a, b, c,
+                                         return_state)
+                else:
+                    scan = kops.mamba_scan_fused(delta, xc, a, b, c, return_state=return_state)
         elif cfg.ssm_inloop:
-            delta, a, b, c = _ssm_params(cfg, p, xc)
-            if isinstance(delta, DTensor):
-                scan = _params_local(scan_inloop, delta, xc.float(), a, b, c, return_state,
-                                     grads=True)
-            else:
-                scan = scan_inloop(delta, xc.float(), a, b, c, return_state=return_state)
+            with span("ssm_params"):
+                delta, a, b, c = _ssm_params(cfg, p, xc)
+            with span("scan"):
+                if isinstance(delta, DTensor):
+                    scan = _params_local(scan_inloop, delta, xc.float(), a, b, c, return_state,
+                                         grads=True)
+                else:
+                    scan = scan_inloop(delta, xc.float(), a, b, c, return_state=return_state)
         else:
-            a_bar, bx, c = _ssm_inputs(cfg, p, xc)
-            if isinstance(a_bar, DTensor):
-                scan = _scan_local(scan_chunked, a_bar, bx, c, return_state)
-            else:
-                scan = scan_chunked(a_bar, bx, c, return_state=return_state)
+            with span("ssm_params"):
+                a_bar, bx, c = _ssm_inputs(cfg, p, xc)
+            with span("scan"):
+                if isinstance(a_bar, DTensor):
+                    scan = _scan_local(scan_chunked, a_bar, bx, c, return_state)
+                else:
+                    scan = scan_chunked(a_bar, bx, c, return_state=return_state)
             del a_bar, bx                  # 2 x [B,S,di,N] fp32: free before the rest
         y, h_last = scan if return_state else (scan, None)
-        y = y + xc.float() * p["d_skip"].float()
-        out = (y.to(dt) * F.silu(z)) @ p["out_proj"].to(dt)
+        with span("out_proj"):
+            y = y + xc.float() * p["d_skip"].float()
+            out = (y.to(dt) * F.silu(z)) @ p["out_proj"].to(dt)
     if not return_state:
         return out
     keep, S = cfg.d_conv - 1, x.shape[1]

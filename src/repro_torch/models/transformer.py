@@ -31,7 +31,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.scope import scope
+from repro_torch.scope import scope, span
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")   # encdec: models/encdec.py
 
@@ -176,7 +176,8 @@ def apply_layers(cfg, layers, x, positions, *, attn_impl="auto", scan_impl="kern
         entries.append(entry)
     if not collect_cache:
         return x, aux, None
-    return x, aux, {name: torch.stack([e[name] for e in entries]) for name in entries[0]}
+    with span("cache"):
+        return x, aux, {name: torch.stack([e[name] for e in entries]) for name in entries[0]}
 
 
 def embed_inputs(cfg, params, batch):
@@ -342,7 +343,8 @@ def prefill(cfg, params, batch, *, attn_impl="auto", cache_len=None):
     x, positions = embed_inputs(cfg, params, batch)
     x, _, caches = apply_layers(cfg, params["layers"], x, positions,
                                 attn_impl=attn_impl, collect_cache=True)
-    x = L.apply_norm(cfg, params["final_norm"], x[:, -1:])
+    with span("final_norm"):
+        x = L.apply_norm(cfg, params["final_norm"], x[:, -1:])
     logits = L.logits_head(cfg, params["embed"], x)
     return logits, _pad_kv(caches, cache_len)
 
@@ -351,5 +353,6 @@ def _pad_kv(caches, cache_len):
     """Pad k and v [L,B,S,K,Dh] along S to `cache_len`; the SSM state keeps its shape."""
     if cache_len is None:
         return caches
-    return {name: F.pad(a, (0, 0, 0, 0, 0, max(0, cache_len - a.shape[2])))
-            if name in ("k", "v") else a for name, a in caches.items()}
+    with span("cache"):
+        return {name: F.pad(a, (0, 0, 0, 0, 0, max(0, cache_len - a.shape[2])))
+                if name in ("k", "v") else a for name, a in caches.items()}

@@ -257,6 +257,44 @@ def test_fused_scan_fake_implementation_matches_the_kernel_s_outputs():
         assert (f.shape, f.dtype, f.stride(), f.device) == (r.shape, r.dtype, r.stride(), r.device)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Di,N", [(1, 1000, 96, 16), (2, 256, 128, 16), (1, 128, 64, 8),
+                                      (4, 512, 8192, 16)])
+def test_fused_scan_counts_its_chunks_of_time(B, S, Di, N):
+    """`mamba_scan.chunks` adds each fused call's chunks of time: more than 1 in
+    the chunked-time branch, 1 for a call that takes one pass."""
+    _need_card()
+    parts = ms.scan_chunks(B, S, Di, N, torch.cuda.get_device_properties(0).multi_processor_count)
+    parts = -(-S // -(-S // parts))           # as many as the chunk's length leaves
+    ins = _fused_inputs(B + S, B, S, Di, N, "bfloat16")
+    before = ms.chunks, ms.launches
+    ms.mamba_scan_fused(*ins)
+    torch.cuda.synchronize()
+    assert (ms.chunks, ms.launches) == (before[0] + parts, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "falcon-mamba-7b"])
+def test_prefill_step_record_carries_the_kernel_launches(arch):
+    """The prefill step's record keeps K1's and K2's launches over the call, as
+    the benchmark's k1_roofline and k2_roofline count them: one a layer."""
+    from repro_torch import scope
+    from repro_torch.launch.presets import StepSettings
+    from repro_torch.launch.steps import make_prefill_step
+    _need_card()
+    cfg = smoke_config(get_config(arch))
+    p = api.init_params(cfg, 0)
+    step = make_prefill_step(cfg, StepSettings(attn_impl="flash"), cache_len=65)
+    step(p, api.demo_batch(cfg, 2, 64))
+    rec = scope.steps[-1]
+    k1, k2 = (cfg.num_layers, 0) if arch == "chatglm3-6b" else (0, cfg.num_layers)
+    assert (rec.kind, rec.rows, rec.length) == ("prefill", 2, 64)
+    assert rec.counters["flash_attention.launches"] == k1
+    assert rec.counters["mamba_scan.launches"] == k2
+    assert rec.counters["mamba_scan.chunks"] >= k2
+    assert rec.spans["layer"][0] == cfg.num_layers
+
+
 # fp32 head dims the 3xTF32 kernel pads to 64, 128 and 256, with and without a window
 # and a q_offset: B, H, K, Sq, Skv, D, window, q_offset
 FP32_CASES = [(2, 4, 2, Sq, Skv, D, w, off) for D in (64, 120, 128, 192, 256)
