@@ -32,7 +32,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                3200 channels, as [dryrun] runs it): the unfused scan on a_bar/bx, and
                the fused one from delta, x (bf16 and fp32), A, B and C, also at
                shapes that take its chunked-time branch (small B x Di, S not a
-               multiple of the chunk)
+               multiple of the chunk); and K2's training pair (mamba_scan_train.cu,
+               SCAN_TRAIN_SHAPES): y, h_S and the gradients against the plain
+               training scan, the forward and backward kernels timed
   4-11. the models at full width with seed-0 random bf16 weights, one table row
                each (MODELS): prefill through make_prefill_step(attn_impl="flash"),
                16 greedy make_decode_step steps (qwen2-vl-2b's with [3, B, 1] m-rope
@@ -70,7 +72,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                naive and flash (flash launches K1 once per attention layer and must
                agree with naive within the bf16 limit), a profiler breakdown of one
                train step; then, under torch.use_deterministic_algorithms, a straight
-               run of 4 steps (its launches must all be 0: no kernel trains), and 2
+               run of 4 steps (no launch but, in the SSM and hybrid rows, K2's training
+               pair: `train_launches`), and 2
                steps + a checkpoint under build/ + a resume for 2 more, whose losses and
                grad norms must equal the straight run's bit for bit; every loss and grad
                norm finite, the step-0 loss equal to the naive eval's within the bf16
@@ -81,7 +84,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                evals, a profile of one train step and a straight run of 4 steps under
                deterministic algorithms; every eval loss and the step-0 loss equal to
                the flag-off run's bit for bit, every later loss and grad norm within
-               INLOOP_REL, no launch in the steps, and one `[train] <arch> inloop`
+               INLOOP_REL, the same launches, and one `[train] <arch> inloop`
                line of step ms, tokens/s, peak GB and model-FLOP share off and on
                13. qwen2-vl-2b (vlm, 1.78e9 params): 4 x 2048 with 512 patch embeddings,
                    28 tensor-core K1 per flash eval
@@ -120,7 +123,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   19. shard   — Trainer(mesh=(1, 1)) on a real nccl group of world size 1 against
                the straight Trainer: qwen2-vl-2b at the train phase's shape, 2
                steps each, deterministic algorithms; losses and grad norms within
-               a relative 1e-3 (the first loss equal), no kernel launched; and a
+               a relative 1e-3 (the first loss equal), no launch but the in-loop
+               pair's K2 training pair; and a
                third, straight run with the mesh's vocab-parallel loss formulation
                (the one mesh-only difference in the model's maths), reported
                against the mesh run bit for bit; then the same pair (mesh and
@@ -287,6 +291,14 @@ SCAN_PATH_SHAPES = [(4, 1024, 8192, 16), (4, 2048, 3200, 16), (2, 2048, 800, 16)
 # the fused K2's chunked-time branch: small B x Di, S not a multiple of the chunk
 SCAN_CHUNKED_CASES = [(1, 1000, 96, 16), (2, 300, 64, 4), (1, 777, 40, 16), (3, 513, 100, 8)]
 SCAN_TOL = 1e-4
+# K2's training pair (csrc/mamba_scan_train.cu) against the plain training scan: the
+# train micro-batch shapes of falcon-mamba-7b (4 x 2048, accum 2), hymba-1.5b and its
+# rank of model 4, S = 1, and a chunk that does not divide S; y, h_S and the fp32
+# gradients within SCAN_TRAIN_TOL of the largest (the sums run in another order), x's
+# bf16 gradient within one bf16 step of the largest
+SCAN_TRAIN_SHAPES = [(2, 2048, 8192, 16), (4, 2048, 3200, 16), (2, 2048, 800, 16),
+                     (2, 1, 64, 16), (2, 300, 96, 16)]
+SCAN_TRAIN_TOL, SCAN_TRAIN_DX_TOL = 2e-5, 2 ** -7
 SCAN_NO_LIBRARY = ("no single PyTorch call computes a linear recurrence with a "
                    "per-step readout (h_t = a_t*h_{t-1} + bx_t, y_t = <h_t, c_t>)")
 # the full-width models, one at a time: arch, prefill batch and length, attention
@@ -706,6 +718,80 @@ def fused_scan_case(torch, ms, ref, case, seed, x_dtype="bfloat16"):
                 gflop=flops / 1e9, mbytes=nbytes / 1e6)
 
 
+def train_scan_case(torch, ms, ssm, case, seed):
+    """K2's training pair vs the plain training scan (`ssm.scan_inloop` on x
+    widened to fp32) on one shape, x in bf16: y, h_S and the gradients of a
+    weighted sum of both.  Returns a row for each kernel: the forward (y and
+    the chunk-start states) and the backward (its kernel and the sum of its
+    partials), each timed beside its bound."""
+    B, S, Di, N = case
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    z = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    ins = [torch.nn.functional.softplus(z(B, S, Di) - 3.0), z(B, S, Di).bfloat16(),
+           -torch.arange(1, N + 1, device="cuda", dtype=torch.float32) * (0.1 * z(Di, N)).exp(),
+           z(B, S, N), z(B, S, N)]
+    dy, dh = z(B, S, Di), z(B, Di, N)
+
+    def run(fn):
+        live = [t.clone().requires_grad_() for t in ins]
+        y, h = fn(*live)
+        return [y.detach(), h.detach(),
+                *torch.autograd.grad((y * dy).sum() + (h * dh).sum(), live,
+                                     materialize_grads=True)]
+    got = run(lambda *t: ms.mamba_scan_train(*t, return_state=True))
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = run(lambda d, x, *t: ssm.scan_inloop(d, x.float(), *t, return_state=True))
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    names = ("y", "h", "ddelta", "dx", "dA", "dB", "dC")
+    errs = {n: rel(torch, a, b) for n, a, b in zip(names, got, want)}
+    check(all(bool(torch.isfinite(t).all()) for t in got), f"non-finite training scan {case}")
+    check(all(e < (SCAN_TRAIN_DX_TOL if n == "dx" else SCAN_TRAIN_TOL) for n, e in errs.items()),
+          f"training scan vs plain {case}: {errs}")
+    iters = 20 if B * S * Di * N < (1 << 26) else 10
+    with torch.no_grad():
+        y, _, states = torch.ops.repro_torch.mamba_scan_train(*ins, False)
+        no_dh = y.new_empty((0,))
+        fwd_ms = cuda_ms(torch, lambda: torch.ops.repro_torch.mamba_scan_train(*ins, False), iters)
+        bwd_ms = cuda_ms(torch, lambda: torch.ops.repro_torch.mamba_scan_train_bwd(
+            *ins, states, dy, no_dh), iters)
+    terms, bsd, bsn = B * S * Di * N, B * S * Di, B * S * N
+    st_bytes = states.numel() * 4
+    rows = []
+    # per (b, t, d, n), forward: delta*A, exp, the recurrence's mul and add, *B, the
+    # readout's mul and add; backward: those of the recomputed state (5) and of the
+    # reverse step (exp, the state, g, the dB, dC, dA and ddelta terms: 19); bytes:
+    # each input read once, each output written once, the states both
+    for kind, k_ms, flops, nbytes in (
+            ("forward", fwd_ms, 7 * terms + bsd,
+             bsd * (4 + 2 + 4) + 2 * bsn * 4 + Di * N * 4 + st_bytes),
+            ("backward", bwd_ms, 24 * terms + 3 * bsd,
+             bsd * (4 + 2 + 4 + 4 + 2) + 4 * bsn * 4 + 2 * Di * N * 4 + st_bytes)):
+        t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES
+        rows.append(dict(case=list(case), kind=kind, x_dtype="bfloat16",
+                         max_abs_err=max(errs[n] for n in names if n != "dx"),
+                         dx_err=errs["dx"], tol=SCAN_TRAIN_TOL, kernel_ms=k_ms,
+                         plain_ms=plain_ms, library_ms=None,
+                         bound_ms=1e3 * max(t_ops, t_bytes),
+                         bound_by="operations" if t_ops >= t_bytes else "bytes",
+                         gflop=flops / 1e9, mbytes=nbytes / 1e6))
+    return rows
+
+
+def train_launches(cfg, steps, names):
+    """The launches `steps` train steps (accum 2, remat "dots") make: none but, in
+    an SSM or hybrid model, K2's training pair, per layer and micro-batch twice
+    forward (the forward and the remat's recompute) and once backward."""
+    n = cfg.num_layers * 2 * steps if cfg.family in ("ssm", "hybrid") else 0
+    want = {name: 0 for name in names}
+    want.update({"mamba_scan": 3 * n, "mamba_scan/train_fwd": 2 * n,
+                 "mamba_scan/train_bwd": n})
+    return want
+
+
 def prefix(batch, n):
     """A batch's first n positions: tokens, and for a vlm batch the patches
     (all in front) and [3, B, n] m-rope ids."""
@@ -914,7 +1000,7 @@ def train_model(rt, spec):
     eval step (naive and flash) at the step-0 params, a profile of one train step,
     a straight run, and a run cut at spec.ckpt_at and resumed from its checkpoint;
     see the module's docstring for the checks.  Returns the launches of the flash
-    eval and of the straight run (every count 0), the two paths of this phase."""
+    eval and of the straight run (`train_launches`), the two paths of this phase."""
     torch, api = rt.torch, rt.api
     cfg = rt.get_config(spec.arch)
     full_depth = cfg.num_layers
@@ -989,14 +1075,15 @@ def train_model(rt, spec):
         zero_counts(rt.counters)
         torch.cuda.reset_peak_memory_stats()
         log_a = trainer(spec.steps).run()
-        train_launches = read_counts(rt.counters)
+        run_launches = read_counts(rt.counters)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         trainer(spec.ckpt_at, ckpt_dir=str(ckpt), ckpt_every=spec.ckpt_at).run()
         log_b = trainer(spec.steps, ckpt_dir=str(ckpt), ckpt_every=spec.ckpt_at).run()
     finally:
         torch.use_deterministic_algorithms(False)
-    check(all(n == 0 for n in train_launches.values()),
-          f"{cfg.name} train steps launched kernels: {train_launches}")
+    want_train = train_launches(cfg, spec.steps, run_launches)
+    check(run_launches == want_train, f"{cfg.name} train steps launched {run_launches}, "
+                                      f"want {want_train}")
     for m in log_a:
         step_s = m["sec"]
         print(f"[train] {cfg.name} step {m['step']}: {step_s * 1e3:.1f} ms, "
@@ -1034,10 +1121,10 @@ def train_model(rt, spec):
                eval_naive=evals["naive"], eval_flash=evals["flash"], eval_rel=eval_rel,
                step0_vs_eval_rel=step0_rel, resumed_equal=True, moved_abs_sum=moved,
                data_ms=data_ms, step_fn_ms=step_fn_ms,
-               launches_train=train_launches, launches_flash_eval=eval_launches["flash"])
+               launches_train=run_launches, launches_flash_eval=eval_launches["flash"])
     print(f"[train] {cfg.name} result " + json.dumps(res))
-    launches = {name: eval_launches["flash"][name] + train_launches[name]
-                for name in train_launches}
+    launches = {name: eval_launches["flash"][name] + run_launches[name]
+                for name in run_launches}
     if cfg.family in ("ssm", "hybrid"):
         for name, n in train_inloop(rt, spec, cfg, trainer, run_evals, res, want).items():
             launches[name] += n
@@ -1071,13 +1158,14 @@ def train_inloop(rt, spec, cfg, trainer, run_evals, off, want):
         zero_counts(rt.counters)
         torch.cuda.reset_peak_memory_stats()
         log = trainer(spec.steps, c=icfg).run()
-        train_launches = read_counts(rt.counters)
+        run_launches = read_counts(rt.counters)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
     finally:
         torch.use_deterministic_algorithms(False)
     torch.cuda.empty_cache()
-    check(all(n == 0 for n in train_launches.values()),
-          f"{cfg.name} inloop train steps launched kernels: {train_launches}")
+    want_train = train_launches(cfg, spec.steps, run_launches)
+    check(run_launches == want_train, f"{cfg.name} inloop train steps launched {run_launches}, "
+                                      f"want {want_train}")
     check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in log),
           f"{cfg.name} inloop: non-finite loss or grad norm")
     check(log[0]["loss"] == off["losses"][0],
@@ -1093,9 +1181,9 @@ def train_inloop(rt, spec, cfg, trainer, run_evals, off, want):
                off={k: off[k] for k in on}, on=on,
                losses=[m["loss"] for m in log], grad_norms=[m["grad_norm"] for m in log],
                max_rel_to_off=worst, evals_bitwise=True, step0_bitwise=True,
-               launches_train=train_launches, launches_flash_eval=eval_launches["flash"])
+               launches_train=run_launches, launches_flash_eval=eval_launches["flash"])
     print(f"[train] {cfg.name} inloop result " + json.dumps(res))
-    return {name: eval_launches["flash"][name] + train_launches[name] for name in train_launches}
+    return {name: eval_launches["flash"][name] + run_launches[name] for name in run_launches}
 
 
 def link_table(events):
@@ -1372,7 +1460,8 @@ def shard_phase(rt):
     module's docstring), and the witness: the straight Trainer with the mesh's
     vocab-parallel loss formulation on plain tensors, which must give the
     mesh's readings bit for bit when that formulation is the whole of the
-    difference; then SHARD_INLOOP's pair.  Returns its launches (every count 0)."""
+    difference; then SHARD_INLOOP's pair.  Returns its launches (none but K2's
+    training pair in SHARD_INLOOP's runs)."""
     torch, spec, losses = rt.torch, TRAINS[0], rt.losses
     cfg = rt.get_config(spec.arch)
     os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(free_port()), RANK="0",
@@ -1427,7 +1516,8 @@ def shard_phase(rt):
                            max_rel=worst(logs["inloop straight"], logs["inloop mesh 1x1"])),
                launches=launches)
     print("[shard] result " + json.dumps(res))
-    check(all(n == 0 for n in launches.values()), f"sharded steps launched kernels {launches}")
+    want = train_launches(icfg, 2 * 2, launches)     # the in-loop pair's 2 x 2 steps
+    check(launches == want, f"sharded steps launched {launches}, want {want}")
     for pre, r in (("", res), ("inloop ", res["inloop"])):
         check(logs[pre + "straight"][0]["loss"] == logs[pre + "mesh 1x1"][0]["loss"],
               f"{pre}step-0 losses differ")
@@ -2161,7 +2251,7 @@ def main(argv=None) -> int:
     from repro_torch.launch.steps import (make_decode_step, make_eval_step, make_prefill_step,
                                           make_train_step)
     from repro_torch.launch.train import Trainer
-    from repro_torch.models import api, losses, moe, transformer
+    from repro_torch.models import api, losses, moe, ssm, transformer
     from repro_torch.models.meta import leaves, materialize, tree_map_meta
     from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
     from torch.utils._pytree import tree_leaves, tree_map
@@ -2200,10 +2290,12 @@ def main(argv=None) -> int:
 
     # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
-    built = build_all(build, {kname: mod.SOURCE for kname, mod in counters.items()})
+    sources = {kname: mod.SOURCE for kname, mod in counters.items()}
+    sources["mamba_scan_train"] = ms.TRAIN_SOURCE
+    built = build_all(build, sources)
     print(f"[build] {len(built)} kernels in {time.perf_counter() - t0:.1f}s")
     for kname, (secs, report) in built.items():
-        print(f"[build] {kname}: {secs:.1f}s -> {build.library_path(counters[kname].SOURCE)}")
+        print(f"[build] {kname}: {secs:.1f}s -> {build.library_path(sources[kname])}")
         for line in report.splitlines():
             if any(word in line for word in ("entry function", "registers", "spill",
                                              "arning")):
@@ -2275,6 +2367,15 @@ def main(argv=None) -> int:
                   "hymba-1.5b rank shard": SCAN_PATH_SHAPES[2]}
     scan_variants = {"fused": {w: fused_at[c] for w, c in scan_where.items()},
                      "unfused": {w: unfused_at[c] for w, c in scan_where.items()}}
+    # K2's training pair at the train micro-batch shapes, each kernel a variant
+    trains = [row for i, case in enumerate(SCAN_TRAIN_SHAPES)
+              for row in train_scan_case(torch, ms, ssm, case, seed=240 + i)]
+    for r in trains:
+        print("[kernel] mamba_scan_train " + json.dumps(r))
+    train_at = {(tuple(r["case"]), r["kind"]): r for r in trains}
+    for variant, kind in (("train_fwd", "forward"), ("train_bwd", "backward")):
+        scan_variants[variant] = {f"{w} train": train_at[(c, kind)]
+                                  for w, c in zip(scan_where, SCAN_TRAIN_SHAPES)}
     print(f"[kernel] mamba_scan library_ms null: {SCAN_NO_LIBRARY}")
     torch.cuda.empty_cache()
     if args.only == "kernel":

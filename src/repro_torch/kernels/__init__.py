@@ -9,10 +9,14 @@ flash_attention.py  — binding and kernel-layout wrapper of
 mamba_scan.py       — binding and wrappers of csrc/mamba_scan.cu (replaces
                       the reference's Pallas `repro/kernels/mamba_scan.py`):
                       the scan on a_bar/bx, and the fused one that makes them
-                      in registers from delta, x, A, B (the model's path)
+                      in registers from delta, x, A, B (the model's path);
+                      and of csrc/mamba_scan_train.cu, the fused scan's
+                      differentiable twin for training (a forward that saves
+                      chunk-start states and a backward kernel)
 ops.py              — model-layout wrappers
 ref.py              — plain PyTorch versions (the CPU path and the oracle)
 
-Both kernels are forward only, as the reference's are; their wrappers raise
-inside autograd, and training runs the plain paths.
+K1 and K2's prefill entry points are forward only, as the reference's are;
+their wrappers raise inside autograd.  Training runs K2's training pair on
+the card and the plain scan on the CPU.
 """

@@ -20,15 +20,31 @@ tensor to its kernel; it never falls back from one to the other.  They are
 forward only, and raise when autograd would record them (grad mode on and an
 input that requires grad) rather than return an output without a gradient.
 
+Training has its own entry point and source, `csrc/mamba_scan_train.cu`
+(built apart, so the prefill runs the same binary whatever training needs):
+
+* `mamba_scan_train(delta, x, a, b, c)`: `mamba_scan_fused`'s function,
+  differentiable (custom op `repro_torch::mamba_scan_train`, its autograd
+  registered).  The forward kernel also writes the state at the start of
+  every chunk of `train_chunk(N)` steps, [B, S/chunk, Di, N] fp32, which
+  with its inputs is all it keeps for backward; the backward op
+  (`repro_torch::mamba_scan_train_bwd`) recomputes each chunk's states
+  from there and walks it in reverse.  A CPU tensor takes the plain
+  training scan (`models.ssm.scan_inloop`, whose values and gradients it
+  gives bit for bit); `ref.mamba_scan_train_bwd_ref` is the backward's
+  plain model.
+
 Each custom op's CUDA implementation is the launch, and its fake
-implementation gives y and, when asked, h_S, so that a step on fake tensors
+implementation gives its outputs' shapes, so that a step on fake tensors
 (`FakeTensorMode`, the dry-run's, on any device) runs through it with no
 launch counted.  The FLOPs of each are counted as `torch.utils.flop_counter`
-counts its plain version (the readout's products, 2·B·S·Di·N; the
-recurrence and the discretisation are elementwise).  `launches` counts the
-calls that launched either kernel, `kernel_launches` each entry point's,
-`chunks` the chunks of time over the fused entry point's calls (one a call
-that takes one pass: more chunks than calls is the chunked-time branch).
+counts its plain version (the readout's products, 2·B·S·Di·N, and their
+gradients, 4·B·S·Di·N; the recurrence and the discretisation are
+elementwise).  `launches` counts the calls that launched any kernel,
+`kernel_launches` each entry point's ("unfused", "fused", "train_fwd",
+"train_bwd"), `backward_launches` the training backward's alone, `chunks`
+the chunks of time over the fused entry point's calls (one a call that
+takes one pass: more chunks than calls is the chunked-time branch).
 """
 from __future__ import annotations
 
@@ -40,16 +56,19 @@ from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build as _build
-from repro_torch.kernels.ref import mamba_scan_fused_ref, mamba_scan_ref
+from repro_torch.kernels.ref import mamba_scan_fused_ref, mamba_scan_ref, train_chunk
 
 SOURCE = _build.PACKAGE / "csrc" / "mamba_scan.cu"
+TRAIN_SOURCE = _build.PACKAGE / "csrc" / "mamba_scan_train.cu"
 MAX_STATE = 32
 # the fused kernel's channels a block (csrc/mamba_scan.cu's FT), and the fewest timesteps
 # a chunk of time takes
 CHANNELS_PER_BLOCK, MIN_CHUNK = 128, 128
 
 launches = 0   # kernel launches; a run zeroes it to count one path's launches
-kernel_launches = {"unfused": 0, "fused": 0}   # the same launches, by entry point
+# the same launches, by entry point
+kernel_launches = {"unfused": 0, "fused": 0, "train_fwd": 0, "train_bwd": 0}
+backward_launches = 0   # the training backward's launches
 chunks = 0     # chunks of time over the fused entry point's launches
 
 
@@ -234,3 +253,162 @@ def _(delta, x, a, b, c, return_state):
 def _fused_flops(delta_shape, x_shape, a_shape, *_args, **_kwargs) -> int:
     B, S, Di = delta_shape
     return 2 * B * S * Di * a_shape[1]
+
+
+@functools.cache
+def _train_lib() -> ctypes.CDLL:
+    lib = _build.load(TRAIN_SOURCE)
+    fn = lib.repro_mamba_scan_train_chunk
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    bad = [n for n in range(1, MAX_STATE + 1) if fn(n) != train_chunk(n)]
+    if bad:
+        raise RuntimeError(f"{TRAIN_SOURCE.name}'s chunk differs from train_chunk at N={bad}")
+    fn = lib.repro_mamba_scan_train_fwd
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.repro_mamba_scan_train_bwd
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 14
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def mamba_scan_train(delta, x, a, b, c, *, return_state=False):
+    """`mamba_scan_fused`'s function and arguments, differentiable: the training
+    entry point.  On the card the custom op `repro_torch::mamba_scan_train`
+    (its backward a kernel too); on CPU tensors the plain training scan,
+    `models.ssm.scan_inloop` on x widened to fp32, whose values and
+    gradients it is."""
+    _check_fused(delta, x, a, b, c)
+    if delta.device.type == "cpu" and not isinstance(delta, FakeTensor):
+        from repro_torch.models.ssm import scan_inloop
+        return scan_inloop(delta, x.float(), a, b, c, return_state=return_state)
+    if delta.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"mamba_scan_train runs on cpu or cuda, not {delta.device}")
+    y, h, _ = torch.ops.repro_torch.mamba_scan_train(delta, x, a, b, c, bool(return_state))
+    return (y, h) if return_state else y
+
+
+def _states_shape(delta, a):
+    B, S, Di = delta.shape
+    N = a.shape[1]
+    return (B, -(-S // train_chunk(N)), Di, N)
+
+
+@torch.library.custom_op("repro_torch::mamba_scan_train", mutates_args=(), device_types="cuda")
+def _mamba_scan_train(delta: torch.Tensor, x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                      c: torch.Tensor, return_state: bool
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward launch on the current stream.  Returns (y, h_S, states):
+    h_S empty [0] when `return_state` is False, states the state at the
+    start of every chunk of `train_chunk(N)` steps, [B, S/chunk, Di, N]."""
+    global launches
+    B, S, Di = delta.shape
+    N = a.shape[1]
+    delta, x, a, b, c = (t.contiguous() for t in (delta, x, a, b, c))
+    dev = delta.device
+    y = torch.empty((B, S, Di), dtype=torch.float32, device=dev)
+    h = torch.zeros((B, Di, N) if return_state else (0,), dtype=torch.float32, device=dev)
+    states = torch.empty(_states_shape(delta, a), dtype=torch.float32, device=dev)
+    if B == 0 or S == 0 or Di == 0:
+        return y, h, states
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _train_lib().repro_mamba_scan_train_fwd(
+            delta.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16), a.data_ptr(),
+            b.data_ptr(), c.data_ptr(), y.data_ptr(), h.data_ptr() if return_state else None,
+            states.data_ptr(), B, S, Di, N, stream)
+    if err != 0:
+        raise RuntimeError(f"mamba scan training forward launch failed: cudaError {err}")
+    launches += 1
+    kernel_launches["train_fwd"] += 1
+    return y, h, states
+
+
+@_mamba_scan_train.register_fake
+def _(delta, x, a, b, c, return_state):
+    B, S, Di = delta.shape
+    return (delta.new_empty((B, S, Di)),
+            delta.new_empty((B, Di, a.shape[1]) if return_state else (0,)),
+            delta.new_empty(_states_shape(delta, a)))
+
+
+@torch.library.custom_op("repro_torch::mamba_scan_train_bwd", mutates_args=(),
+                         device_types="cuda")
+def _mamba_scan_train_bwd(delta: torch.Tensor, x: torch.Tensor, a: torch.Tensor,
+                          b: torch.Tensor, c: torch.Tensor, states: torch.Tensor,
+                          dy: torch.Tensor, dh: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """The backward launches on the current stream: the kernel, then the fixed-
+    order sum of its partials.  `dh` is h_S's gradient, or empty [0] where
+    h_S has none.  Returns (ddelta, dx in x's dtype, dA, dB, dC)."""
+    global launches, backward_launches
+    B, S, Di = delta.shape
+    N = a.shape[1]
+    delta, x, a, b, c, states, dy = (t.contiguous() for t in (delta, x, a, b, c, states, dy))
+    dh = dh.contiguous() if dh.numel() else None
+    dev = delta.device
+    if B == 0 or S == 0 or Di == 0:
+        return (torch.zeros_like(delta), torch.zeros_like(x), torch.zeros_like(a),
+                torch.zeros_like(b), torch.zeros_like(c))
+    ddelta = torch.empty_like(delta)
+    dx = torch.empty_like(x)
+    da, db, dc = torch.empty_like(a), torch.empty_like(b), torch.empty_like(c)
+    da_part = torch.empty((B, Di, N), dtype=torch.float32, device=dev)
+    blocks = -(-Di // 32)          # the backward kernel's channels a block
+    dbc_part = torch.empty((2, blocks, B, S, N), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _train_lib().repro_mamba_scan_train_bwd(
+            delta.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16), a.data_ptr(),
+            b.data_ptr(), c.data_ptr(), states.data_ptr(), dy.data_ptr(),
+            dh.data_ptr() if dh is not None else None, ddelta.data_ptr(), dx.data_ptr(),
+            da.data_ptr(), db.data_ptr(), dc.data_ptr(), da_part.data_ptr(),
+            dbc_part[0].data_ptr(), dbc_part[1].data_ptr(), B, S, Di, N, stream)
+    if err != 0:
+        raise RuntimeError(f"mamba scan training backward launch failed: cudaError {err}")
+    launches += 1
+    backward_launches += 1
+    kernel_launches["train_bwd"] += 1
+    return ddelta, dx, da, db, dc
+
+
+@_mamba_scan_train_bwd.register_fake
+def _(delta, x, a, b, c, states, dy, dh):
+    return (torch.empty_like(delta), torch.empty_like(x), torch.empty_like(a),
+            torch.empty_like(b), torch.empty_like(c))
+
+
+def _train_setup_context(ctx, inputs, output):
+    delta, x, a, b, c, _ = inputs
+    ctx.save_for_backward(delta, x, a, b, c, output[2])
+    ctx.mark_non_differentiable(output[2])
+    ctx.set_materialize_grads(False)
+
+
+def _train_backward(ctx, dy, dh, _dstates):
+    delta, x, a, b, c, states = ctx.saved_tensors
+    if dy is None:
+        dy = torch.zeros_like(delta)
+    if dh is None:
+        dh = delta.new_empty((0,))
+    grads = torch.ops.repro_torch.mamba_scan_train_bwd(delta, x, a, b, c, states, dy, dh)
+    return (*grads, None)
+
+
+torch.library.register_autograd("repro_torch::mamba_scan_train", _train_backward,
+                                setup_context=_train_setup_context)
+
+
+@register_flop_formula(torch.ops.repro_torch.mamba_scan_train)
+def _train_flops(delta_shape, x_shape, a_shape, *_args, **_kwargs) -> int:
+    B, S, Di = delta_shape
+    return 2 * B * S * Di * a_shape[1]
+
+
+@register_flop_formula(torch.ops.repro_torch.mamba_scan_train_bwd)
+def _train_bwd_flops(delta_shape, x_shape, a_shape, *_args, **_kwargs) -> int:
+    B, S, Di = delta_shape
+    return 4 * B * S * Di * a_shape[1]

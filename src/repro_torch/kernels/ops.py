@@ -12,6 +12,8 @@ this one only casts.  `mamba_scan_fused` takes the scan's inputs before
 discretisation (delta, x, A, B, C) and casts them but x to fp32 (x may stay
 bf16: the kernel widens it); the model's prefill (`models.ssm.apply_ssm`)
 calls it, so the [B, S, Di, N] a_bar and bx are never made.
+`mamba_scan_train` casts as it does and is differentiable: the model's
+training scan on the card.
 
 Each launch counter (`flash_attention.launches`, `mamba_scan.launches`) is
 incremented where its kernel launches; `flash_attention.kernel_launches`
@@ -46,4 +48,12 @@ def mamba_scan_fused(delta, x, a, b, c, *, return_state=False):
     f32 = torch.float32
     x = x if x.dtype in (f32, torch.bfloat16) else x.to(f32)
     return ms.mamba_scan_fused(delta.to(f32), x, a.to(f32), b.to(f32), c.to(f32),
+                               return_state=return_state)
+
+
+def mamba_scan_train(delta, x, a, b, c, *, return_state=False):
+    """`mamba_scan_fused`'s arguments and results, differentiable."""
+    f32 = torch.float32
+    x = x if x.dtype in (f32, torch.bfloat16) else x.to(f32)
+    return ms.mamba_scan_train(delta.to(f32), x, a.to(f32), b.to(f32), c.to(f32),
                                return_state=return_state)

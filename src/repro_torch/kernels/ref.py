@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the kernels (the CPU path and the allclose oracle)."""
+"""Plain PyTorch versions of the kernels (the CPU path and the allclose oracle),
+and the plain model of the training scan's forward and backward kernels."""
 from __future__ import annotations
 
 import torch
@@ -55,3 +56,71 @@ def mamba_scan_fused_ref(delta, x, a, b, c, *, return_state=False):
     a_bar = (delta[..., None] * a).exp()
     bx = (delta * x.float())[..., None] * b[..., None, :]
     return mamba_scan_ref(a_bar, bx, c, return_state=return_state)
+
+
+def train_chunk(N: int) -> int:
+    """Timesteps a saved state of the training scan covers at state size N
+    (`csrc/mamba_scan_train.cu`'s chunk_of): min(32, 256 / P), P = N rounded
+    up to a power of two, at least 4, so that a warp's recomputed chunk of
+    states takes 32 KB of shared memory."""
+    p = 4
+    while p < N:
+        p *= 2
+    return min(32, 256 // p)
+
+
+def _train_step(delta, x, a, b, t, h):
+    """h_t from h_{t-1}, as the training kernels make it; also (a_bar_t, delta_t·x_t)."""
+    dt = delta[:, t, :, None]
+    ab = torch.exp(dt * a)
+    dtx = dt * x[:, t, :, None]
+    return ab * h + dtx * b[:, t, None, :], ab, dtx
+
+
+def mamba_scan_train_ref(delta, x, a, b, c):
+    """The training forward's plain version: `mamba_scan_fused_ref`'s y and
+    h_S, and the state at the start of every chunk of `train_chunk(N)` steps,
+    [B, ceil(S / chunk), Di, N], in delta's dtype (x widened to it)."""
+    B, S, Di = delta.shape
+    chunk = train_chunk(a.shape[1])
+    x = x.to(delta.dtype)
+    h = delta.new_zeros((B, Di, a.shape[1]))
+    ys, starts = [], []
+    for t in range(S):
+        if t % chunk == 0:
+            starts.append(h)
+        h = _train_step(delta, x, a, b, t, h)[0]
+        ys.append(torch.einsum("bdn,bn->bd", h, c[:, t]))
+    return torch.stack(ys, dim=1), h, torch.stack(starts, dim=1)
+
+
+def mamba_scan_train_bwd_ref(delta, x, a, b, c, states, dy, dh=None):
+    """The training backward's plain model, as its kernel computes it: for each
+    chunk, last to first, the chunk's states recomputed from its saved start
+    (`states`, from `mamba_scan_train_ref`), then time stepped backwards with
+    g_t = dy_t·C_t + a_bar_{t+1}·g_{t+1} (g_{S-1} also takes dh, the gradient
+    of h_S).  Returns (ddelta, dx in x's dtype, dA, dB, dC)."""
+    B, S, Di = delta.shape
+    chunk = train_chunk(a.shape[1])
+    xw = x.to(delta.dtype)
+    g = dh.clone() if dh is not None else delta.new_zeros((B, Di, a.shape[1]))
+    ddelta, dx = torch.empty_like(delta), torch.empty_like(delta)
+    da, db, dc = torch.zeros_like(a), torch.empty_like(b), torch.empty_like(c)
+    for ck in reversed(range(states.shape[1])):
+        t0, t1 = ck * chunk, min(S, (ck + 1) * chunk)
+        hs = [states[:, ck]]                     # the state before each step of the chunk
+        for t in range(t0, t1 - 1):
+            hs.append(_train_step(delta, xw, a, b, t, hs[-1])[0])
+        for t in reversed(range(t0, t1)):
+            hp = hs[t - t0]
+            ht, ab, dtx = _train_step(delta, xw, a, b, t, hp)
+            gt = g + dy[:, t, :, None] * c[:, t, None, :]
+            dc[:, t] = torch.einsum("bdn,bd->bn", ht, dy[:, t])
+            db[:, t] = (gt * dtx).sum(1)
+            sgb = (gt * b[:, t, None, :]).sum(-1)            # d(delta_t·x_t)
+            gha = gt * hp * ab                                # d(a_bar_t)·a_bar_t
+            da += (gha * delta[:, t, :, None]).sum(0)
+            ddelta[:, t] = (gha * a).sum(-1) + xw[:, t] * sgb
+            dx[:, t] = delta[:, t] * sgb
+            g = gt * ab
+    return ddelta, dx.to(x.dtype), da, db, dc

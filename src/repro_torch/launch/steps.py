@@ -41,11 +41,13 @@ from repro_torch.scope import scope, span, step as step_record
 
 def launch_counts() -> Dict[str, int]:
     """The kernel counters a step record keeps the change of: K1's and K2's
-    launches and K2's chunks of time (chunks per launch > 1: the chunked-time
-    branch)."""
+    launches, K2's chunks of time (chunks per launch > 1: the chunked-time
+    branch) and its training backward's launches (one per SSM layer and
+    micro-batch of a train step on the card)."""
     return {"flash_attention.launches": flash_attention.launches,
             "mamba_scan.launches": mamba_scan.launches,
-            "mamba_scan.chunks": mamba_scan.chunks}
+            "mamba_scan.chunks": mamba_scan.chunks,
+            "mamba_scan.backward_launches": mamba_scan.backward_launches}
 
 
 def _step(kind, tokens, length=None):
@@ -82,8 +84,7 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, st: StepSettings):
             if isinstance(p, DTensor):
                 t.register_hook(functools.partial(_sync_grad, p=p))
         with span("forward"):
-            loss = model_api.loss_fn(cfg, live, micro, attn_impl=st.attn_impl, remat=st.remat,
-                                     scan_impl="plain")
+            loss = model_api.loss_fn(cfg, live, micro, attn_impl=st.attn_impl, remat=st.remat)
         with span("backward"):
             grads = torch.autograd.grad(loss, list(leaves(live)), materialize_grads=True)
         return loss.detach(), grads

@@ -82,8 +82,10 @@ def forward(cfg, params, batch, *, attn_impl="auto"):
 
 def loss_fn(cfg, params, batch, *, attn_impl="auto", remat="none", scan_impl="kernel"):
     """Training loss: the LM head fused with the cross-entropy on the final hidden
-    states, chunk by chunk (no [B,S,V] logits).  A train step passes
-    scan_impl="plain": the kernels are forward only."""
+    states, chunk by chunk (no [B,S,V] logits).  With scan_impl="kernel"
+    (the train step's) an SSM layer's scan is K2's training entry point on
+    the card and the plain scan on the CPU (`ssm.apply_ssm`); "plain" takes
+    the plain scan everywhere."""
     hidden, aux = _family(cfg).forward_hidden(cfg, params, batch, attn_impl=attn_impl,
                                               remat=remat, scan_impl=scan_impl)
     return fused_next_token_loss(cfg, params["embed"], hidden, batch, aux)

@@ -4,24 +4,28 @@ The port of the reference's `repro.models.ssm`.  The reference runs the
 recurrence as an XLA chunked `associative_scan` on the discretised inputs
 a_bar = exp(delta·A) and bx = (delta·x)·B, two [B, S, di, N] fp32 tensors
 (`_ssm_inputs`), and leaves its Pallas kernel to direct calls.  Here the
-full-sequence path (`apply_ssm`) launches K2's fused entry point once per
-call on the whole sequence (`kernels.ops.mamba_scan_fused`: the CUDA kernel
-on the card, its plain version on the CPU), from delta, x, A, B and C
-(`_ssm_params`): the kernel makes a_bar and bx in registers, so neither
-[B, S, di, N] tensor exists; the final state for the decode cache comes
-from the same launch.  Training passes `scan_impl="plain"` for a
-differentiable scan in plain PyTorch on a_bar and bx, chunked as the
-reference's (`scan_chunked`: an associative scan within chunks of 256
-steps, the state carried from chunk to chunk, each chunk recomputed in
-backward), not the kernel's sequential plain version, whose S Python steps
-a step on a mesh would dispatch one by one.  With `cfg.ssm_inloop` the plain
-path discretises inside each chunk instead, as the reference's in-loop scan
-does (`scan_inloop`): autograd then keeps delta, x, B and C ([B, S, di] and
-[B, S, N]) and the carried states, and no [B, S, di, N] tensor or gradient
-outlives one chunk.  The kernel path is already that form, whatever the flag.
+full-sequence path (`apply_ssm`) launches K2 once per call on the whole
+sequence, from delta, x, A, B and C (`_ssm_params`): the kernels make
+a_bar and bx in registers, so neither [B, S, di, N] tensor exists.  Under
+no_grad (prefill, eval) that is the fused entry point
+(`kernels.ops.mamba_scan_fused`, forward only), whose launch also gives the
+final state for the decode cache; where autograd records the scan (the
+train step) it is the training entry point (`kernels.ops.mamba_scan_train`,
+a forward and backward pair of kernels on the card).
+
+The plain scan (`scan_impl="plain"`, and training on real CPU tensors) is
+differentiable PyTorch on a_bar and bx, chunked as the reference's
+(`scan_chunked`: an associative scan within chunks of 256 steps, the state
+carried from chunk to chunk, each chunk recomputed in backward), not the
+kernel's sequential plain version, whose S Python steps a step on a mesh
+would dispatch one by one.  With `cfg.ssm_inloop` it discretises inside
+each chunk instead, as the reference's in-loop scan does (`scan_inloop`):
+autograd then keeps delta, x, B and C ([B, S, di] and [B, S, N]) and the
+carried states, and no [B, S, di, N] tensor or gradient outlives one chunk.
+The kernel path is already that form, whatever the flag.
 
 On a mesh (DTensor inputs) each scan runs per rank under `local_map`:
-the fused kernel and the in-loop scan on delta, x and A sharded on the
+the kernels and the in-loop scan on delta, x and A sharded on the
 channel dim `di` over `model` (`_params_local`), the plain scan on a_bar
 and bx sharded so (`_scan_local`), as `in_proj` and the `ssm` cache shard
 the channels; B and C are whole over `model`.  The recurrence
@@ -37,6 +41,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
@@ -266,19 +271,29 @@ def _params_local(scan_fn, delta, x, a, b, c, return_state, grads=False):
                      **kw)(*ins)
 
 
+def _on_host(t) -> bool:
+    """Whether t (or a DTensor's local shard) is a real CPU tensor: the plain
+    scan's device (fake tensors take the kernels' fake implementations)."""
+    local = t._local_tensor if isinstance(t, DTensor) else t
+    return local.device.type == "cpu" and not isinstance(local, FakeTensor)
+
+
 def apply_ssm(cfg, p, x, *, return_state=False, scan_impl="kernel"):
     """Full-sequence selective SSM. x [B,S,D] -> [B,S,D].
 
-    `scan_impl`: "kernel" runs K2's fused entry point
-    (`kernels.ops.mamba_scan_fused`, forward only: it raises inside autograd);
-    "plain" runs `scan_chunked` on a_bar and bx, differentiable, which
-    training passes down, as the reference never trains through its kernel
-    either; with `cfg.ssm_inloop`, `scan_inloop` on delta, x, A, B and C.
-    The flag leaves "kernel" as it is: the fused kernel makes each step's
-    a_bar and bx in registers, which is the in-loop form already.  With
-    `return_state`, returns (out, {"conv", "ssm"}): the last d_conv-1 inputs
-    of the conv in fp32 (zeros before the sequence's start) and the scan's
-    final state, from the same scan as `out`.
+    `scan_impl`: "kernel" runs K2: its fused entry point
+    (`kernels.ops.mamba_scan_fused`, forward only), or where autograd records
+    the scan (grad mode on and an input that requires grad) its training
+    entry point (`kernels.ops.mamba_scan_train`, differentiable), which the
+    train step takes on the card; on real CPU tensors training takes the
+    "plain" path instead, as the reference trains through its associative
+    scan.  "plain" runs `scan_chunked` on a_bar and bx, differentiable; with
+    `cfg.ssm_inloop`, `scan_inloop` on delta, x, A, B and C.  The flag leaves
+    "kernel" as it is: the kernels make each step's a_bar and bx in
+    registers, which is the in-loop form already.  With `return_state`,
+    returns (out, {"conv", "ssm"}): the last d_conv-1 inputs of the conv in
+    fp32 (zeros before the sequence's start) and the scan's final state,
+    from the same scan as `out`.
     """
     if scan_impl not in ("kernel", "plain"):
         raise ValueError(f"scan_impl {scan_impl!r} not in kernel|plain")
@@ -287,33 +302,31 @@ def apply_ssm(cfg, p, x, *, return_state=False, scan_impl="kernel"):
         with span("conv"):
             x_in, z = (x @ p["in_proj"].to(dt)).chunk(2, dim=-1)
             xc = F.silu(_conv1d_causal(cfg, p, x_in))
-        if scan_impl == "kernel":
-            with span("ssm_params"):
-                delta, a, b, c = _ssm_params(cfg, p, xc)
-            with span("scan"):
+        with span("ssm_params"):
+            delta, a, b, c = _ssm_params(cfg, p, xc)
+            train = torch.is_grad_enabled() and any(t.requires_grad for t in (delta, xc, a, b, c))
+            plain = scan_impl == "plain" or (train and _on_host(delta))
+            if plain and not cfg.ssm_inloop:
+                a_bar, bx = _discretise(delta, xc.float(), a, b)
+        with span("scan"):
+            if not plain:
+                fn = kops.mamba_scan_train if train else kops.mamba_scan_fused
                 if isinstance(delta, DTensor):
-                    scan = _params_local(kops.mamba_scan_fused, delta, xc, a, b, c,
-                                         return_state)
+                    scan = _params_local(fn, delta, xc, a, b, c, return_state, grads=train)
                 else:
-                    scan = kops.mamba_scan_fused(delta, xc, a, b, c, return_state=return_state)
-        elif cfg.ssm_inloop:
-            with span("ssm_params"):
-                delta, a, b, c = _ssm_params(cfg, p, xc)
-            with span("scan"):
+                    scan = fn(delta, xc, a, b, c, return_state=return_state)
+            elif cfg.ssm_inloop:
                 if isinstance(delta, DTensor):
                     scan = _params_local(scan_inloop, delta, xc.float(), a, b, c, return_state,
                                          grads=True)
                 else:
                     scan = scan_inloop(delta, xc.float(), a, b, c, return_state=return_state)
-        else:
-            with span("ssm_params"):
-                a_bar, bx, c = _ssm_inputs(cfg, p, xc)
-            with span("scan"):
+            else:
                 if isinstance(a_bar, DTensor):
                     scan = _scan_local(scan_chunked, a_bar, bx, c, return_state)
                 else:
                     scan = scan_chunked(a_bar, bx, c, return_state=return_state)
-            del a_bar, bx                  # 2 x [B,S,di,N] fp32: free before the rest
+                del a_bar, bx              # 2 x [B,S,di,N] fp32: free before the rest
         y, h_last = scan if return_state else (scan, None)
         with span("out_proj"):
             y = y + xc.float() * p["d_skip"].float()

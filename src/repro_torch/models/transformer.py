@@ -12,9 +12,10 @@ cache whose layers have different windows (gemma3, hymba), a list of one
 such dict per layer without the L axis.  A layer whose cache is exactly its
 window long is a ring buffer.  Decode writes the cache in place.
 
-Training runs `forward_hidden` with a remat policy per layer (`remat_fn`)
-and `scan_impl="plain"`: neither kernel has a backward, and each kernel's
-wrapper raises inside autograd.
+Training runs `forward_hidden` with a remat policy per layer (`remat_fn`).
+K1 has no backward and its wrapper raises inside autograd; an SSM layer's
+scan takes K2's differentiable training entry point on the card
+(`ssm.apply_ssm`).
 """
 from __future__ import annotations
 
@@ -200,7 +201,8 @@ def embed_inputs(cfg, params, batch):
 def forward_hidden(cfg, params, batch, *, attn_impl="auto", remat="none", scan_impl="kernel"):
     """Forward to the final norm's hidden states. Returns (hidden [B,S,D], aux):
     the sum of the MoE layers' load-balancing losses, 0 for the other families.
-    `scan_impl`: "kernel" (K2, forward only) or "plain" (differentiable)."""
+    `scan_impl`: "kernel" (K2: the fused forward, or under autograd on the card
+    its training pair) or "plain" (differentiable PyTorch)."""
     check_supported(cfg)
     x, positions = embed_inputs(cfg, params, batch)
     x, aux, _ = apply_layers(cfg, params["layers"], x, positions, attn_impl=attn_impl,

@@ -15,7 +15,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import flash_attention_ref, mamba_scan_ref
-from repro_torch.models import api
+from repro_torch.models import api, ssm
 from repro_torch.models.attention import attend_naive
 
 
@@ -401,9 +401,12 @@ def test_kernel_wrappers_raise_under_autograd_on_card():
 @pytest.mark.parametrize("arch", ["chatglm3-6b", "hymba-1.5b"])
 def test_smoke_train_step_on_card_launches_no_kernel(arch):
     """One make_train_step(accum=2, remat="dots") step on the card from fp32
-    master weights: finite loss and grad norm, count 1, params moved, and neither
-    kernel launched (the train path runs naive attention and the plain scan);
-    then the flash eval step launches K1 (and, for the hybrid, K2) once per layer."""
+    master weights: finite loss and grad norm, count 1, params moved, and no
+    forward-only kernel launched (the train path runs naive attention); the
+    hybrid's scan runs K2's training pair, twice forward (the forward and the
+    remat's recompute) and once backward per layer and micro-batch.  Then the
+    flash eval step launches K1 (and, for the hybrid, the fused K2) once per
+    layer."""
     from repro_torch.launch.presets import StepSettings
     from repro_torch.launch.steps import make_eval_step, make_train_step
     from repro_torch.optim import adamw
@@ -414,14 +417,17 @@ def test_smoke_train_step_on_card_launches_no_kernel(arch):
     opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
     batch = api.demo_batch(cfg, 4, 32)
     step = make_train_step(cfg, opt_cfg, StepSettings(accum=2, remat="dots"))
-    before = fa.launches, ms.launches
+    before = fa.launches, ms.launches, dict(ms.kernel_launches)
     params, opt, metrics = step(params, adamw.init(opt_cfg, params), batch)
     torch.cuda.synchronize()
-    assert (fa.launches, ms.launches) == before
+    n_scan = cfg.num_layers if cfg.family == "hybrid" else 0
+    assert (fa.launches, ms.launches) == (before[0], before[1] + 3 * 2 * n_scan)
+    assert ms.kernel_launches == dict(before[2], train_fwd=before[2]["train_fwd"] + 4 * n_scan,
+                                      train_bwd=before[2]["train_bwd"] + 2 * n_scan)
     assert bool(torch.isfinite(metrics["loss"])) and float(metrics["grad_norm"]) > 0
     assert int(opt["count"]) == 1
     assert any(not torch.equal(a, b) for a, b in zip(before_params, _param_leaves(params)))
-    n_scan = cfg.num_layers if cfg.family == "hybrid" else 0
+    before = fa.launches, ms.launches
     flash = make_eval_step(cfg, StepSettings(attn_impl="flash"))(params, batch)
     torch.cuda.synchronize()
     assert (fa.launches, ms.launches) == (before[0] + cfg.num_layers, before[1] + n_scan)
@@ -432,9 +438,9 @@ def test_smoke_train_step_on_card_launches_no_kernel(arch):
 @pytest.mark.cuda
 def test_inloop_train_step_on_card_equals_the_flag_off_step():
     """A smoke falcon-mamba-7b make_train_step(accum=2, remat="dots") at 4 x 512
-    (micro-batches of 2 rows, 2 chunks of 256) from the same fp32 weights with
-    `ssm_inloop` off and on: the step-0 loss equal bit for bit (the
-    discretisation is elementwise), the grad norm within 1e-4, no launch."""
+    from the same fp32 weights with `ssm_inloop` off and on: the flag leaves
+    the kernel path as it is, so both run K2's training pair (3 launches a
+    layer and micro-batch) and give the same loss and grad norm bit for bit."""
     from repro_torch.launch.presets import StepSettings
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import adamw
@@ -451,9 +457,120 @@ def test_inloop_train_step_on_card_equals_the_flag_off_step():
             params, adamw.init(opt_cfg, params), batch)
         out[flag] = float(m["loss"]), float(m["grad_norm"])
     torch.cuda.synchronize()
-    assert (fa.launches, ms.launches) == before
-    assert out[True][0] == out[False][0]
-    assert abs(out[True][1] - out[False][1]) / out[False][1] < 1e-4
+    assert (fa.launches, ms.launches) == (before[0], before[1] + 2 * 3 * 2 * cfg.num_layers)
+    assert out[True] == out[False]
+
+
+def _train_scan_inputs(seed, B, S, Di, N, x_dtype):
+    """`_fused_inputs`' draws with delta = softplus(z - 3), nearer the models' time steps."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    z = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+    delta = torch.nn.functional.softplus(z(B, S, Di) - 3.0)
+    a = -torch.arange(1, N + 1, device="cuda", dtype=torch.float32) * (0.1 * z(Di, N)).exp()
+    return [delta, z(B, S, Di).to(getattr(torch, x_dtype)), a, z(B, S, N), z(B, S, N)]
+
+
+def _grads(fn, ins, dy, dh):
+    live = [t.clone().requires_grad_() for t in ins]
+    y, h = fn(*live)
+    grads = torch.autograd.grad((y * dy).sum() + (h * dh).sum(), live, materialize_grads=True)
+    return [y.detach(), h.detach(), *grads]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Di,N", [
+    (2, 2048, 8192, 16),     # falcon-mamba-7b's train micro-batch (4 x 2048, accum 2)
+    (4, 2048, 3200, 16),     # hymba-1.5b's
+    (2, 2048, 800, 16),      # hymba-1.5b's on a rank of model 4
+    (2, 1, 64, 16), (2, 300, 96, 16), (1, 300, 40, 4)])
+@pytest.mark.parametrize("x_dtype", ["bfloat16", "float32"])
+def test_train_scan_pair_matches_the_inloop_scan_on_card(B, S, Di, N, x_dtype):
+    """K2's training pair (`mamba_scan_train`, its backward through autograd)
+    against `scan_inloop` on x widened to fp32, on the card: y, h_S and the
+    gradients of delta, A, B and C of a weighted sum of y and h_S within 2e-5
+    of the largest (another order of sums), x's within a bf16 step (2^-7) of
+    the largest where x is bf16 (2e-5 in fp32); two runs equal bit for bit (no
+    atomics); one forward and one backward launch counted a run."""
+    _need_card()
+    ins = _train_scan_inputs(B + S + Di, B, S, Di, N, x_dtype)
+    g = torch.Generator(device="cuda").manual_seed(S)
+    dy = torch.randn((B, S, Di), generator=g, device="cuda")
+    dh = torch.randn((B, Di, N), generator=g, device="cuda")
+    before = ms.launches, dict(ms.kernel_launches), ms.backward_launches
+    got = _grads(lambda *t: ms.mamba_scan_train(*t, return_state=True), ins, dy, dh)
+    again = _grads(lambda *t: ms.mamba_scan_train(*t, return_state=True), ins, dy, dh)
+    torch.cuda.synchronize()
+    assert ms.launches == before[0] + 4 and ms.backward_launches == before[2] + 2
+    assert ms.kernel_launches == dict(before[1], train_fwd=before[1]["train_fwd"] + 2,
+                                      train_bwd=before[1]["train_bwd"] + 2)
+    want = _grads(lambda d, x, *t: ssm.scan_inloop(d, x.float(), *t, return_state=True), ins,
+                  dy, dh)
+    names = ("y", "h", "ddelta", "dx", "dA", "dB", "dC")
+    for name, a, b, c in zip(names, got, again, want):
+        assert torch.equal(a, b), name
+        assert a.shape == c.shape and a.dtype == c.dtype, name
+        tol = 2 ** -7 if (name == "dx" and x_dtype == "bfloat16") else 2e-5
+        err = float((a.float() - c.float()).abs().max() / c.float().abs().max().clamp_min(1e-30))
+        assert err <= tol, (name, err)
+
+
+@pytest.mark.cuda
+def test_four_layer_falcon_mamba_train_step_meets_the_cell_limits_on_card():
+    """4 of falcon-mamba-7b's layers at full width, one 2 x 2048 micro-batch, remat
+    "dots", fp32 master weights: the loss and each leaf's gradient through K2's
+    training pair against the plain scan's, by the train cell's gaps and
+    limits (`perfbench/limits/falcon-mamba-7b-l4.train.json`: a leaf's gap is
+    the norm of the difference over the larger of its norm and the median
+    leaf's); two runs give equal gradients, bit for bit."""
+    import os
+    from repro_torch.models.meta import leaves, tree_map
+    _need_card()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "perfbench", "limits", "falcon-mamba-7b-l4.train.json")) as f:
+        limits = json.load(f)
+    cfg = get_config("falcon-mamba-7b").replace(num_layers=4)
+    params = api.init_params(cfg, 0, dtype=torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 2048), generator=g, device="cuda")}
+
+    def loss_and_grads(impl):
+        live = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss = api.loss_fn(cfg, live, batch, remat="dots", scan_impl=impl)
+        return float(loss), torch.autograd.grad(loss, list(leaves(live)))
+    before = ms.backward_launches
+    loss, grads = loss_and_grads("kernel")
+    loss2, grads2 = loss_and_grads("kernel")
+    assert ms.backward_launches == before + 2 * cfg.num_layers
+    assert loss == loss2 and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    loss0, grads0 = loss_and_grads("plain")
+    assert abs(loss - loss0) / abs(loss0) <= limits["loss_gap"]
+    norms = sorted(float(t.norm()) for t in grads0)
+    median = norms[len(norms) // 2]
+    for a, b in zip(grads, grads0):
+        assert float((a - b).norm()) / max(float(b.norm()), median) <= limits["grad_gap"]
+
+
+@pytest.mark.cuda
+def test_train_step_record_counts_the_training_pair_on_card():
+    """A 4-layer falcon-mamba-7b make_train_step(accum=2, remat="dots") (smoke
+    widths): its step record carries 16 forward launches of K2's training
+    pair (4 layers x 2 micro-batches, again in the remat's recompute) and 8
+    backward ones (`mamba_scan.backward_launches`), no fused or K1 launch."""
+    from repro_torch import scope
+    from repro_torch.launch.presets import StepSettings
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+    _need_card()
+    cfg = smoke_config(get_config("falcon-mamba-7b")).replace(num_layers=4)
+    params = api.init_params(cfg, 0, dtype=torch.float32)
+    opt_cfg = adamw.AdamWConfig()
+    step = make_train_step(cfg, opt_cfg, StepSettings(accum=2, remat="dots"))
+    step(params, adamw.init(opt_cfg, params), api.demo_batch(cfg, 4, 256))
+    torch.cuda.synchronize()
+    rec = scope.steps[-1]
+    assert rec.kind == "train"
+    assert rec.counters == {"flash_attention.launches": 0, "mamba_scan.launches": 24,
+                            "mamba_scan.chunks": 0, "mamba_scan.backward_launches": 8}
 
 
 def _param_leaves(tree):

@@ -570,3 +570,150 @@ def test_inloop_train_step_captures_the_flag_off_site_table():
     sites = json.loads(next(l for l in res.stdout.splitlines()
                             if l.startswith("SITES"))[len("SITES"):])
     assert sites["True"] and sites["True"] == sites["False"]
+
+
+# --------------------------------------------------------------------------
+# K2's training entry point: its plain models, its CPU path, its fake ops
+# --------------------------------------------------------------------------
+
+def _train_inputs(seed, B, S, Di, N, dtype=torch.float64):
+    return [t.to(dtype) for t in _inloop_inputs(seed, B, S, Di, N)]
+
+
+@pytest.mark.parametrize("return_state", [True, False])
+@pytest.mark.parametrize("N", [4, 16])
+@pytest.mark.parametrize("S", [1, 7, 300])
+def test_train_scan_plain_models_match_autograd_through_the_inloop_scan(S, N, return_state):
+    """The training kernels' plain models (`ref.mamba_scan_train_ref`, then
+    `mamba_scan_train_bwd_ref` stepping each chunk of `train_chunk(N)` steps
+    backwards from its recomputed states; 300 is no multiple of the chunk and
+    1 and 7 are under it) against `scan_inloop` and autograd through it, in
+    float64: y, h_S, and the gradients of delta, x, A, B and C of a weighted
+    sum of y (and of h_S, when it is returned) within 1e-12 of the largest."""
+    from repro_torch.kernels import ref
+    B, Di = 2, 6
+    ins = _train_inputs(S * N, B, S, Di, N)
+    rng = np.random.default_rng(S + N)
+    dy = torch.from_numpy(rng.standard_normal((B, S, Di)))
+    dh = torch.from_numpy(rng.standard_normal((B, Di, N))) if return_state else None
+    live = [t.clone().requires_grad_() for t in ins]
+    y, h = ssm.scan_inloop(*live, return_state=True)
+    loss = (y * dy).sum() + ((h * dh).sum() if return_state else 0)
+    want = torch.autograd.grad(loss, live, materialize_grads=True)
+    y2, h2, states = ref.mamba_scan_train_ref(*ins)
+    chunk = ref.train_chunk(N)
+    assert states.shape == (B, -(-S // chunk), Di, N) and S % chunk != 0
+    got = ref.mamba_scan_train_bwd_ref(*ins, states, dy, dh)
+    for name, a, b in zip(("y", "h", "ddelta", "dx", "dA", "dB", "dC"), (y2, h2, *got),
+                          (y, h, *want)):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        b = b.detach()
+        assert float((a - b).abs().max()) <= 1e-12 * max(float(b.abs().max()), 1.0), name
+
+
+def test_train_chunk_keeps_a_warp_s_states_in_32_kb():
+    """`train_chunk(N)`: min(32, 256 / P), P = N rounded up to a power of two
+    (at least 4), so that chunk x P x 32 channels of fp32 states are 32 KB or
+    less (csrc/mamba_scan_train.cu's chunk_of)."""
+    from repro_torch.kernels import ref
+    assert [ref.train_chunk(n) for n in (1, 4, 5, 8, 9, 16, 17, 32)] == [32, 32, 32, 32, 16,
+                                                                          16, 8, 8]
+    for n in range(1, ms.MAX_STATE + 1):
+        p = 1 << max(2, (n - 1).bit_length())
+        assert ref.train_chunk(n) * p * 32 * 4 <= 32 * 1024
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_train_entry_on_cpu_is_the_inloop_scan_bit_for_bit(x_dtype):
+    """`mamba_scan_train` on CPU tensors is `scan_inloop` on x widened to fp32:
+    y, h_S and the gradients of every input (x's in x's dtype) equal bit for
+    bit, and no launch is counted."""
+    delta, x, a, b, c = _inloop_inputs(3, 2, 100, 16, 16)
+    x = x.to(getattr(torch, x_dtype))
+    w = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 100, 16)).astype(np.float32))
+    before = ms.launches, dict(ms.kernel_launches), ms.backward_launches
+    got = []
+    for fn in (lambda *t: ops.mamba_scan_train(*t, return_state=True),
+               lambda d, xx, *t: ssm.scan_inloop(d, xx.float(), *t, return_state=True)):
+        live = [t.clone().requires_grad_() for t in (delta, x, a, b, c)]
+        y, h = fn(*live)
+        got.append((y, h, torch.autograd.grad((y * w).sum() + h.sum(), live)))
+    (y, h, grads), (y0, h0, want) = got
+    assert torch.equal(y, y0) and torch.equal(h, h0)
+    assert grads[1].dtype == x.dtype
+    for g, g0 in zip(grads, want):
+        assert torch.equal(g, g0)
+    assert (ms.launches, ms.kernel_launches, ms.backward_launches) == before
+
+
+@pytest.mark.parametrize("return_state", [True, False])
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_train_ops_fake_implementations_give_the_kernels_shapes(x_dtype, return_state):
+    """Under `FakeTensorMode` the training entry point runs its custom ops'
+    fake implementations, forward and backward: y [B,S,Di] and h_S [B,Di,N]
+    (or [0]) fp32, the saved states [B, ceil(S / chunk), Di, N] fp32, and
+    gradients in their inputs' shapes and dtypes (x's in x's); no launch."""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+    from repro_torch.kernels import ref
+    B, S, Di, N = 2, 40, 24, 16
+    before = ms.launches, dict(ms.kernel_launches), ms.backward_launches
+    with FakeTensorMode():
+        delta, a = torch.rand(B, S, Di), -torch.rand(Di, N)
+        x = torch.randn(B, S, Di, dtype=getattr(torch, x_dtype))
+        b, c = torch.randn(B, S, N), torch.randn(B, S, N)
+        y, h, states = torch.ops.repro_torch.mamba_scan_train(delta, x, a, b, c, return_state)
+        assert all(isinstance(t, FakeTensor) for t in (y, h, states))
+        assert y.shape == (B, S, Di) and y.dtype == torch.float32
+        assert h.shape == ((B, Di, N) if return_state else (0,)) and h.dtype == torch.float32
+        assert states.shape == (B, -(-S // ref.train_chunk(N)), Di, N)
+        live = [t.requires_grad_() for t in (delta, x, a, b, c)]
+        out = ms.mamba_scan_train(*live, return_state=return_state)
+        y = out[0] if return_state else out
+        grads = torch.autograd.grad(y.sum(), live)
+        for g, t in zip(grads, live):
+            assert isinstance(g, FakeTensor) and g.shape == t.shape and g.dtype == t.dtype
+    assert (ms.launches, ms.kernel_launches, ms.backward_launches) == before
+
+
+def test_fake_train_step_runs_through_the_training_op(monkeypatch):
+    """A falcon-mamba-7b train step at full width and 2 layers (2 x 64, accum
+    2, remat "dots") on fake tensors: every layer's scan goes through K2's
+    training entry point, once in each micro-batch's forward and again in its
+    remat's recompute, and no launch is counted."""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+    cfg = get_config("falcon-mamba-7b").replace(num_layers=2)
+    calls = []
+    real = ms.mamba_scan_train
+    monkeypatch.setattr(ms, "mamba_scan_train", lambda *a, **k: calls.append(1) or real(*a, **k))
+    before = ms.launches, dict(ms.kernel_launches), ms.backward_launches
+    batch = api.demo_batch(cfg, 2, 64, device="cpu")
+    opt_cfg = adamw.AdamWConfig()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        params = tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype),
+                          api.abstract_params(cfg, torch.float32))
+        opt = adamw.init(opt_cfg, params)
+        step = make_train_step(cfg, opt_cfg, StepSettings(accum=2, remat="dots"))
+        params, opt, metrics = step(params, opt, batch)
+        assert isinstance(metrics["loss"], FakeTensor)
+    assert len(calls) == cfg.num_layers * 2 * 2
+    assert (ms.launches, ms.kernel_launches, ms.backward_launches) == before
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_cpu_training_through_the_kernel_path_is_the_plain_path(arch):
+    """On real CPU tensors a loss under autograd with `scan_impl="kernel"` (the
+    train step's) takes the plain scan: the loss and every gradient equal
+    `scan_impl="plain"`'s bit for bit (remat "dots", fp32)."""
+    cfg, _, _, p = _setup(arch, "float32")
+    batch = api.demo_batch(cfg, 2, 24, device="cpu")
+    got = []
+    for impl in ("kernel", "plain"):
+        live = tree_map(lambda t: t.detach().requires_grad_(), p)
+        loss = api.loss_fn(cfg, live, batch, scan_impl=impl, remat="dots")
+        got.append((loss, torch.autograd.grad(loss, list(leaves(live)))))
+    (loss, grads), (loss0, grads0) = got
+    assert torch.equal(loss, loss0)
+    for g, g0 in zip(grads, grads0):
+        assert torch.equal(g, g0)

@@ -274,10 +274,13 @@ def test_synthetic_tokens_are_bitwise_the_reference_stream(arch):
 # --------------------------------------------------------------------------
 
 def test_kernel_wrappers_raise_under_autograd():
-    """K1 and K2 have no backward: with grad mode on and an input that requires
-    grad, each wrapper raises instead of returning an output without a gradient
-    (on the CPU, where it would run the plain version, too); under no_grad, or
-    with no input requiring grad, it runs."""
+    """K1 and K2's prefill entry points have no backward: with grad mode on and
+    an input that requires grad, each wrapper raises instead of returning an
+    output without a gradient (on the CPU, where it would run the plain
+    version, too); under no_grad, or with no input requiring grad, it runs.
+    A loss with flash attention raises; one with `scan_impl="kernel"` takes
+    K2's differentiable training entry point, which on the CPU is the plain
+    scan: the same loss and gradients as `scan_impl="plain"`, bit for bit."""
     q = torch.randn(1, 2, 8, 16)
     k, v = torch.randn(1, 2, 8, 16), torch.randn(1, 2, 8, 16)
     a, bx, c = torch.rand(1, 8, 4, 2), torch.randn(1, 8, 4, 2), torch.randn(1, 8, 2)
@@ -286,15 +289,26 @@ def test_kernel_wrappers_raise_under_autograd():
         fa.flash_attention(qr, k, v)
     with pytest.raises(RuntimeError, match="no backward"):
         ms.mamba_scan(ar, bx, c)
+    delta, x = torch.rand(1, 8, 4), torch.randn(1, 8, 4)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ms.mamba_scan_fused(delta.clone().requires_grad_(), x, -torch.rand(4, 2),
+                            torch.randn(1, 8, 2), c)
     with torch.no_grad():
         assert torch.equal(fa.flash_attention(qr, k, v), fa.flash_attention(q, k, v))
         assert torch.equal(ms.mamba_scan(ar, bx, c), ms.mamba_scan(a, bx, c))
     cfg, _, _, p = fp32_pair("hymba-1.5b")
     batch, _ = batch_pair(cfg, 2, 16)
     live = tree_map(lambda t: t.detach().requires_grad_(), p)
-    for kw in ({"attn_impl": "flash", "scan_impl": "plain"}, {"scan_impl": "kernel"}):
-        with pytest.raises(RuntimeError, match="no backward"):
-            api.loss_fn(cfg, live, batch, **kw)
+    with pytest.raises(RuntimeError, match="no backward"):
+        api.loss_fn(cfg, live, batch, attn_impl="flash", scan_impl="plain")
+    got = []
+    for impl in ("kernel", "plain"):
+        loss = api.loss_fn(cfg, live, batch, scan_impl=impl)
+        got.append((loss, torch.autograd.grad(loss, list(leaves(live)), allow_unused=True)))
+    (loss, grads), (loss0, grads0) = got
+    assert torch.equal(loss, loss0)
+    for g, g0 in zip(grads, grads0):
+        assert (g is None and g0 is None) or torch.equal(g, g0)
 
 
 def test_vocab_parallel_pick_takes_plain_tensors():
