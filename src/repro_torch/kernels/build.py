@@ -15,6 +15,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 PACKAGE = Path(__file__).resolve().parents[1]
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -70,3 +72,18 @@ def build(source: Path) -> str:
 def load(source: Path) -> ctypes.CDLL:
     build(source)
     return ctypes.CDLL(str(library_path(source)))
+
+
+def eager(t) -> bool:
+    """Whether a launch on `t` may skip its custom op and run the launch
+    directly: a plain CUDA tensor (not fake, not a subclass), no dispatch mode
+    on (the fake mode, the flop counter and the capture's recorder see the
+    op) and no compile tracing.  The op's dispatch costs more host time than
+    the launch it wraps."""
+    return (type(t) is torch.Tensor and t.is_cuda and not torch._C._len_torch_dispatch_stack()
+            and not torch.compiler.is_compiling())
+
+
+def stream(device: torch.device) -> int:
+    """The raw handle of `device`'s current CUDA stream, for a launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

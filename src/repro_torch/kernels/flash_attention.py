@@ -20,7 +20,9 @@ input that requires grad) rather than return an output without a gradient.
 The kernel is the custom op `repro_torch::flash_attention_fwd`: its CUDA
 implementation is the launch, and its fake implementation gives the output's
 shape, dtype and layout, so that a step on fake tensors (`FakeTensorMode`,
-the dry-run's, on any device) runs through it with no launch counted.  Its
+the dry-run's, on any device) runs through it with no launch counted.  A
+plain CUDA tensor with no dispatch mode on launches directly
+(`build.eager`), past the op's dispatcher.  Its
 FLOPs are counted as `torch.utils.flop_counter` counts the plain version's
 two products, 4·B·H·Sq·Skv·D.
 """
@@ -41,6 +43,7 @@ MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0   # kernel launches; a run zeroes it to count one path's launches
+window_launches = 0   # the launches with a window > 0 (sliding-window layers)
 # the same launches, by kernel
 kernel_launches = {"tensor_core": 0, "tensor_core_fp32": 0}
 
@@ -116,16 +119,15 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0, scale=None):
                                    q_offset=q_offset, scale=scale)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
-    return torch.ops.repro_torch.flash_attention_fwd(q, k, v, bool(causal), window,
-                                                     int(q_offset), float(scale))
+    args = (q, k, v, bool(causal), window, int(q_offset), float(scale))
+    if _build.eager(q):
+        return _launch(*args)
+    return torch.ops.repro_torch.flash_attention_fwd(*args)
 
 
-@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=(),
-                         device_types="cuda")
-def _flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-                         window: int, q_offset: int, scale: float) -> torch.Tensor:
+def _launch(q, k, v, causal, window, q_offset, scale):
     """The launch: one of the two kernels (`kernel_for`) on the current stream."""
-    global launches
+    global launches, window_launches
     B, H, Sq, D = q.shape
     K, Skv = k.shape[1], k.shape[2]
     kernel = kernel_for(q.dtype, D)
@@ -138,17 +140,24 @@ def _flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, caus
     if B == 0 or Sq == 0:
         return out
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = _lib().repro_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
             B, H, K, Sq, Skv, D,
             *(t.stride(i) for t in (q, k, v, out) for i in (0, 2, 1)),
-            int(causal), window, q_offset, scale, stream)
+            int(causal), window, q_offset, scale, _build.stream(q.device))
     if err != 0:
         raise RuntimeError(f"flash attention {kernel} kernel launch failed: cudaError {err}")
     launches += 1
+    window_launches += window > 0
     kernel_launches[kernel] += 1
     return out
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def _flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                         window: int, q_offset: int, scale: float) -> torch.Tensor:
+    return _launch(q, k, v, causal, window, q_offset, scale)
 
 
 @_flash_attention_fwd.register_fake

@@ -37,7 +37,9 @@ Training has its own entry point and source, `csrc/mamba_scan_train.cu`
 Each custom op's CUDA implementation is the launch, and its fake
 implementation gives its outputs' shapes, so that a step on fake tensors
 (`FakeTensorMode`, the dry-run's, on any device) runs through it with no
-launch counted.  The FLOPs of each are counted as `torch.utils.flop_counter`
+launch counted; the fused entry point launches directly on a plain CUDA
+tensor with no dispatch mode on (`build.eager`), past the op's dispatcher.
+The FLOPs of each are counted as `torch.utils.flop_counter`
 counts its plain version (the readout's products, 2·B·S·Di·N, and their
 gradients, 4·B·S·Di·N; the recurrence and the discretisation are
 elementwise).  `launches` counts the calls that launched any kernel,
@@ -204,13 +206,13 @@ def mamba_scan_fused(delta, x, a, b, c, *, return_state=False):
         return mamba_scan_fused_ref(delta, x, a, b, c, return_state=return_state)
     if delta.device.type not in ("cpu", "cuda"):
         raise ValueError(f"mamba_scan_fused runs on cpu or cuda, not {delta.device}")
-    y, h = torch.ops.repro_torch.mamba_scan_fused(delta, x, a, b, c, bool(return_state))
+    args = (delta, x, a, b, c, bool(return_state))
+    y, h = _launch_fused(*args) if _build.eager(delta) else \
+        torch.ops.repro_torch.mamba_scan_fused(*args)
     return (y, h) if return_state else y
 
 
-@torch.library.custom_op("repro_torch::mamba_scan_fused", mutates_args=(), device_types="cuda")
-def _mamba_scan_fused(delta: torch.Tensor, x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                      c: torch.Tensor, return_state: bool) -> tuple[torch.Tensor, torch.Tensor]:
+def _launch_fused(delta, x, a, b, c, return_state):
     """The launch(es) on the current stream: one pass, or two where time is
     chunked (`scan_chunks`).  Returns (y, h_S), h_S empty [0] when
     `return_state` is False."""
@@ -229,17 +231,23 @@ def _mamba_scan_fused(delta: torch.Tensor, x: torch.Tensor, a: torch.Tensor, b: 
     scratch = (torch.empty((2, parts - 1, B, Di, N), dtype=torch.float32, device=dev)
                if parts > 1 else None)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
         err = _lib().repro_mamba_scan_fused_fwd(
             delta.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16), a.data_ptr(),
             b.data_ptr(), c.data_ptr(), y.data_ptr(), h.data_ptr() if return_state else None,
-            scratch.data_ptr() if scratch is not None else None, B, S, Di, N, chunk, stream)
+            scratch.data_ptr() if scratch is not None else None, B, S, Di, N, chunk,
+            _build.stream(dev))
     if err != 0:
         raise RuntimeError(f"fused mamba scan kernel launch failed: cudaError {err}")
     launches += 1
     chunks += parts
     kernel_launches["fused"] += 1
     return y, h
+
+
+@torch.library.custom_op("repro_torch::mamba_scan_fused", mutates_args=(), device_types="cuda")
+def _mamba_scan_fused(delta: torch.Tensor, x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                      c: torch.Tensor, return_state: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    return _launch_fused(delta, x, a, b, c, return_state)
 
 
 @_mamba_scan_fused.register_fake

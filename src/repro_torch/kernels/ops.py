@@ -17,8 +17,9 @@ training scan on the card.
 
 Each launch counter (`flash_attention.launches`, `mamba_scan.launches`) is
 incremented where its kernel launches; `flash_attention.kernel_launches`
-splits K1's by the kernel that ran, `mamba_scan.kernel_launches` K2's by the
-entry point.
+splits K1's by the kernel that ran, `flash_attention.window_launches` counts
+K1's launches with a window, `mamba_scan.kernel_launches` K2's by the entry
+point.
 """
 from __future__ import annotations
 

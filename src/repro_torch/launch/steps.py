@@ -41,10 +41,12 @@ from repro_torch.scope import scope, span, step as step_record
 
 def launch_counts() -> Dict[str, int]:
     """The kernel counters a step record keeps the change of: K1's and K2's
-    launches, K2's chunks of time (chunks per launch > 1: the chunked-time
+    launches, K1's launches with a window (one per sliding-window layer of a
+    prefill), K2's chunks of time (chunks per launch > 1: the chunked-time
     branch) and its training backward's launches (one per SSM layer and
     micro-batch of a train step on the card)."""
     return {"flash_attention.launches": flash_attention.launches,
+            "flash_attention.window_launches": flash_attention.window_launches,
             "mamba_scan.launches": mamba_scan.launches,
             "mamba_scan.chunks": mamba_scan.chunks,
             "mamba_scan.backward_launches": mamba_scan.backward_launches}

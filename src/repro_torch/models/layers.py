@@ -99,6 +99,26 @@ def apply_rope(cfg, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     if cfg.rope in ("none", "learned"):
         return x
     dh = x.shape[-1]
+    rot, cos, sin = _rope_tables(cfg, positions, dh, x.dtype)
+    if rot == dh:
+        return _rotate_half(x, cos, sin)
+    return torch.cat([_rotate_half(x[..., :rot], cos, sin), x[..., rot:]], dim=-1)
+
+
+_last_tables = None   # (cfg, positions, its version, dh, dtype, tables) of the last call
+
+
+def _rope_tables(cfg, positions: torch.Tensor, dh: int, dtype) -> tuple:
+    """(rotated width, cos, sin [..., S, 1, n_freq] in `dtype`) for `apply_rope`.
+    A step rotates every layer's q and k by one positions tensor, so the last
+    call's tables are given again for the same cfg, the same positions tensor
+    (unchanged since: its version counter), head dim and dtype."""
+    global _last_tables
+    key = None if positions.is_inference() else (positions._version, dh, dtype)
+    last = _last_tables
+    if key is not None and last is not None and last[0] is cfg and last[1] is positions \
+            and last[2:5] == key:
+        return last[5]
     if cfg.rope == "mrope":
         angles = _mrope_angles(cfg, positions, dh)
         rot = dh
@@ -106,11 +126,11 @@ def apply_rope(cfg, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         rot = int(dh * cfg.rope_fraction)
         rot -= rot % 2
         angles = _rope_angles(positions, rot // 2, cfg.rope_theta)
-    cos = torch.cos(angles)[..., None, :].to(x.dtype)   # [B,S,1,n_freq]
-    sin = torch.sin(angles)[..., None, :].to(x.dtype)
-    if rot == dh:
-        return _rotate_half(x, cos, sin)
-    return torch.cat([_rotate_half(x[..., :rot], cos, sin), x[..., rot:]], dim=-1)
+    tables = (rot, torch.cos(angles)[..., None, :].to(dtype),    # [B,S,1,n_freq]
+              torch.sin(angles)[..., None, :].to(dtype))
+    if key is not None:
+        _last_tables = (cfg, positions, *key, tables)
+    return tables
 
 
 # --------------------------------------------------------------------------

@@ -295,6 +295,33 @@ def test_prefill_step_record_carries_the_kernel_launches(arch):
     assert rec.spans["layer"][0] == cfg.num_layers
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,windows", [("hymba-1.5b", (16, 0, 16)), ("chatglm3-6b", ())])
+def test_prefill_step_record_counts_k1_window_launches(arch, windows):
+    """`flash_attention.window_launches` counts the K1 launches of a prefill's
+    windowed layers, as the benchmark's k1_roofline.hybrid checks them: 2 of a
+    smoke hymba-1.5b's 3 layers (a global one between two of window 16, on
+    prompts longer than the window), none of chatglm3-6b's.  The step record
+    carries the change."""
+    from repro_torch import scope
+    from repro_torch.launch.presets import StepSettings
+    from repro_torch.launch.steps import make_prefill_step
+    _need_card()
+    cfg = smoke_config(get_config(arch))
+    if windows:
+        cfg = cfg.replace(num_layers=len(windows), window_pattern=windows)
+    p = api.init_params(cfg, 0)
+    step = make_prefill_step(cfg, StepSettings(attn_impl="flash"), cache_len=65)
+    before = fa.window_launches
+    step(p, api.demo_batch(cfg, 2, 64))
+    torch.cuda.synchronize()
+    rec = scope.steps[-1]
+    n = sum(w > 0 for w in windows)
+    assert fa.window_launches == before + n
+    assert rec.counters["flash_attention.window_launches"] == n
+    assert rec.counters["flash_attention.launches"] == cfg.num_layers
+
+
 # fp32 head dims the 3xTF32 kernel pads to 64, 128 and 256, with and without a window
 # and a q_offset: B, H, K, Sq, Skv, D, window, q_offset
 FP32_CASES = [(2, 4, 2, Sq, Skv, D, w, off) for D in (64, 120, 128, 192, 256)
@@ -569,7 +596,8 @@ def test_train_step_record_counts_the_training_pair_on_card():
     torch.cuda.synchronize()
     rec = scope.steps[-1]
     assert rec.kind == "train"
-    assert rec.counters == {"flash_attention.launches": 0, "mamba_scan.launches": 24,
+    assert rec.counters == {"flash_attention.launches": 0,
+                            "flash_attention.window_launches": 0, "mamba_scan.launches": 24,
                             "mamba_scan.chunks": 0, "mamba_scan.backward_launches": 8}
 
 
@@ -799,6 +827,46 @@ def test_register_fake_shapes_match_the_kernels_outputs(dtype, D, return_state):
         assert (f.shape, f.dtype, f.stride(), f.device) == (r.shape, r.dtype, r.stride(), r.device)
     got = y_only[0] if return_state else y_only
     assert got.shape == real[1].shape
+
+
+def test_eager_launch_takes_only_plain_cuda_tensors():
+    """`build.eager`: a CPU tensor, a fake tensor and any tensor under a
+    dispatch mode go through the custom ops (or the plain versions), never
+    past them."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.kernels import build
+    t = torch.zeros(2)
+    assert not build.eager(t)
+    with FakeTensorMode() as mode:
+        assert not build.eager(mode.from_tensor(t))
+    with FlopCounterMode(display=False):
+        assert not build.eager(t)
+
+
+@pytest.mark.cuda
+def test_eager_launch_equals_the_custom_op_on_card():
+    """K1 and the fused K2 launched past their custom ops give the ops' bits
+    and count their launches; under a dispatch mode (the flop counter) they
+    go through the ops, which the mode sees."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.kernels import build
+    _need_card()
+    (q, _), (k, _), (v, _) = qkv(64, 2, 5, 1, 200, 200, 64, "bfloat16")
+    q, k, v = q.cuda(), k.cuda(), v.cuda()
+    delta, x, a, b, c = _fused_inputs(5, 2, 300, 64, 16, "bfloat16")
+    assert build.eager(q)
+    counts = (fa.launches, ms.launches)
+    got = fa.flash_attention(q, k, v, window=48)
+    got_y, got_h = ms.mamba_scan_fused(delta, x, a, b, c, return_state=True)
+    assert (fa.launches, ms.launches) == (counts[0] + 1, counts[1] + 1)
+    want = torch.ops.repro_torch.flash_attention_fwd(q, k, v, True, 48, 0, 64 ** -0.5)
+    want_y, want_h = torch.ops.repro_torch.mamba_scan_fused(delta, x, a, b, c, True)
+    assert torch.equal(got, want) and got.stride() == want.stride()
+    assert torch.equal(got_y, want_y) and torch.equal(got_h, want_h)
+    with FlopCounterMode(display=False) as flops:
+        fa.flash_attention(q, k, v)
+    assert flops.get_total_flops() == 4 * 2 * 5 * 200 * 200 * 64
 
 
 @pytest.mark.cuda

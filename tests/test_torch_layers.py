@@ -105,6 +105,70 @@ def test_standard_rope_is_a_rotation():
     assert torch.equal(L.apply_rope(cfg, x, torch.zeros(2, 8, dtype=torch.long)), x)
 
 
+def _fresh_rope(cfg, x, positions):
+    L._last_tables = None
+    return L.apply_rope(cfg, x, positions)
+
+
+def _count_angles(monkeypatch):
+    calls = []
+    real = L._rope_angles
+    monkeypatch.setattr(L, "_rope_angles", lambda *a: calls.append(1) or real(*a))
+    return calls
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rope_tables_are_made_once_per_positions_tensor(dtype, monkeypatch):
+    """apply_rope keeps the last call's cos/sin: q and k of every layer that
+    take one positions tensor make them once, with the bits of tables made
+    afresh; new positions, positions changed in place, another head dim or
+    dtype, and inference tensors make them again."""
+    cfg, _ = _cfgs(dtype)
+    rng = np.random.default_rng(3)
+    q, _ = randn(rng, (2, 12, cfg.num_heads, cfg.head_dim), dtype)
+    k, _ = randn(rng, (2, 12, cfg.num_kv_heads, cfg.head_dim), dtype)
+    pos = torch.arange(3, 15)[None].expand(2, 12).contiguous()
+    want_q, want_k = _fresh_rope(cfg, q, pos), _fresh_rope(cfg, k, pos)
+    calls = _count_angles(monkeypatch)
+    L._last_tables = None
+    for _ in range(3):                                  # three layers
+        assert torch.equal(L.apply_rope(cfg, q, pos), want_q)
+        assert torch.equal(L.apply_rope(cfg, k, pos), want_k)
+    assert len(calls) == 1
+    L.apply_rope(cfg, k, pos.clone())                   # equal values, another tensor
+    assert len(calls) == 2
+    pos.add_(1)                                         # changed in place
+    got = L.apply_rope(cfg, q, pos)
+    assert len(calls) == 3 and torch.equal(got, _fresh_rope(cfg, q, pos))
+    L.apply_rope(cfg, q.float() if dtype == "bfloat16" else q.bfloat16(), pos)
+    assert len(calls) == 5                              # (the fresh one above, then this)
+    with torch.inference_mode():
+        ipos = torch.arange(12)[None].expand(2, 12)
+        for _ in range(2):
+            L.apply_rope(cfg, q, ipos)
+    assert len(calls) == 7
+
+
+def test_prefill_makes_rope_tables_once():
+    """A prefill of every layer's q and k makes RoPE's cos/sin once, from the
+    step's one positions tensor."""
+    from repro_torch.models import transformer
+    cfg = smoke_config(get_config("chatglm3-6b"))
+    p = api.init_params(cfg, 0, device="cpu")
+    batch = api.demo_batch(cfg, 2, 16, device="cpu")
+    L._last_tables = None
+    want = transformer.prefill(cfg, p, batch)
+    mp = pytest.MonkeyPatch()
+    calls = _count_angles(mp)
+    try:
+        L._last_tables = None
+        got = transformer.prefill(cfg, p, batch)
+    finally:
+        mp.undo()
+    assert cfg.num_layers > 1 and len(calls) == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1]["k"], want[1]["k"])
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_swiglu_matches_reference(dtype):
     cfg, jcfg, jp, p = _params(dtype)

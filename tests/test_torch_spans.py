@@ -101,7 +101,8 @@ def test_prefill_makes_one_record_per_call(arch):
         assert abs(sum(s for _, _, s in rec.spans.values()) - duration) <= 0.02 * duration
         for count, inclusive, own in rec.spans.values():
             assert count >= 1 and 0 <= own <= inclusive <= duration
-        assert rec.counters == {"flash_attention.launches": 0, "mamba_scan.launches": 0,
+        assert rec.counters == {"flash_attention.launches": 0,
+                                "flash_attention.window_launches": 0, "mamba_scan.launches": 0,
                                 "mamba_scan.chunks": 0, "mamba_scan.backward_launches": 0}
         assert rec.unix_end_ns - rec.unix_start_ns == duration
 
