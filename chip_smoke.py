@@ -290,6 +290,9 @@ SCAN_CASES = [(1, 128, 64, 8), (2, 256, 128, 16), (1, 512, 256, 16), (1, 96, 64,
 SCAN_PATH_SHAPES = [(4, 1024, 8192, 16), (4, 2048, 3200, 16), (2, 2048, 800, 16)]
 # the fused K2's chunked-time branch: small B x Di, S not a multiple of the chunk
 SCAN_CHUNKED_CASES = [(1, 1000, 96, 16), (2, 300, 64, 4), (1, 777, 40, 16), (3, 513, 100, 8)]
+# the fused K2 at the benchmark's prefill shapes, one request of its mean prompt
+# (falcon-mamba-7b, 3444 tokens) and of its longest (hymba-1.5b, 7936 tokens)
+SCAN_PREFILL_SHAPES = [(1, 3444, 8192, 16), (1, 7936, 3200, 16)]
 SCAN_TOL = 1e-4
 # K2's training pair (csrc/mamba_scan_train.cu) against the plain training scan: the
 # train micro-batch shapes of falcon-mamba-7b (4 x 2048, accum 2), hymba-1.5b and its
@@ -677,43 +680,63 @@ def scan_case(torch, ms, ref, case, seed):
 
 def fused_scan_case(torch, ms, ref, case, seed, x_dtype="bfloat16"):
     """K2's fused entry point vs its plain version on one shape, with the final
-    state: delta = softplus(z - 1), A = -(1..N) per channel (the model's a_log
-    init) times exp(0.1 z), x in `x_dtype`, B and C = z.  Also which chunk count
-    the kernel took."""
+    state, as the mixer calls it: the raw dt projection z - 1 (x's dtype), its
+    bias 0.5 z, A = -(1..N) per channel (the model's a_log init) times exp(0.1 z),
+    x in `x_dtype`, B and C = z, D = z, and the gate z the second half of an
+    in_proj output [B, S, 2 Di] (a strided view).  y is gated, in x's dtype:
+    fp32 within SCAN_TOL of the plain version scaled by the gate, (1 + |silu
+    z|); bf16 within BF16_MAX_STEPS steps of that plus the same.  Also which
+    chunk count the kernel took."""
     B, S, Di, N = case
+    F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(seed)
     z = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
-    delta = torch.nn.functional.softplus(z(B, S, Di) - 1.0)
+    dtype = getattr(torch, x_dtype)
+    dt = (z(B, S, Di) - 1.0).to(dtype)
     a = -torch.arange(1, N + 1, device="cuda", dtype=torch.float32) * (0.1 * z(Di, N)).exp()
-    x = z(B, S, Di).to(getattr(torch, x_dtype))
+    x = z(B, S, Di).to(dtype)
     b, c = z(B, S, N), z(B, S, N)
-    y, h = ms.mamba_scan_fused(delta, x, a, b, c, return_state=True)
+    ins = (dt, x, a, b, c, 0.5 * z(Di), z(Di), z(B, S, 2 * Di).to(dtype)[..., Di:])
+    y, h = ms.mamba_scan_fused(*ins, return_state=True)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()                                 # the plain loop runs once per case
-    plain_y, plain_h = ref.mamba_scan_fused_ref(delta, x, a, b, c, return_state=True)
+    plain_y, plain_h = ref.mamba_scan_fused_ref(*ins, return_state=True)
     end.record()
     end.synchronize()
     plain_ms = start.elapsed_time(end)
-    err = float((y - plain_y).abs().max())
+    diff = (y.float() - plain_y.float()).abs()
+    gate = 1.0 + F.silu(ins[7].float()).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    gate_err = float((diff / gate).max()) if diff.numel() else 0.0
     h_err = float((h - plain_h).abs().max())
+    steps = None
     check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all()),
           f"non-finite fused scan output {case}")
-    check(err < SCAN_TOL and h_err < SCAN_TOL,
-          f"fused scan kernel vs plain {case} x {x_dtype}: y {err}, h_S {h_err} >= {SCAN_TOL}")
+    if x_dtype == "bfloat16" and diff.numel():
+        steps = float((diff / (BF16_STEP * plain_y.float().abs() + SCAN_TOL * gate)).max())
+        check(steps <= BF16_MAX_STEPS and h_err < SCAN_TOL,
+              f"fused scan kernel vs plain {case} x bf16: {steps} bf16 steps apart > "
+              f"{BF16_MAX_STEPS}, h_S {h_err}")
+    else:
+        check(gate_err < SCAN_TOL and h_err < SCAN_TOL,
+              f"fused scan kernel vs plain {case} x {x_dtype}: y {gate_err} (over the gate), "
+              f"h_S {h_err} >= {SCAN_TOL}")
     iters = 20 if B * S * Di * N < (1 << 26) else 10
-    kernel_ms = cuda_ms(torch, lambda: ms.mamba_scan_fused(delta, x, a, b, c,
-                                                            return_state=True), iters)
+    kernel_ms = cuda_ms(torch, lambda: ms.mamba_scan_fused(*ins, return_state=True), iters)
     # per (b, t, d, n): delta*A, exp, the recurrence's mul and add, *B, the readout's
-    # mul and add; per (b, t, d): delta*x
-    flops = 7 * B * S * Di * N + B * S * Di
-    nbytes = sum(t.numel() * t.element_size() for t in (delta, x, a, b, c, y, h))
+    # mul and add; per (b, t, d): delta's bias add, exp and log1p, delta*x, the skip's
+    # mul and add, silu's exp, add and divide, the gate's mul
+    flops = 7 * B * S * Di * N + 10 * B * S * Di
+    # each tensor once: dt, x, z and y in x's dtype, A, B, C, the bias, D and h_S fp32
+    nbytes = sum(t.numel() * t.element_size() for t in (*ins, y, h))
     t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES
     chunks = ms.scan_chunks(B, S, Di, N, torch.cuda.get_device_properties(0).multi_processor_count)
     return dict(case=list(case), x_dtype=x_dtype, chunks=chunks, max_abs_err=err,
-                h_max_abs_err=h_err, tol=SCAN_TOL,
-                median_abs_out=float(plain_y.abs().median()), kernel_ms=kernel_ms,
-                plain_ms=plain_ms, library_ms=None, bound_ms=1e3 * max(t_ops, t_bytes),
+                gate_err=gate_err, bf16_steps=steps, h_max_abs_err=h_err, tol=SCAN_TOL,
+                median_abs_out=float(plain_y.float().abs().median()) if S else 0.0,
+                kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 gflop=flops / 1e9, mbytes=nbytes / 1e6)
 
@@ -2168,8 +2191,8 @@ def ring_cache(rt):
 def kernels_line(main_launches, variant_path, scan_variants):
     """The `{"kernels": [...]}` entries: K1's bf16 wgmma kernel at chatglm3-6b's
     path shape, K1's 3xTF32 kernel at hymba-1.5b's fp32 mesh prefill's global
-    shape, and K2 with its fused entry point at falcon-mamba-7b's; each with its
-    main-path launches, and its other shapes (K2: both entry points) beside."""
+    shape, and K2 with its fused entry point at falcon-mamba-7b's prefill of
+    its cell's mean prompt (1 x 3444); each with its main-path launches, and its other shapes (K2: both entry points) beside."""
     def at(shapes):
         return {where: dict(case=r["case"], max_abs_err=max(r["max_abs_err"],
                                                             r.get("h_max_abs_err", 0.0)),
@@ -2201,7 +2224,7 @@ def kernels_line(main_launches, variant_path, scan_variants):
               kernel="flash_fwd_tf32x3_kernel", at=at(fp32)),
         entry("mamba_scan", "src/repro_torch/csrc/mamba_scan.cu",
               "src/repro/kernels/mamba_scan.py:24", main_launches["mamba_scan"],
-              scan_variants["fused"]["falcon-mamba-7b"], variant="fused",
+              scan_variants["fused"]["falcon-mamba-7b prefill, 3444 tokens"], variant="fused",
               kernel="mamba_scan_fused_kernel",
               variants={v: dict(launches=main_launches[f"mamba_scan/{v}"], at=at(shapes))
                         for v, shapes in scan_variants.items()})]
@@ -2356,16 +2379,21 @@ def main(argv=None) -> int:
     fused = [fused_scan_case(torch, ms, ref, case, seed=220 + i, x_dtype=x_dtype)
              for i, case in enumerate(SCAN_CASES + SCAN_PATH_SHAPES + SCAN_CHUNKED_CASES)
              for x_dtype in ("bfloat16", "float32")]
+    fused += [fused_scan_case(torch, ms, ref, case, seed=235 + i)
+              for i, case in enumerate(SCAN_PREFILL_SHAPES)]
     for r in fused:
         print("[kernel] mamba_scan_fused " + json.dumps(r))
     check(any(r["chunks"] > 1 for r in fused), "no fused K2 case took the chunked branch")
     # the kernels' line reports both K2 entry points at the path shapes: the unfused one
-    # on a_bar/bx in fp32, the fused one with bf16 x, as the bf16 prefills run it
+    # on a_bar/bx in fp32, the fused one with bf16 x, as the bf16 prefills run it, first
+    # at the benchmark's prefill shapes
     unfused_at = dict(zip(SCAN_PATH_SHAPES, scans[len(SCAN_CASES):]))
     fused_at = {tuple(r["case"]): r for r in fused if r["x_dtype"] == "bfloat16"}
     scan_where = {"falcon-mamba-7b": SCAN_PATH_SHAPES[0], "hymba-1.5b": SCAN_PATH_SHAPES[1],
                   "hymba-1.5b rank shard": SCAN_PATH_SHAPES[2]}
-    scan_variants = {"fused": {w: fused_at[c] for w, c in scan_where.items()},
+    fused_where = {"falcon-mamba-7b prefill, 3444 tokens": SCAN_PREFILL_SHAPES[0],
+                   "hymba-1.5b prefill, 7936 tokens": SCAN_PREFILL_SHAPES[1], **scan_where}
+    scan_variants = {"fused": {w: fused_at[c] for w, c in fused_where.items()},
                      "unfused": {w: unfused_at[c] for w, c in scan_where.items()}}
     # K2's training pair at the train micro-batch shapes, each kernel a variant
     trains = [row for i, case in enumerate(SCAN_TRAIN_SHAPES)

@@ -29,15 +29,19 @@
 // cp.async/TMA prefetch of later timesteps is later work.
 //
 // mamba_scan_fused_kernel (repro_mamba_scan_fused_fwd), the scan with its discretisation
-// fused: what the model computes with _ssm_inputs (src/repro/models/ssm.py:44-61) and
-// then the Pallas kernel, from the scan's inputs before discretisation:
-//     a_bar = exp(delta[b,t,d] * A[d,n]),  bx = (delta[b,t,d] * x[b,t,d]) * B[b,t,n]
-//     h_t = a_bar * h_{t-1} + bx,          y[b,t,d] = sum_n h_t * C[b,t,n]
-// in that order of products, in fp32 (x bf16 or fp32, widened in registers), plus h_S.
-// What bounds it: the bytes of delta, x ([B, S, Di]), B and C ([B, S, N]) and y, ~0.34 GB
-// a falcon-mamba-7b layer (4 x 1024, Di 8192) against ~4.3 GB of a_bar and bx that the
-// unfused scan reads after the model wrote them, so ~0.1 ms at 3.35 TB/s; under that the
-// expf and the products of every (b, t, d, n).  What the design does about it:
+// and the Mamba mixer's elementwise work on either side of it fused: what the model
+// computes with _ssm_inputs (src/repro/models/ssm.py:44-61), the Pallas kernel and the
+// mixer's gated output, from the raw dt projection and the scan's other inputs:
+//     delta = softplus(dt[b,t,d] + delta_bias[d])
+//     a_bar = exp(delta * A[d,n]),  bx = (delta * x[b,t,d]) * B[b,t,n]
+//     h_t = a_bar * h_{t-1} + bx,   y[b,t,d] = sum_n h_t * C[b,t,n]
+//     out[b,t,d] = (y + D[d] * x) * silu(z[b,t,d])
+// in that order of products, in fp32 (dt, x and z bf16 or fp32, widened in registers),
+// out in x's dtype, plus h_S.  What bounds it: the bytes of dt, x, z and out ([B, S, Di])
+// and of B and C ([B, S, N]), ~0.23 GB a falcon-mamba-7b layer (1 x 3444, Di 8192, bf16)
+// against ~3.6 GB of a_bar and bx that the unfused scan reads after the model wrote them,
+// so ~0.07 ms at 3.35 TB/s; under that the expf and the products of every (b, t, d, n).
+// What the design does about it:
 //   * a_bar and bx are made in registers and never touch device memory;
 //   * one thread per (b, d) carries the channel's P states (P = N rounded up to a power of
 //     two) in registers, so y's sum over n is a register sum, not a shuffle tree, and each
@@ -52,6 +56,21 @@
 //     sequential loop over them: h <- prod_c * h + end_c) and writes y, and the last chunk
 //     h_S.  The chunk count comes from the shape and the SM count (the wrapper's
 //     kernels/mamba_scan.py::scan_chunks), so the card's threads are filled.
+//
+// The mixer's work, which would otherwise be separate passes over [B, S, Di] tensors, is
+// done where the kernel already holds each (t, d):
+//   * prologue: each staged dt becomes softplus(dt + delta_bias[d]) in fp32 (torch's
+//     softplus: v > 20 ? v : log1p(exp(v))), in every pass;
+//   * epilogue: in place of y the kernel writes (y + D[d] * x) * silu(z) in x's dtype,
+//     with the mixer's ops' roundings: y + x * D in fp32 (no fused multiply-add), it and
+//     silu(z) (torch's x / (1 + exp(-x))) rounded to x's dtype, their product rounded
+//     again, so the kernel gives the bits of a scan followed by those ops.  z is read in
+//     place through its own batch and row strides (the gate half of in_proj's output).
+// Both stay off the recurrence's chain: z is staged with dt and x (x and z in x's dtype,
+// so bf16 stages take 36 KB of shared memory); after the loads each thread turns its own
+// column of the stage's dt into delta, steps that wait on no other; during the scan it
+// parks each y in the slot of delta it has consumed, and after it gates the stage's y
+// from there.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -128,11 +147,24 @@ cudaError_t launch(const float* a, const float* bx, const float* c, float* y, fl
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 
+template <typename T> __device__ __forceinline__ T narrow(float v);
+template <> __device__ __forceinline__ float narrow<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+// v rounded to T's precision, in fp32
+template <typename T> __device__ __forceinline__ float rounded(float v) {
+  return widen(narrow<T>(v));
+}
+
 struct Fused {
-  const float* delta; const void* x; const float* A; const float* Bm; const float* C;
-  float* y; float* h_out;
+  const void* dt; const void* x; const float* A; const float* Bm; const float* C;
+  void* y; float* h_out;
   float* carry_h; float* carry_p;    // [chunks - 1, B, Di, N]: each chunk's end state from
                                      // h = 0 and its a_bar product (pass 1), else null
+  // delta_bias and D [Di] fp32, z [B, S, Di] in x's dtype at (z_batch, z_row, 1) strides
+  const float* delta_bias; const float* D; const void* z;
+  long long z_batch, z_row;
   int S, Di, N, chunk;
 };
 
@@ -143,13 +175,18 @@ constexpr int TS = 32;         // timesteps staged in shared memory at a time
 // MODE 0: the whole sequence in one chunk (y and h_S); 1: pass 1 (carry_h, carry_p of
 // chunk blockIdx.z); 2: pass 2 (chunk blockIdx.z from its carried-in state: y, and h_S
 // from the last chunk).  One thread per (b, d): the channel's P states in registers.
+// dt, x, z and y in XT.
 template <int P, typename XT, int MODE>
 __global__ void __launch_bounds__(FT)
 mamba_scan_fused_kernel(const Fused f) {
-  __shared__ __align__(16) float sB[TS][P];
-  __shared__ __align__(16) float sC[TS][P];
-  __shared__ float sD[TS][FT];
-  __shared__ float sX[TS][FT];
+  constexpr bool GATE_OUT = MODE != 1;      // pass 1 writes no y
+  // timesteps a stage: fp32 x and z staged beside delta would pass 48 KB at 32
+  constexpr int T = (GATE_OUT && sizeof(XT) == 4) ? TS / 2 : TS;
+  __shared__ __align__(16) float sB[T][P];
+  __shared__ __align__(16) float sC[T][P];
+  __shared__ float sD[T][FT];
+  __shared__ XT sX[T][FT];
+  __shared__ XT sZ[GATE_OUT ? T : 1][FT];
   const int b = blockIdx.y, ck = blockIdx.z, B = gridDim.y;
   const long long d0 = (long long)blockIdx.x * FT, d = d0 + threadIdx.x;
   const bool valid = d < f.Di;
@@ -174,25 +211,41 @@ mamba_scan_fused_kernel(const Fused f) {
 
   const long long row = (long long)b * f.S;
   const XT* x = static_cast<const XT*>(f.x);
-  for (int ts = t0; ts < t1; ts += TS) {
-    const int nt = min(TS, t1 - ts);
+  const XT* dtp = static_cast<const XT*>(f.dt);
+  const XT* z = static_cast<const XT*>(f.z) + b * f.z_batch + d;
+  XT* yo = static_cast<XT*>(f.y);
+  float bias = 0.f, dskip = 0.f;
+  if (valid) {
+    bias = __ldg(f.delta_bias + d);
+    dskip = __ldg(f.D + d);
+  }
+  for (int ts = t0; ts < t1; ts += T) {
+    const int nt = min(T, t1 - ts);
     __syncthreads();               // the previous stage is consumed
-    for (int i = threadIdx.x; i < TS * P; i += FT) {
+    for (int i = threadIdx.x; i < T * P; i += FT) {
       const int tt = i / P, n = i % P;
       const bool ok = tt < nt && n < f.N;
       const long long at = (row + ts + tt) * f.N + n;
       sB[tt][n] = ok ? __ldg(f.Bm + at) : 0.f;
       if (MODE != 1) sC[tt][n] = ok ? __ldg(f.C + at) : 0.f;
     }
-    for (int tt = 0; tt < nt; ++tt) {   // coalesced rows of delta and x
+    for (int tt = 0; tt < nt; ++tt) {   // coalesced rows of dt, x and z
       const long long at = (row + ts + tt) * f.Di + d;
-      sD[tt][threadIdx.x] = valid ? __ldg(f.delta + at) : 0.f;
-      sX[tt][threadIdx.x] = valid ? widen(x[at]) : 0.f;
+      sD[tt][threadIdx.x] = valid ? widen(__ldg(dtp + at)) : 0.f;
+      sX[tt][threadIdx.x] = valid ? x[at] : narrow<XT>(0.f);
+      if constexpr (GATE_OUT) sZ[tt][threadIdx.x] = valid ? z[(ts + tt) * f.z_row]
+                                                          : narrow<XT>(0.f);
+    }
+    // delta: this thread's own column, no step waits on another
+#pragma unroll 8
+    for (int tt = 0; tt < nt; ++tt) {
+      const float v = sD[tt][threadIdx.x] + bias;
+      sD[tt][threadIdx.x] = v > 20.f ? v : log1pf(expf(v));
     }
     __syncthreads();
     for (int tt = 0; tt < nt; ++tt) {
       const float dt = sD[tt][threadIdx.x];
-      const float dtx = dt * sX[tt][threadIdx.x];
+      const float dtx = dt * widen(sX[tt][threadIdx.x]);
       float y = 0.f;
 #pragma unroll
       for (int n = 0; n < P; ++n) {
@@ -201,7 +254,17 @@ mamba_scan_fused_kernel(const Fused f) {
         if (MODE == 1) prod[n] *= ab;
         else y += h[n] * sC[tt][n];
       }
-      if (MODE != 1 && valid) f.y[(row + ts + tt) * f.Di + d] = y;
+      if (MODE != 1 && valid) sD[tt][threadIdx.x] = y;   // its own slot, consumed above
+    }
+    if (GATE_OUT && valid) {
+#pragma unroll 8
+      for (int tt = 0; tt < nt; ++tt) {   // the mixer's ops and roundings, unfused
+        const float zt = widen(sZ[tt][threadIdx.x]);
+        const float v = __fadd_rn(sD[tt][threadIdx.x],
+                                  __fmul_rn(widen(sX[tt][threadIdx.x]), dskip));
+        const float g = zt / (1.f + expf(-zt));
+        yo[(row + ts + tt) * f.Di + d] = narrow<XT>(__fmul_rn(rounded<XT>(v), rounded<XT>(g)));
+      }
     }
   }
   if (!valid) return;
@@ -255,22 +318,28 @@ extern "C" int repro_mamba_scan_fwd(const float* a, const float* bx, const float
   return (int)cudaErrorInvalidValue;
 }
 
-// delta [B, S, Di] fp32, x [B, S, Di] (bf16 when x_bf16, else fp32), A [Di, N] fp32,
-// Bm and C [B, S, N] fp32, y [B, S, Di] fp32, h_out [B, Di, N] or null: contiguous.
+// dt [B, S, Di] (the raw dt projection), x and z [B, S, Di] and y [B, S, Di], all bf16 when
+// x_bf16, else fp32; A [Di, N], Bm and C [B, S, N], delta_bias and D [Di] fp32, h_out
+// [B, Di, N] fp32 or null: contiguous but z, read at strides (z_batch, z_row, 1).
 // `chunk` timesteps a chunk (>= 1); with more than one chunk, `scratch` holds
 // 2 x (chunks - 1) x B x Di x N floats.  Returns the cudaError_t of the launches.
-extern "C" int repro_mamba_scan_fused_fwd(const float* delta, const void* x, int x_bf16,
+extern "C" int repro_mamba_scan_fused_fwd(const void* dt, const void* x, int x_bf16,
                                           const float* A, const float* Bm, const float* C,
-                                          float* y, float* h_out, float* scratch, int B, int S,
-                                          int Di, int N, int chunk, void* stream) {
+                                          void* y, float* h_out, float* scratch,
+                                          const float* delta_bias, const float* D,
+                                          const void* z, long long z_batch, long long z_row,
+                                          int B, int S, int Di, int N, int chunk,
+                                          void* stream) {
   if (B < 1 || B > 65535 || S < 0 || Di < 1 || N < 1 || N > 32 || chunk < 1)
+    return (int)cudaErrorInvalidValue;
+  if (delta_bias == nullptr || D == nullptr || (z == nullptr && S > 0))
     return (int)cudaErrorInvalidValue;
   const int chunks = S > 0 ? (S + chunk - 1) / chunk : 1;
   if (chunks > 65535 || (chunks > 1 && scratch == nullptr)) return (int)cudaErrorInvalidValue;
   const long long BDN = (long long)B * Di * N;
-  Fused f{delta, x, A, Bm, C, y, h_out,
+  Fused f{dt, x, A, Bm, C, y, h_out,
           chunks > 1 ? scratch : nullptr, chunks > 1 ? scratch + (chunks - 1) * BDN : nullptr,
-          S, Di, N, chunk};
+          delta_bias, D, z, z_batch, z_row, S, Di, N, chunk};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(x_bf16 ? dispatch_fused<__nv_bfloat16>(f, B, chunks, st)
                       : dispatch_fused<float>(f, B, chunks, st));

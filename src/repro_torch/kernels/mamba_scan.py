@@ -8,12 +8,16 @@ entry points:
 
 * `mamba_scan(a_bar, bx, c)`: the Pallas kernel's function, on the
   discretised inputs [B, S, Di, N] (custom op `repro_torch::mamba_scan`);
-* `mamba_scan_fused(delta, x, a, b, c)`: the same scan with the
-  discretisation (`a_bar = exp(delta·A)`, `bx = (delta·x)·B`) made in
-  registers, from [B, S, Di] and [B, S, N] inputs, so that neither [B, S,
-  Di, N] tensor exists (custom op `repro_torch::mamba_scan_fused`).  It
-  scans time in chunks where one pass would not fill the card
-  (`scan_chunks`).  The model's prefill runs it.
+* `mamba_scan_fused(dt, x, a, b, c, delta_bias, d_skip, z)`: the same
+  scan with the discretisation (`delta = softplus(dt + delta_bias)`,
+  `a_bar = exp(delta·A)`, `bx = (delta·x)·B`) made in registers, from
+  [B, S, Di] and [B, S, N] inputs, so that neither [B, S, Di, N] tensor
+  exists, and the gated output (y + D·x)·silu(z) written where y is: the
+  Mamba mixer's elementwise work on either side of the scan, as the
+  upstream selective-scan kernel's `delta_bias`, `D` and `z` arguments do
+  it (custom op `repro_torch::mamba_scan_fused`).  It scans time in chunks
+  where one pass would not fill the card (`scan_chunks`).  The model's
+  prefill runs it.
 
 Each wrapper takes a CPU tensor to its plain version (`ref.py`) and a CUDA
 tensor to its kernel; it never falls back from one to the other.  They are
@@ -23,8 +27,8 @@ input that requires grad) rather than return an output without a gradient.
 Training has its own entry point and source, `csrc/mamba_scan_train.cu`
 (built apart, so the prefill runs the same binary whatever training needs):
 
-* `mamba_scan_train(delta, x, a, b, c)`: `mamba_scan_fused`'s function,
-  differentiable (custom op `repro_torch::mamba_scan_train`, its autograd
+* `mamba_scan_train(delta, x, a, b, c)`: `mamba_scan_fused`'s scan on delta
+  after its softplus, y before the gate (fp32), differentiable (custom op `repro_torch::mamba_scan_train`, its autograd
   registered).  The forward kernel also writes the state at the start of
   every chunk of `train_chunk(N)` steps, [B, S/chunk, Di, N] fp32, which
   with its inputs is all it keeps for backward; the backward op
@@ -46,13 +50,14 @@ elementwise).  `launches` counts the calls that launched any kernel,
 `kernel_launches` each entry point's ("unfused", "fused", "train_fwd",
 "train_bwd"), `backward_launches` the training backward's alone, `chunks`
 the chunks of time over the fused entry point's calls (one a call that
-takes one pass: more chunks than calls is the chunked-time branch).
+takes one pass: more chunks than calls is the chunked-time branch),
+`gated_launches` the calls that took the mixer's dt prologue and gated
+output (every fused call).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils.flop_counter import register_flop_formula
@@ -72,6 +77,7 @@ launches = 0   # kernel launches; a run zeroes it to count one path's launches
 kernel_launches = {"unfused": 0, "fused": 0, "train_fwd": 0, "train_bwd": 0}
 backward_launches = 0   # the training backward's launches
 chunks = 0     # chunks of time over the fused entry point's launches
+gated_launches = 0   # the fused entry point's launches with its prologue and epilogue
 
 
 @functools.cache
@@ -81,8 +87,8 @@ def _lib() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.repro_mamba_scan_fused_fwd
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 9
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -174,14 +180,15 @@ def _flops(a_shape, *_args, **_kwargs) -> int:
     return 2 * B * S * Di * N
 
 
-def _check_fused(delta, x, a, b, c):
+def _check_scan(delta, x, a, b, c, delta_dtype=torch.float32):
+    """Raise on what the kernels do not take: delta in `delta_dtype`."""
     ts = (delta, x, a, b, c)
     if len({t.device for t in ts}) != 1:
         raise ValueError(f"delta, x, a, b, c on different devices: {[t.device for t in ts]}")
-    if not all(t.dtype == torch.float32 for t in (delta, a, b, c)) or \
+    if not all(t.dtype == torch.float32 for t in (a, b, c)) or delta.dtype != delta_dtype or \
             x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"kernel takes float32 delta/a/b/c and float32 or bfloat16 x, got "
-                        f"{[t.dtype for t in ts]}")
+        raise TypeError(f"kernel takes {delta_dtype} delta, float32 a/b/c and float32 or "
+                        f"bfloat16 x, got {[t.dtype for t in ts]}")
     if delta.ndim != 3 or x.shape != delta.shape or a.ndim != 2 or a.shape[0] != delta.shape[2] \
             or b.shape != (*delta.shape[:2], a.shape[1]) or c.shape != b.shape:
         raise ValueError(f"bad shapes delta {tuple(delta.shape)}, x {tuple(x.shape)}, "
@@ -190,38 +197,61 @@ def _check_fused(delta, x, a, b, c):
         raise ValueError(f"state size N={a.shape[1]} not in 1..{MAX_STATE}")
 
 
-def mamba_scan_fused(delta, x, a, b, c, *, return_state=False):
-    """delta/x [B,S,Di], a [Di,N], b/c [B,S,N] -> y [B,S,Di] fp32 (and h_S [B,Di,N]).
+def _check_fused(dt, x, a, b, c, delta_bias, d_skip, z):
+    """`_check_scan` with dt in x's dtype, and the gate's arguments."""
+    _check_scan(dt, x, a, b, c, delta_dtype=x.dtype)
+    if {delta_bias.device, d_skip.device, z.device} != {dt.device}:
+        raise ValueError("delta_bias, d_skip and z not on dt's device")
+    if delta_bias.dtype != torch.float32 or d_skip.dtype != torch.float32 or z.dtype != x.dtype:
+        raise TypeError(f"kernel takes float32 delta_bias/d_skip and z in x's dtype, got "
+                        f"{delta_bias.dtype}, {d_skip.dtype}, {z.dtype}")
+    if delta_bias.shape != (dt.shape[2],) or d_skip.shape != delta_bias.shape or \
+            z.shape != dt.shape:
+        raise ValueError(f"bad shapes delta_bias {tuple(delta_bias.shape)}, d_skip "
+                         f"{tuple(d_skip.shape)}, z {tuple(z.shape)} for dt {tuple(dt.shape)}")
 
-    a_bar = exp(delta·a), bx = (delta·x)·b, h_t = a_bar_t·h_{t-1} + bx_t from
-    h_0 = 0, y_t[d] = sum_n h_t[d,n]·c_t[n].  x may be bf16 (widened to fp32);
-    everything else is fp32.  Non-contiguous inputs are copied to contiguous
-    ones first.
+
+def mamba_scan_fused(dt, x, a, b, c, delta_bias, d_skip, z, *, return_state=False):
+    """dt/x/z [B,S,Di], a [Di,N], b/c [B,S,N], delta_bias/d_skip [Di] -> y
+    [B,S,Di] in x's dtype (and h_S [B,Di,N] fp32).
+
+    delta = softplus(dt + delta_bias), a_bar = exp(delta·a), bx =
+    (delta·x)·b, h_t = a_bar_t·h_{t-1} + bx_t from h_0 = 0, s_t[d] =
+    sum_n h_t[d,n]·c_t[n], y = (s + x·d_skip)·silu(z): the Mamba mixer from
+    its raw dt projection to its gated output, in fp32, rounded where the
+    mixer's ops round (s + x·d_skip and silu(z) to x's dtype, then their
+    product).  dt, x and z are fp32 or bf16 alike (widened in registers);
+    everything else is fp32.  z is read in place where its last dim is
+    contiguous (the gate half of `in_proj`'s output); other non-contiguous
+    inputs are copied to contiguous ones first.
     """
-    _check_fused(delta, x, a, b, c)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (delta, x, a, b, c)):
+    _check_fused(dt, x, a, b, c, delta_bias, d_skip, z)
+    ts = (dt, x, a, b, c, delta_bias, d_skip, z)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise RuntimeError("mamba_scan_fused has no backward: its output would carry no "
                            "gradient; train with apply_ssm(scan_impl='plain')")
-    if delta.device.type == "cpu" and not isinstance(delta, FakeTensor):
-        return mamba_scan_fused_ref(delta, x, a, b, c, return_state=return_state)
-    if delta.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"mamba_scan_fused runs on cpu or cuda, not {delta.device}")
-    args = (delta, x, a, b, c, bool(return_state))
-    y, h = _launch_fused(*args) if _build.eager(delta) else \
-        torch.ops.repro_torch.mamba_scan_fused(*args)
+    if dt.device.type == "cpu" and not isinstance(dt, FakeTensor):
+        return mamba_scan_fused_ref(*ts, return_state=return_state)
+    if dt.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"mamba_scan_fused runs on cpu or cuda, not {dt.device}")
+    y, h = _launch_fused(*ts, bool(return_state)) if _build.eager(dt) else \
+        torch.ops.repro_torch.mamba_scan_fused(*ts, bool(return_state))
     return (y, h) if return_state else y
 
 
-def _launch_fused(delta, x, a, b, c, return_state):
+def _launch_fused(dt, x, a, b, c, delta_bias, d_skip, z, return_state):
     """The launch(es) on the current stream: one pass, or two where time is
     chunked (`scan_chunks`).  Returns (y, h_S), h_S empty [0] when
     `return_state` is False."""
-    global launches, chunks
-    B, S, Di = delta.shape
+    global launches, chunks, gated_launches
+    B, S, Di = dt.shape
     N = a.shape[1]
-    delta, x, a, b, c = (t.contiguous() for t in (delta, x, a, b, c))
-    dev = delta.device
-    y = torch.empty((B, S, Di), dtype=torch.float32, device=dev)
+    dt, x, a, b, c, delta_bias, d_skip = (t.contiguous()
+                                          for t in (dt, x, a, b, c, delta_bias, d_skip))
+    if z.stride(2) != 1:
+        z = z.contiguous()
+    dev = dt.device
+    y = torch.empty((B, S, Di), dtype=x.dtype, device=dev)
     h = torch.empty((B, Di, N) if return_state else (0,), dtype=torch.float32, device=dev)
     if B == 0 or Di == 0:
         return y, h
@@ -232,34 +262,37 @@ def _launch_fused(delta, x, a, b, c, return_state):
                if parts > 1 else None)
     with torch.cuda.device(dev):
         err = _lib().repro_mamba_scan_fused_fwd(
-            delta.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16), a.data_ptr(),
+            dt.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16), a.data_ptr(),
             b.data_ptr(), c.data_ptr(), y.data_ptr(), h.data_ptr() if return_state else None,
-            scratch.data_ptr() if scratch is not None else None, B, S, Di, N, chunk,
+            scratch.data_ptr() if scratch is not None else None, delta_bias.data_ptr(),
+            d_skip.data_ptr(), z.data_ptr(), z.stride(0), z.stride(1), B, S, Di, N, chunk,
             _build.stream(dev))
     if err != 0:
         raise RuntimeError(f"fused mamba scan kernel launch failed: cudaError {err}")
     launches += 1
     chunks += parts
+    gated_launches += 1
     kernel_launches["fused"] += 1
     return y, h
 
 
 @torch.library.custom_op("repro_torch::mamba_scan_fused", mutates_args=(), device_types="cuda")
-def _mamba_scan_fused(delta: torch.Tensor, x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                      c: torch.Tensor, return_state: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    return _launch_fused(delta, x, a, b, c, return_state)
+def _mamba_scan_fused(dt: torch.Tensor, x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                      c: torch.Tensor, delta_bias: torch.Tensor, d_skip: torch.Tensor,
+                      z: torch.Tensor, return_state: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    return _launch_fused(dt, x, a, b, c, delta_bias, d_skip, z, return_state)
 
 
 @_mamba_scan_fused.register_fake
-def _(delta, x, a, b, c, return_state):
-    B, S, Di = delta.shape
-    return (delta.new_empty((B, S, Di)),
-            delta.new_empty((B, Di, a.shape[1]) if return_state else (0,)))
+def _(dt, x, a, b, c, delta_bias, d_skip, z, return_state):
+    B, S, Di = dt.shape
+    return (dt.new_empty((B, S, Di), dtype=x.dtype),
+            dt.new_empty((B, Di, a.shape[1]) if return_state else (0,), dtype=torch.float32))
 
 
 @register_flop_formula(torch.ops.repro_torch.mamba_scan_fused)
-def _fused_flops(delta_shape, x_shape, a_shape, *_args, **_kwargs) -> int:
-    B, S, Di = delta_shape
+def _fused_flops(dt_shape, x_shape, a_shape, *_args, **_kwargs) -> int:
+    B, S, Di = dt_shape
     return 2 * B * S * Di * a_shape[1]
 
 
@@ -283,12 +316,12 @@ def _train_lib() -> ctypes.CDLL:
 
 
 def mamba_scan_train(delta, x, a, b, c, *, return_state=False):
-    """`mamba_scan_fused`'s function and arguments, differentiable: the training
-    entry point.  On the card the custom op `repro_torch::mamba_scan_train`
-    (its backward a kernel too); on CPU tensors the plain training scan,
-    `models.ssm.scan_inloop` on x widened to fp32, whose values and
-    gradients it is."""
-    _check_fused(delta, x, a, b, c)
+    """`mamba_scan_fused`'s scan, on delta after its softplus and without the
+    gate (y fp32), differentiable: the training entry point.  On the card the
+    custom op `repro_torch::mamba_scan_train` (its backward a kernel too); on
+    CPU tensors the plain training scan, `models.ssm.scan_inloop` on x
+    widened to fp32, whose values and gradients it is."""
+    _check_scan(delta, x, a, b, c)
     if delta.device.type == "cpu" and not isinstance(delta, FakeTensor):
         from repro_torch.models.ssm import scan_inloop
         return scan_inloop(delta, x.float(), a, b, c, return_state=return_state)

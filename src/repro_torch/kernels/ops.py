@@ -8,10 +8,12 @@ transpose is a view and nothing is padded in device memory.
 
 `mamba_scan`: the reference wrapper casts a_bar, bx and c to fp32 and passes
 the TPU's tiling knobs (`chunk`, `di_block`); the CUDA kernel has none, so
-this one only casts.  `mamba_scan_fused` takes the scan's inputs before
-discretisation (delta, x, A, B, C) and casts them but x to fp32 (x may stay
-bf16: the kernel widens it); the model's prefill (`models.ssm.apply_ssm`)
-calls it, so the [B, S, Di, N] a_bar and bx are never made.
+this one only casts.  `mamba_scan_fused` takes the mixer's raw dt projection
+and the scan's other inputs before discretisation (x, A, B, C), and the
+gate's (dt_bias, D, z); it casts dt and z to x's dtype (fp32, or bf16: the
+kernel widens them) and the rest to fp32.  The model's prefill
+(`models.ssm.apply_ssm`) calls it, so the [B, S, Di, N] a_bar and bx are
+never made.
 `mamba_scan_train` casts as it does and is differentiable: the model's
 training scan on the card.
 
@@ -44,11 +46,13 @@ def mamba_scan(a_bar, bx, c, *, return_state=False):
     return ms.mamba_scan(a_bar.to(f32), bx.to(f32), c.to(f32), return_state=return_state)
 
 
-def mamba_scan_fused(delta, x, a, b, c, *, return_state=False):
-    """delta/x [B,S,Di], a [Di,N], b/c [B,S,N] -> y [B,S,Di] fp32 (and h_S [B,Di,N] fp32)."""
+def mamba_scan_fused(dt, x, a, b, c, delta_bias, d_skip, z, *, return_state=False):
+    """dt/x/z [B,S,Di], a [Di,N], b/c [B,S,N], delta_bias/d_skip [Di] -> y [B,S,Di]
+    in x's dtype (and h_S [B,Di,N] fp32)."""
     f32 = torch.float32
     x = x if x.dtype in (f32, torch.bfloat16) else x.to(f32)
-    return ms.mamba_scan_fused(delta.to(f32), x, a.to(f32), b.to(f32), c.to(f32),
+    return ms.mamba_scan_fused(dt.to(x.dtype), x, a.to(f32), b.to(f32), c.to(f32),
+                               delta_bias.to(f32), d_skip.to(f32), z.to(x.dtype),
                                return_state=return_state)
 
 

@@ -3,6 +3,7 @@ and the plain model of the training scan's forward and backward kernels."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, q_offset=0, scale=None):
@@ -47,15 +48,28 @@ def mamba_scan_ref(a_bar, bx, c, *, return_state=False):
     return (y, h) if return_state else y
 
 
-def mamba_scan_fused_ref(delta, x, a, b, c, *, return_state=False):
+def mamba_scan_fused_ref(delta, x, a, b, c, delta_bias=None, d_skip=None, z=None, *,
+                         return_state=False):
     """The discretisation as the model's `_ssm_inputs` makes it, then
     `mamba_scan_ref`: a_bar = exp(delta·a), bx = (delta·x)·b.
 
     delta/x [B,S,Di] (x any float), a [Di,N], b/c [B,S,N] fp32 -> y [B,S,Di]
-    fp32, and with `return_state` also h_S [B,Di,N]."""
+    fp32, and with `return_state` also h_S [B,Di,N].  With `delta_bias`,
+    `d_skip` and `z`, all three, the fused kernel's call, in the mixer's
+    order of ops: delta is the raw dt projection, widened, `+ delta_bias`,
+    softplus; after the scan `y + x·d_skip` in fp32, rounded to x's dtype,
+    `* silu(z)`."""
+    gate = (delta_bias, d_skip, z)
+    if any(t is not None for t in gate) and any(t is None for t in gate):
+        raise ValueError("the gate takes delta_bias, d_skip and z together")
+    if delta_bias is not None:
+        delta = F.softplus(delta.float() + delta_bias.float())
     a_bar = (delta[..., None] * a).exp()
     bx = (delta * x.float())[..., None] * b[..., None, :]
-    return mamba_scan_ref(a_bar, bx, c, return_state=return_state)
+    y, h = mamba_scan_ref(a_bar, bx, c, return_state=True)
+    if z is not None:
+        y = (y + x.float() * d_skip.float()).to(x.dtype) * F.silu(z)
+    return (y, h) if return_state else y
 
 
 def train_chunk(N: int) -> int:

@@ -43,13 +43,15 @@ def launch_counts() -> Dict[str, int]:
     """The kernel counters a step record keeps the change of: K1's and K2's
     launches, K1's launches with a window (one per sliding-window layer of a
     prefill), K2's chunks of time (chunks per launch > 1: the chunked-time
-    branch) and its training backward's launches (one per SSM layer and
-    micro-batch of a train step on the card)."""
+    branch), its training backward's launches (one per SSM layer and
+    micro-batch of a train step on the card) and its gated launches (one per
+    SSM layer of a prefill on the card)."""
     return {"flash_attention.launches": flash_attention.launches,
             "flash_attention.window_launches": flash_attention.window_launches,
             "mamba_scan.launches": mamba_scan.launches,
             "mamba_scan.chunks": mamba_scan.chunks,
-            "mamba_scan.backward_launches": mamba_scan.backward_launches}
+            "mamba_scan.backward_launches": mamba_scan.backward_launches,
+            "mamba_scan.gated_launches": mamba_scan.gated_launches}
 
 
 def _step(kind, tokens, length=None):

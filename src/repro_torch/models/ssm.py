@@ -9,9 +9,11 @@ sequence, from delta, x, A, B and C (`_ssm_params`): the kernels make
 a_bar and bx in registers, so neither [B, S, di, N] tensor exists.  Under
 no_grad (prefill, eval) that is the fused entry point
 (`kernels.ops.mamba_scan_fused`, forward only), whose launch also gives the
-final state for the decode cache; where autograd records the scan (the
-train step) it is the training entry point (`kernels.ops.mamba_scan_train`,
-a forward and backward pair of kernels on the card).
+final state for the decode cache and makes delta's softplus and the gated
+output (y + D·x)·silu(z) in registers; where autograd
+records the scan (the train step) it is the training entry point
+(`kernels.ops.mamba_scan_train`, a forward and backward pair of kernels on
+the card).
 
 The plain scan (`scan_impl="plain"`, and training on real CPU tensors) is
 differentiable PyTorch on a_bar and bx, chunked as the reference's
@@ -73,11 +75,12 @@ def ssm_meta(cfg):
     }
 
 
-def _ssm_params(cfg, p, xc):
-    """The scan's inputs before discretisation. xc [B, S, di] (post-conv,
-    post-silu).
+def _ssm_proj(cfg, p, xc):
+    """The scan's inputs before discretisation, delta before its bias and
+    softplus. xc [B, S, di] (post-conv, post-silu).
 
-    Returns (delta [B,S,di], A [di,N], B [B,S,N], C [B,S,N]), all fp32.
+    Returns (dt [B,S,di] in xc's dtype: the dt projection, A [di,N],
+    B [B,S,N], C [B,S,N] fp32).
     """
     r, n = dt_rank(cfg), cfg.ssm_state
     proj = xc @ p["x_proj"].to(xc.dtype)
@@ -87,10 +90,24 @@ def _ssm_params(cfg, p, xc):
         # what comes of a partial one
         proj = constrain_or_whole(proj, ("batch", None, None))
     dt_raw, b_ssm, c_ssm = proj.split([r, n, n], dim=-1)
-    delta = F.softplus((dt_raw @ p["dt_w"].to(xc.dtype)).float()
-                       + p["dt_bias"].float())                   # [B,S,di]
+    dt = dt_raw @ p["dt_w"].to(xc.dtype)
     a = -torch.exp(p["a_log"].float())                           # [di,N]
-    return delta, a, b_ssm.float(), c_ssm.float()
+    return dt, a, b_ssm.float(), c_ssm.float()
+
+
+def _delta(p, dt):
+    """delta [B,S,di] fp32 = softplus(dt + dt_bias)."""
+    return F.softplus(dt.float() + p["dt_bias"].float())
+
+
+def _ssm_params(cfg, p, xc):
+    """The scan's inputs before discretisation. xc [B, S, di] (post-conv,
+    post-silu).
+
+    Returns (delta [B,S,di], A [di,N], B [B,S,N], C [B,S,N]), all fp32.
+    """
+    dt, a, b, c = _ssm_proj(cfg, p, xc)
+    return _delta(p, dt), a, b, c
 
 
 def _discretise(delta, x, a, b):
@@ -238,7 +255,7 @@ def _as_placed(t, placements):
     return t if tuple(t.placements) == tuple(placements) else constrain_to(t, placements)
 
 
-def _params_local(scan_fn, delta, x, a, b, c, return_state, grads=False):
+def _params_local(scan_fn, delta, x, a, b, c, return_state, grads=False, gate=None):
     """`scan_fn(delta, x, a, b, c, return_state=...)` on each rank's shards of
     DTensor delta and x (batch over the data axes, di over `model`), A (di
     over `model`), and B and C (batch alone): see the module's docstring.
@@ -249,7 +266,9 @@ def _params_local(scan_fn, delta, x, a, b, c, return_state, grads=False):
     the whole-sequence path discretises outside its `local_map`, keep their
     placements, so their partial gradients are reduced where that path
     reduces them (A's with its parameter's gradient, B's with the x_proj
-    product's): the in-loop step makes the same collectives."""
+    product's): the in-loop step makes the same collectives.  The fused
+    call's `gate` (dt_bias, d_skip, z) follows them, dt_bias and d_skip
+    placed as A's di, z as x."""
     mesh = current_mesh() or delta.device_mesh
     d_pl = role_placements(delta.shape, ("batch", None, "model")) or \
         (Replicate(),) * mesh.ndim
@@ -257,6 +276,11 @@ def _params_local(scan_fn, delta, x, a, b, c, return_state, grads=False):
     bc_pl = tuple(pl if pl.is_shard(0) else Replicate() for pl in d_pl)
     ins = [constrain_to(delta, d_pl), constrain_to(x, d_pl), _as_placed(a, a_pl),
            _as_placed(b, bc_pl), constrain_to(c, bc_pl)]
+    in_pl = [d_pl, d_pl, a_pl, bc_pl, bc_pl]
+    if gate is not None:        # the fused call's dt_bias and d_skip [di] like A, z like x
+        dt_bias, d_skip, z = gate
+        ins += [_as_placed(dt_bias, a_pl), _as_placed(d_skip, a_pl), constrain_to(z, d_pl)]
+        in_pl += [a_pl, a_pl, d_pl]
     h_pl = tuple(Shard(1) if pl.is_shard(2) else pl for pl in d_pl)   # [B, di, N]
     kw = {}
     if grads:
@@ -264,11 +288,10 @@ def _params_local(scan_fn, delta, x, a, b, c, return_state, grads=False):
         bc_grad = tuple(Partial() if d.is_shard(2) else pl for d, pl in zip(d_pl, bc_pl))
         kw["in_grad_placements"] = (d_pl, d_pl, a_grad, bc_grad, bc_grad)
 
-    def core(dl, xl, al, bl, cl):
-        return scan_fn(dl, xl, al, bl, cl, return_state=return_state)
+    def core(*local):
+        return scan_fn(*local, return_state=return_state)
     return local_map(core, out_placements=(list(d_pl), list(h_pl)) if return_state else list(d_pl),
-                     in_placements=(d_pl, d_pl, a_pl, bc_pl, bc_pl), device_mesh=mesh,
-                     **kw)(*ins)
+                     in_placements=tuple(in_pl), device_mesh=mesh, **kw)(*ins)
 
 
 def _on_host(t) -> bool:
@@ -290,7 +313,10 @@ def apply_ssm(cfg, p, x, *, return_state=False, scan_impl="kernel"):
     scan.  "plain" runs `scan_chunked` on a_bar and bx, differentiable; with
     `cfg.ssm_inloop`, `scan_inloop` on delta, x, A, B and C.  The flag leaves
     "kernel" as it is: the kernels make each step's a_bar and bx in
-    registers, which is the in-loop form already.  With `return_state`,
+    registers, which is the in-loop form already.  The fused entry point
+    takes the raw dt projection, dt_bias, d_skip and the gate z and makes
+    delta's softplus and the gated output itself, so `out_proj` is the
+    matmul alone.  With `return_state`,
     returns (out, {"conv", "ssm"}): the last d_conv-1 inputs of the conv in
     fp32 (zeros before the sequence's start) and the scan's final state,
     from the same scan as `out`.
@@ -303,18 +329,30 @@ def apply_ssm(cfg, p, x, *, return_state=False, scan_impl="kernel"):
             x_in, z = (x @ p["in_proj"].to(dt)).chunk(2, dim=-1)
             xc = F.silu(_conv1d_causal(cfg, p, x_in))
         with span("ssm_params"):
-            delta, a, b, c = _ssm_params(cfg, p, xc)
-            train = torch.is_grad_enabled() and any(t.requires_grad for t in (delta, xc, a, b, c))
-            plain = scan_impl == "plain" or (train and _on_host(delta))
+            dt_proj, a, b, c = _ssm_proj(cfg, p, xc)
+            train = torch.is_grad_enabled() and any(
+                t.requires_grad for t in (dt_proj, p["dt_bias"], p["d_skip"], xc, a, b, c))
+            plain = scan_impl == "plain" or (train and _on_host(dt_proj))
+            fused = not (plain or train)
+            if not fused:
+                delta = _delta(p, dt_proj)
             if plain and not cfg.ssm_inloop:
                 a_bar, bx = _discretise(delta, xc.float(), a, b)
         with span("scan"):
-            if not plain:
-                fn = kops.mamba_scan_train if train else kops.mamba_scan_fused
-                if isinstance(delta, DTensor):
-                    scan = _params_local(fn, delta, xc, a, b, c, return_state, grads=train)
+            if fused:
+                gate = (p["dt_bias"], p["d_skip"], z)
+                if isinstance(dt_proj, DTensor):
+                    scan = _params_local(kops.mamba_scan_fused, dt_proj, xc, a, b, c,
+                                         return_state, gate=gate)
                 else:
-                    scan = fn(delta, xc, a, b, c, return_state=return_state)
+                    scan = kops.mamba_scan_fused(dt_proj, xc, a, b, c, *gate,
+                                                 return_state=return_state)
+            elif not plain:
+                if isinstance(delta, DTensor):
+                    scan = _params_local(kops.mamba_scan_train, delta, xc, a, b, c, return_state,
+                                         grads=True)
+                else:
+                    scan = kops.mamba_scan_train(delta, xc, a, b, c, return_state=return_state)
             elif cfg.ssm_inloop:
                 if isinstance(delta, DTensor):
                     scan = _params_local(scan_inloop, delta, xc.float(), a, b, c, return_state,
@@ -329,8 +367,9 @@ def apply_ssm(cfg, p, x, *, return_state=False, scan_impl="kernel"):
                 del a_bar, bx              # 2 x [B,S,di,N] fp32: free before the rest
         y, h_last = scan if return_state else (scan, None)
         with span("out_proj"):
-            y = y + xc.float() * p["d_skip"].float()
-            out = (y.to(dt) * F.silu(z)) @ p["out_proj"].to(dt)
+            if not fused:
+                y = (y + xc.float() * p["d_skip"].float()).to(dt) * F.silu(z)
+            out = y @ p["out_proj"].to(dt)
     if not return_state:
         return out
     keep, S = cfg.d_conv - 1, x.shape[1]

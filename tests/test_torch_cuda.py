@@ -196,11 +196,13 @@ def test_model_prefill_launches_the_scan_once_per_layer_on_card(arch):
     p = api.init_params(cfg, 0)
     batch = api.demo_batch(cfg, 2, 40)
     before, fused = (ms.launches, fa.launches), ms.kernel_launches["fused"]
+    gated = ms.gated_launches
     lg, cache = api.prefill(cfg, p, {"tokens": batch["tokens"][:, :-1]}, attn_impl="flash",
                             cache_len=48)
     n_attn = cfg.num_layers if cfg.family == "hybrid" else 0
     assert (ms.launches, fa.launches) == (before[0] + cfg.num_layers, before[1] + n_attn)
     assert ms.kernel_launches["fused"] == fused + cfg.num_layers    # the fused entry point
+    assert ms.gated_launches == gated + cfg.num_layers              # each with the gate
     full, _ = api.forward(cfg, p, batch, attn_impl="naive")
     dec, _ = api.decode_step(cfg, p, cache, batch["tokens"][:, -1:], 39)
     scale = float(full[:, -1].abs().max())
@@ -216,6 +218,19 @@ def _fused_inputs(seed, B, S, Di, N, x_dtype):
     return delta, z(B, S, Di).to(getattr(torch, x_dtype)), a, z(B, S, N), z(B, S, N)
 
 
+def _gated_inputs(seed, B, S, Di, N, x_dtype):
+    """The fused call's arguments as the mixer passes them: `_fused_inputs`' x,
+    A, B and C; the raw dt projection (dt - 1, x's dtype), dt_bias and d_skip
+    fp32, and z the gate half of an in_proj output [B, S, 2 Di], a strided
+    view."""
+    _, x, a, b, c = _fused_inputs(seed, B, S, Di, N, x_dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    z = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+    dtype = getattr(torch, x_dtype)
+    return ((z(B, S, Di) - 1.0).to(dtype), x, a, b, c, 0.5 * z(Di), z(Di),
+            z(B, S, 2 * Di).to(dtype)[..., Di:])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,Di,N,chunked", [
     (1, 128, 64, 8, False), (2, 256, 128, 16, True), (1, 96, 64, 4, False),
@@ -223,22 +238,29 @@ def _fused_inputs(seed, B, S, Di, N, x_dtype):
     (2, 37, 24, 16, False), (4, 512, 8192, 16, False), (3, 0, 8, 16, False)])
 @pytest.mark.parametrize("x_dtype", ["bfloat16", "float32"])
 def test_fused_scan_kernel_matches_plain_version(B, S, Di, N, chunked, x_dtype):
-    """K2's fused entry point against its plain version (the discretisation, then
-    the sequential scan), y and h_S within 1e-4: shapes that take the chunked-time
-    branch on an H100's 132 SMs (small B x Di: several chunks, S not a multiple of
-    the chunk) and shapes that do not, N not a power of two, an empty sequence."""
+    """K2's fused entry point against its plain version (softplus(dt +
+    dt_bias), the discretisation, the sequential scan, then the mixer's gate
+    (y + D·x)·silu(z) with z a strided view): shapes that take the chunked-time
+    branch on an H100's 132 SMs (small B x Di: several chunks, S not a multiple
+    of the chunk) and shapes that do not, N not a power of two, an empty
+    sequence.  y in x's dtype: fp32 within 1e-4 scaled by the gate, bf16 within
+    two bf16 steps; h_S within 1e-4; each call one launch, counted gated."""
     assert (ms.scan_chunks(B, S, Di, N, 132) > 1) == chunked
     _need_card()
-    ins = _fused_inputs(S + Di + N, B, S, Di, N, x_dtype)
-    before = ms.kernel_launches["fused"]
+    ins = _gated_inputs(S + Di + N, B, S, Di, N, x_dtype)
+    before = ms.kernel_launches["fused"], ms.gated_launches
     y, h = ms.mamba_scan_fused(*ins, return_state=True)
     y_only = ms.mamba_scan_fused(*ins)
     torch.cuda.synchronize()
-    assert ms.kernel_launches["fused"] == before + 2
+    assert (ms.kernel_launches["fused"], ms.gated_launches) == (before[0] + 2, before[1] + 2)
     ref_y, ref_h = ms.mamba_scan_fused_ref(*ins, return_state=True)
     assert y.shape == (B, S, Di) and h.shape == (B, Di, N)
+    assert y.dtype == ins[1].dtype == ref_y.dtype
     if S:
-        assert max_abs_err(to_np(y), to_np(ref_y)) < 1e-4
+        silu = torch.nn.functional.silu(ins[7].float()).abs()
+        steps = 2 ** -6 if x_dtype == "bfloat16" else 0.0
+        err = (y.float() - ref_y.float()).abs()
+        assert bool((err <= steps * ref_y.float().abs() + 1e-4 * (1 + silu)).all())
     assert max_abs_err(to_np(h), to_np(ref_h)) < 1e-4
     assert torch.equal(y, y_only)
 
@@ -247,12 +269,12 @@ def test_fused_scan_kernel_matches_plain_version(B, S, Di, N, chunked, x_dtype):
 def test_fused_scan_fake_implementation_matches_the_kernel_s_outputs():
     from torch._subclasses.fake_tensor import FakeTensorMode
     _need_card()
-    ins = _fused_inputs(0, 2, 64, 32, 8, "bfloat16")
+    ins = _gated_inputs(0, 2, 64, 32, 8, "bfloat16")
     real = ms.mamba_scan_fused(*ins, return_state=True)
-    count = ms.launches
+    count = ms.launches, ms.gated_launches
     with FakeTensorMode(allow_non_fake_inputs=True) as mode:
         fake = ms.mamba_scan_fused(*(mode.from_tensor(t) for t in ins), return_state=True)
-    assert ms.launches == count
+    assert (ms.launches, ms.gated_launches) == count
     for r, f in zip(real, fake):
         assert (f.shape, f.dtype, f.stride(), f.device) == (r.shape, r.dtype, r.stride(), r.device)
 
@@ -266,7 +288,7 @@ def test_fused_scan_counts_its_chunks_of_time(B, S, Di, N):
     _need_card()
     parts = ms.scan_chunks(B, S, Di, N, torch.cuda.get_device_properties(0).multi_processor_count)
     parts = -(-S // -(-S // parts))           # as many as the chunk's length leaves
-    ins = _fused_inputs(B + S, B, S, Di, N, "bfloat16")
+    ins = _gated_inputs(B + S, B, S, Di, N, "bfloat16")
     before = ms.chunks, ms.launches
     ms.mamba_scan_fused(*ins)
     torch.cuda.synchronize()
@@ -292,6 +314,7 @@ def test_prefill_step_record_carries_the_kernel_launches(arch):
     assert rec.counters["flash_attention.launches"] == k1
     assert rec.counters["mamba_scan.launches"] == k2
     assert rec.counters["mamba_scan.chunks"] >= k2
+    assert rec.counters["mamba_scan.gated_launches"] == k2
     assert rec.spans["layer"][0] == cfg.num_layers
 
 
@@ -598,7 +621,8 @@ def test_train_step_record_counts_the_training_pair_on_card():
     assert rec.kind == "train"
     assert rec.counters == {"flash_attention.launches": 0,
                             "flash_attention.window_launches": 0, "mamba_scan.launches": 24,
-                            "mamba_scan.chunks": 0, "mamba_scan.backward_launches": 8}
+                            "mamba_scan.chunks": 0, "mamba_scan.backward_launches": 8,
+                            "mamba_scan.gated_launches": 0}
 
 
 def _param_leaves(tree):
@@ -854,14 +878,16 @@ def test_eager_launch_equals_the_custom_op_on_card():
     _need_card()
     (q, _), (k, _), (v, _) = qkv(64, 2, 5, 1, 200, 200, 64, "bfloat16")
     q, k, v = q.cuda(), k.cuda(), v.cuda()
-    delta, x, a, b, c = _fused_inputs(5, 2, 300, 64, 16, "bfloat16")
+    ins = _gated_inputs(5, 2, 300, 64, 16, "bfloat16")    # z strided
     assert build.eager(q)
-    counts = (fa.launches, ms.launches)
+    counts = (fa.launches, ms.launches, ms.gated_launches)
     got = fa.flash_attention(q, k, v, window=48)
-    got_y, got_h = ms.mamba_scan_fused(delta, x, a, b, c, return_state=True)
-    assert (fa.launches, ms.launches) == (counts[0] + 1, counts[1] + 1)
+    got_y, got_h = ms.mamba_scan_fused(*ins, return_state=True)
+    assert (fa.launches, ms.launches, ms.gated_launches) == (counts[0] + 1, counts[1] + 1,
+                                                             counts[2] + 1)
     want = torch.ops.repro_torch.flash_attention_fwd(q, k, v, True, 48, 0, 64 ** -0.5)
-    want_y, want_h = torch.ops.repro_torch.mamba_scan_fused(delta, x, a, b, c, True)
+    want_y, want_h = torch.ops.repro_torch.mamba_scan_fused(*ins, True)
+    assert (ms.launches, ms.gated_launches) == (counts[1] + 2, counts[2] + 2)
     assert torch.equal(got, want) and got.stride() == want.stride()
     assert torch.equal(got_y, want_y) and torch.equal(got_h, want_h)
     with FlopCounterMode(display=False) as flops:
@@ -899,18 +925,21 @@ bx = torch.randn(2, 64, 32, 4, generator=g, device="cuda")
 c = torch.randn(2, 64, 4, generator=g, device="cuda")
 want_o = attention.attend(cfg, q, k, v, impl="flash", window=16)
 want_y, want_h = ops.mamba_scan(a, bx, c, return_state=True)
-delta = torch.rand(2, 64, 32, generator=g, device="cuda")
+dt = torch.randn(2, 64, 32, generator=g, device="cuda").bfloat16()
 x = torch.randn(2, 64, 32, generator=g, device="cuda").bfloat16()
 A = -torch.rand(32, 4, generator=g, device="cuda")
 B_, C_ = (torch.randn(2, 64, 4, generator=g, device="cuda") for _ in range(2))
-want_fy, want_fh = ops.mamba_scan_fused(delta, x, A, B_, C_, return_state=True)
+bias, dskip = (torch.randn(32, generator=g, device="cuda") for _ in range(2))
+z = torch.randn(2, 64, 64, generator=g, device="cuda").bfloat16()[..., 32:]
+want_fy, want_fh = ops.mamba_scan_fused(dt, x, A, B_, C_, bias, dskip, z, return_state=True)
 d = lambda t: distribute_tensor(t, mesh, [Shard(0), Replicate()])
 r = lambda t: distribute_tensor(t, mesh, [Replicate(), Replicate()])
 before = (fa.launches, ms.launches)
 with torch.no_grad(), activation_sharding(mesh):
     o = attention.attend(cfg, d(q), d(k), d(v), impl="flash", window=16)
     y, h = ssm._scan_local(ops.mamba_scan, d(a), d(bx), d(c), True)
-    fy, fh = ssm._params_local(ops.mamba_scan_fused, d(delta), d(x), r(A), d(B_), d(C_), True)
+    fy, fh = ssm._params_local(ops.mamba_scan_fused, d(dt), d(x), r(A), d(B_), d(C_), True,
+                               gate=(r(bias), r(dskip), d(z)))
 assert (fa.launches - before[0], ms.launches - before[1]) == (1, 2)
 assert dist.get_backend() == "nccl"
 for got, want in ((o, want_o), (y, want_y), (h, want_h), (fy, want_fy), (fh, want_fh)):

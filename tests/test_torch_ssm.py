@@ -210,10 +210,14 @@ def test_apply_ssm_and_decode_ssm_match_reference(dtype):
 @pytest.mark.parametrize("arch", ARCH_NAMES)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_fused_scan_plain_version_matches_ssm_inputs_and_the_pallas_kernel(arch, dtype):
-    """K2's fused entry point (its plain version, the CPU path) on the port's
+    """K2's fused entry point's plain version (its CPU path) on the port's
     `_ssm_params` of layer 0 against the reference's `_ssm_inputs` on the same
     params and conv output, scanned by its Pallas kernel in interpret mode: y
-    and the final state within 1e-4 (x in the compute dtype, bf16 widened)."""
+    and the final state within 1e-4 (x in the compute dtype, bf16 widened).
+    The entry point itself, from the raw dt projection, gives that scan gated
+    by the mixer's ops bit for bit, and its final state."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ref import mamba_scan_fused_ref
     cfg, jcfg, jp, p = _setup(arch, dtype)
     jdt = jnp.dtype(dtype)
     rng = np.random.default_rng(11)
@@ -222,37 +226,48 @@ def test_fused_scan_plain_version_matches_ssm_inputs_and_the_pallas_kernel(arch,
     jxc = jnp.asarray(xt.float().numpy(), jdt)
     lp, jlp = p["layers"][0]["ssm"], _layer0(jp)
     delta, a, b, c = ssm._ssm_params(cfg, lp, xt)
-    y, h = ops.mamba_scan_fused(delta, xt, a, b, c, return_state=True)
+    y, h = mamba_scan_fused_ref(delta, xt, a, b, c, return_state=True)
     ja, jbx, jc = jax_ssm._ssm_inputs(jcfg, jlp, jxc, cfg.d_model)
     pallas = ms_kernel(ja, jbx, jc, chunk=32, di_block=cfg.d_inner, interpret=True)
     assert y.shape == (2, 64, cfg.d_inner) and y.dtype == torch.float32
     assert max_abs_err(to_np(y), pallas) < 1e-4
     assert max_abs_err(to_np(h), _jax_final_state(ja, jbx)) < 1e-4
+    dt, _, _, _ = ssm._ssm_proj(cfg, lp, xt)
+    z = torch.from_numpy(rng.standard_normal(xc.shape).astype(np.float32)).to(xt.dtype)
+    gy, gh = ops.mamba_scan_fused(dt, xt, a, b, c, lp["dt_bias"], lp["d_skip"], z,
+                                  return_state=True)
+    want = (y + xt.float() * lp["d_skip"].float()).to(xt.dtype) * F.silu(z)
+    assert gy.dtype == xt.dtype and torch.equal(gy, want) and torch.equal(gh, h)
 
 
 def test_fused_scan_wrapper_takes_cpu_tensors_to_the_plain_version_uncounted():
-    """The fused wrapper's CPU path is `mamba_scan_fused_ref`, which builds a_bar
-    and bx as `_ssm_inputs` does and scans them with `mamba_scan_ref`; it counts
-    no launch and checks what the kernel would not take."""
+    """The fused wrapper's CPU path is `mamba_scan_fused_ref`, which makes delta
+    = softplus(dt + delta_bias), builds a_bar and bx as `_ssm_inputs` does,
+    scans them with `mamba_scan_ref` and gates the result as the mixer does;
+    it counts no launch and checks what the kernel would not take."""
+    import torch.nn.functional as F
     rng = np.random.default_rng(5)
-    delta, x = (torch.from_numpy(rng.random((2, 33, 16)).astype(np.float32)) for _ in range(2))
+    t = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))  # noqa: E731
+    dt, x, z = t(2, 33, 16), t(2, 33, 16), t(2, 33, 16)
     a = -torch.from_numpy(rng.random((16, 5)).astype(np.float32))
-    b, c = (torch.from_numpy(rng.standard_normal((2, 33, 5)).astype(np.float32))
-            for _ in range(2))
-    before = ms.launches, dict(ms.kernel_launches)
-    y, h = ops.mamba_scan_fused(delta, x.bfloat16(), a, b, c, return_state=True)
+    b, c, bias, d_skip = t(2, 33, 5), t(2, 33, 5), t(16), t(16)
+    before = ms.launches, ms.gated_launches, dict(ms.kernel_launches)
+    y, h = ops.mamba_scan_fused(dt, x.bfloat16(), a, b, c, bias, d_skip, z, return_state=True)
+    xb, zb = x.bfloat16(), z.bfloat16()
+    delta = F.softplus(dt.bfloat16().float() + bias)
     a_bar = (delta[..., None] * a).exp()
-    bx = (delta * x.bfloat16().float())[..., None] * b[..., None, :]
+    bx = (delta * xb.float())[..., None] * b[..., None, :]
     ref_y, ref_h = mamba_scan_ref(a_bar, bx, c, return_state=True)
-    assert torch.equal(y, ref_y) and torch.equal(h, ref_h)
-    assert (ms.launches, ms.kernel_launches) == before
+    want = (ref_y + xb.float() * d_skip).bfloat16() * F.silu(zb)
+    assert torch.equal(y, want) and torch.equal(h, ref_h)
+    assert (ms.launches, ms.gated_launches, ms.kernel_launches) == before
     with pytest.raises(TypeError, match="float32"):
-        ms.mamba_scan_fused(delta.double(), x, a, b, c)
+        ms.mamba_scan_fused(dt.double(), x, a, b, c, bias, d_skip, z)
     with pytest.raises(ValueError, match="bad shapes"):
-        ms.mamba_scan_fused(delta, x, a, b[:, :, :2], c)
+        ms.mamba_scan_fused(dt, x, a, b[:, :, :2], c, bias, d_skip, z)
     with pytest.raises(ValueError, match="state size"):
-        ms.mamba_scan_fused(delta, x, torch.zeros(16, 33), torch.zeros(2, 33, 33),
-                            torch.zeros(2, 33, 33))
+        ms.mamba_scan_fused(dt, x, torch.zeros(16, 33), torch.zeros(2, 33, 33),
+                            torch.zeros(2, 33, 33), bias, d_skip, z)
 
 
 @pytest.mark.parametrize("B,S,Di,N,chunks", [
@@ -264,6 +279,201 @@ def test_fused_scan_wrapper_takes_cpu_tensors_to_the_plain_version_uncounted():
 ])
 def test_scan_chunks_come_from_the_shape_and_the_sm_count(B, S, Di, N, chunks):
     assert ms.scan_chunks(B, S, Di, N, 132) == chunks
+
+
+# --------------------------------------------------------------------------
+# the fused call's gate: the mixer's dt prologue and gated output in K2
+# --------------------------------------------------------------------------
+
+def _gated_inputs(seed, B, S, Di, N, dtype):
+    """The fused call's arguments as the mixer passes them: the raw dt projection
+    and x in `dtype`, A, B, C, dt_bias and d_skip fp32, and z the gate half of an
+    in_proj output, a strided view."""
+    rng = np.random.default_rng(seed)
+    t = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))  # noqa: E731
+    dt, x = (t(B, S, Di) - 1.0).to(dtype), t(B, S, Di).to(dtype)
+    a = -torch.exp(0.5 * t(Di, N))
+    z = t(B, S, 2 * Di).to(dtype)[..., Di:]
+    return dt, x, a, t(B, S, N), t(B, S, N), 0.5 * t(Di), t(Di), z
+
+
+def _record_fused_calls(monkeypatch):
+    """The list each fused call appends to: whether it took all eight arguments."""
+    calls = []
+    real = ms.mamba_scan_fused
+    monkeypatch.setattr(ms, "mamba_scan_fused",
+                        lambda *a, **k: calls.append(len(a) == 8) or real(*a, **k))
+    return calls
+
+
+@pytest.mark.parametrize("return_state", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gated_plain_version_is_the_mixer_s_op_sequence_bit_for_bit(dtype, return_state):
+    """`mamba_scan_fused_ref` with the gate equals the mixer's ops bit for bit:
+    delta = softplus(dt.float() + dt_bias), the plain scan, then y + x·D in
+    fp32, rounded to x's dtype and times silu(z); its h_S is the ungated
+    scan's.  The wrapper's CPU path is that plain version and counts nothing."""
+    from repro_torch.kernels.ref import mamba_scan_fused_ref
+    dt, x, a, b, c, bias, d_skip, z = ins = _gated_inputs(3, 2, 40, 24, 16, getattr(torch, dtype))
+    before = ms.launches, ms.gated_launches, dict(ms.kernel_launches)
+    got = ops.mamba_scan_fused(*ins, return_state=return_state)
+    plain = mamba_scan_fused_ref(*ins, return_state=return_state)
+    assert (ms.launches, ms.gated_launches, ms.kernel_launches) == before
+    delta = torch.nn.functional.softplus(dt.float() + bias.float())
+    y, h = mamba_scan_ref((delta[..., None] * a).exp(),
+                          (delta * x.float())[..., None] * b[..., None, :], c, return_state=True)
+    want = (y + x.float() * d_skip).to(x.dtype) * torch.nn.functional.silu(z)
+    for out in (got, plain):
+        out_y = out[0] if return_state else out
+        assert out_y.dtype == x.dtype and torch.equal(out_y, want)
+        if return_state:
+            assert torch.equal(out[1], h)
+            assert torch.equal(out[1], mamba_scan_fused_ref(delta, x, a, b, c,
+                                                            return_state=True)[1])
+
+
+def test_gated_call_takes_its_arguments_together():
+    """The plain version takes delta_bias, d_skip and z together or not at all;
+    the wrapper takes dt and z in x's dtype and the gate's shapes, on every
+    device."""
+    from repro_torch.kernels.ref import mamba_scan_fused_ref
+    dt, x, a, b, c, bias, d_skip, z = _gated_inputs(4, 1, 8, 16, 4, torch.bfloat16)
+    for part in ((bias, None, None), (bias, d_skip, None), (None, None, z)):
+        with pytest.raises(ValueError, match="together"):
+            mamba_scan_fused_ref(dt, x, a, b, c, *part)
+    with pytest.raises(TypeError, match="x's dtype"):
+        ms.mamba_scan_fused(dt, x, a, b, c, bias, d_skip, z.float())
+    with pytest.raises(TypeError, match="bfloat16 delta"):
+        ms.mamba_scan_fused(dt.float(), x, a, b, c, bias, d_skip, z)
+    with pytest.raises(ValueError, match="bad shapes"):
+        ms.mamba_scan_fused(dt, x, a, b, c, bias, d_skip[:3], z)
+
+
+@pytest.mark.parametrize("return_state", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gated_fake_implementation_gives_the_gated_output(dtype, return_state):
+    """Under `FakeTensorMode` the fused call runs the custom op's fake
+    implementation: y [B,S,Di] in x's dtype, h_S [B,Di,N] (or [0]) fp32; no
+    launch is counted."""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+    before = ms.launches, ms.gated_launches
+    with FakeTensorMode() as mode:
+        ins = [mode.from_tensor(t) for t in _gated_inputs(5, 2, 24, 16, 8, getattr(torch, dtype))]
+        y, h = torch.ops.repro_torch.mamba_scan_fused(*ins, return_state)
+        assert isinstance(y, FakeTensor) and isinstance(h, FakeTensor)
+        assert y.shape == (2, 24, 16) and y.dtype == getattr(torch, dtype)
+        assert h.shape == ((2, 16, 8) if return_state else (0,)) and h.dtype == torch.float32
+        out = ms.mamba_scan_fused(*ins, return_state=return_state)
+        out_y = out[0] if return_state else out
+        assert out_y.shape == y.shape and out_y.dtype == y.dtype
+    assert (ms.launches, ms.gated_launches) == before
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_apply_ssm_kernel_path_gives_the_ungated_output_and_state(arch, dtype, monkeypatch):
+    """`apply_ssm`'s kernel path under no_grad takes the fused call, once, and on
+    the CPU gives the unfused mixer's output and state bit for bit: the plain
+    scan on softplus(dt + dt_bias), then y + x·D, the cast, the gate and
+    out_proj as separate ops."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ref import mamba_scan_fused_ref
+    cfg, _, _, p = _setup(arch, dtype)
+    lp = p["layers"][0]["ssm"]
+    x = torch.randn(2, 24, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    x = x.to(getattr(torch, dtype))
+    calls = _record_fused_calls(monkeypatch)
+    with torch.no_grad():
+        out, state = ssm.apply_ssm(cfg, lp, x, return_state=True)
+        assert calls == [True]
+        dt = x.dtype
+        x_in, z = (x @ lp["in_proj"].to(dt)).chunk(2, dim=-1)
+        xc = F.silu(ssm._conv1d_causal(cfg, lp, x_in))
+        delta, a, b, c = ssm._ssm_params(cfg, lp, xc)
+        y, h = mamba_scan_fused_ref(delta, xc, a, b, c, return_state=True)
+        y = y + xc.float() * lp["d_skip"].float()
+        want = (y.to(dt) * F.silu(z)) @ lp["out_proj"].to(dt)
+    assert torch.equal(out, want) and torch.equal(state["ssm"], h)
+    assert torch.equal(state["conv"], x_in[:, -(cfg.d_conv - 1):].float())
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_prefill_takes_the_gated_call_per_layer_and_training_none(arch, monkeypatch):
+    """A prefill makes one fused call per SSM layer; its step record keeps
+    `mamba_scan.gated_launches`, 0 here since the CPU runs the plain version (on
+    the card it counts the same calls: `tests/test_torch_cuda.py`).  A train
+    step, which autograd records, makes none and counts 0."""
+    from repro_torch import scope
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+    cfg, _, _, p = _setup(arch, "float32")
+    calls = _record_fused_calls(monkeypatch)
+    batch = api.demo_batch(cfg, 2, 12, device="cpu")
+    make_prefill_step(cfg, StepSettings(attn_impl="flash"), cache_len=16)(p, batch)
+    assert calls == [True] * cfg.num_layers
+    assert scope.steps[-1].counters["mamba_scan.gated_launches"] == 0
+    calls.clear()
+    opt_cfg = adamw.AdamWConfig()
+    params = tree_map(lambda t: t.float(), p)
+    make_train_step(cfg, opt_cfg, StepSettings(accum=2, remat="dots"))(
+        params, adamw.init(opt_cfg, params), api.demo_batch(cfg, 4, 16, device="cpu"))
+    rec = scope.steps[-1]
+    assert rec.kind == "train" and rec.counters["mamba_scan.gated_launches"] == 0
+    assert calls == []
+
+
+def test_fake_prefill_takes_the_gated_op_and_counts_nothing(monkeypatch):
+    """A falcon-mamba-7b prefill at full width and 2 layers (2 x 64) on fake
+    tensors: every layer's scan is a fused call through the custom op's fake
+    implementation, no launch is counted and the record's gated launches are 0."""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+    from repro_torch import scope
+    cfg = get_config("falcon-mamba-7b").replace(num_layers=2)
+    calls = _record_fused_calls(monkeypatch)
+    before = ms.launches, ms.gated_launches
+    batch = api.demo_batch(cfg, 2, 64, device="cpu")
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        params = tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype),
+                          api.abstract_params(cfg, torch.bfloat16))
+        lg, _ = make_prefill_step(cfg, StepSettings(attn_impl="flash"), cache_len=65)(
+            params, batch)
+        assert isinstance(lg, FakeTensor)
+    assert calls == [True] * cfg.num_layers
+    assert (ms.launches, ms.gated_launches) == before
+    assert scope.steps[-1].counters["mamba_scan.gated_launches"] == 0
+
+
+_MESH_PREFILL = """
+import json
+from repro_torch import scope
+from repro_torch.kernels import mamba_scan as ms
+from repro_torch.launch.dryrun import lower_cell
+calls = []
+real = ms.mamba_scan_fused
+ms.mamba_scan_fused = lambda *a, **k: calls.append(len(a) == 8) or real(*a, **k)
+lower_cell("falcon-mamba-7b", "prefill_32k", device="cpu", cfg_overrides={"num_layers": 2})
+print("FUSED" + json.dumps([calls, scope.steps[-1].counters["mamba_scan.gated_launches"]]))
+"""
+
+
+def test_mesh_prefill_takes_the_fused_call_on_each_rank():
+    """A falcon-mamba-7b prefill (2 layers, 32k) on DTensors, as rank 0 of the
+    production mesh under the fake process group on fake tensors (the
+    dry-run's): each layer's scan runs per rank as the fused call, its gate's
+    arguments placed as A and x, and the step record counts no launch."""
+    import json
+    import os
+    import subprocess
+    import sys
+    tests = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.path.join(os.path.dirname(tests), "src"),
+           "OMP_NUM_THREADS": "2"}
+    res = subprocess.run([sys.executable, "-c", _MESH_PREFILL], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    calls, counted = json.loads(next(l for l in res.stdout.splitlines()
+                                     if l.startswith("FUSED"))[len("FUSED"):])
+    assert calls == [True, True] and counted == 0
 
 
 def test_short_prompt_conv_state_is_zero_padded():

@@ -292,7 +292,8 @@ def test_kernel_wrappers_raise_under_autograd():
     delta, x = torch.rand(1, 8, 4), torch.randn(1, 8, 4)
     with pytest.raises(RuntimeError, match="no backward"):
         ms.mamba_scan_fused(delta.clone().requires_grad_(), x, -torch.rand(4, 2),
-                            torch.randn(1, 8, 2), c)
+                            torch.randn(1, 8, 2), c, torch.randn(4), torch.randn(4),
+                            torch.randn(1, 8, 4))
     with torch.no_grad():
         assert torch.equal(fa.flash_attention(qr, k, v), fa.flash_attention(q, k, v))
         assert torch.equal(ms.mamba_scan(ar, bx, c), ms.mamba_scan(a, bx, c))
