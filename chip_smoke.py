@@ -314,21 +314,22 @@ Model = namedtuple("Model", "arch B S impls check_shape per_prefill depth fp32_d
                    defaults=(None, None))
 MODELS = [
     Model("chatglm3-6b", 4, 1024, ("flash", "naive"), (4, 1024),
-          {"flash_attention": 28, "flash_attention/tensor_core": 28}),
+          {"flash_attention.launches": 28, "flash_attention/tensor_core": 28}),
     Model("falcon-mamba-7b", 4, 1024, ("flash",), (2, 512),
-          {"mamba_scan": 64, "mamba_scan/fused": 64}),
+          {"mamba_scan.launches": 64, "mamba_scan/fused": 64}),
     Model("hymba-1.5b", 4, 2048, ("flash", "naive"), (4, 2048),
-          {"flash_attention": 32, "flash_attention/tensor_core": 32, "mamba_scan": 32,
-           "mamba_scan/fused": 32}),
+          {"flash_attention.launches": 32, "flash_attention/tensor_core": 32,
+           "mamba_scan.launches": 32, "mamba_scan/fused": 32}),
     Model("h2o-danube-3-4b", 2, 8192, ("flash", "naive"), (1, 4352),
-          {"flash_attention": 24, "flash_attention/tensor_core": 24}),
+          {"flash_attention.launches": 24, "flash_attention/tensor_core": 24}),
     Model("gemma3-4b", 4, 2048, ("flash", "naive"), (2, 2048),
-          {"flash_attention": 34, "flash_attention/tensor_core": 34}),
+          {"flash_attention.launches": 34, "flash_attention/tensor_core": 34}),
     Model("qwen2-vl-2b", 4, 2048, ("flash", "naive"), (4, 2048),
-          {"flash_attention": 28, "flash_attention/tensor_core": 28}),
+          {"flash_attention.launches": 28, "flash_attention/tensor_core": 28}),
     # 8 of 56 layers: the full depth's ~282 GB of bf16 weights need the sharding slice
     Model("mixtral-8x22b", 2, 8192, ("flash", "naive"), (1, 4352),
-          {"flash_attention": 8, "flash_attention/tensor_core": 8}, depth=8, fp32_depth=2),
+          {"flash_attention.launches": 8, "flash_attention/tensor_core": 8}, depth=8,
+          fp32_depth=2),
     # S counts the decoder's prompt tokens; the encoder reads 1500 frames a row
     Model("whisper-tiny", 4, 64, ("auto",), (4, 64), {}),
 ]
@@ -343,13 +344,13 @@ MODELS = [
 # weights, gradients and AdamW moments)
 Train = namedtuple("Train", "arch B S steps ckpt_at per_eval depth", defaults=(None,))
 TRAINS = [Train("qwen2-vl-2b", 4, 2048, 4, 2,
-                {"flash_attention": 28, "flash_attention/tensor_core": 28}),
+                {"flash_attention.launches": 28, "flash_attention/tensor_core": 28}),
           Train("whisper-tiny", 8, 448, 4, 2, {}),
           Train("hymba-1.5b", 4, 2048, 4, 2,
-                {"flash_attention": 8, "flash_attention/tensor_core": 8, "mamba_scan": 8,
-                 "mamba_scan/fused": 8}, depth=8),
-          Train("falcon-mamba-7b", 4, 2048, 4, 2, {"mamba_scan": 4, "mamba_scan/fused": 4},
-                depth=4)]
+                {"flash_attention.launches": 8, "flash_attention/tensor_core": 8,
+                 "mamba_scan.launches": 8, "mamba_scan/fused": 8}, depth=8),
+          Train("falcon-mamba-7b", 4, 2048, 4, 2,
+                {"mamba_scan.launches": 4, "mamba_scan/fused": 4}, depth=4)]
 # the SSM and hybrid rows run again with `ssm_inloop`: its evals and step-0 loss
 # equal the flag-off run's bit for bit, every later loss and grad norm within this
 # relative limit (the in-loop backward sums A's gradient chunk by chunk)
@@ -394,8 +395,8 @@ CORRUPT_STATUS = {"truncate": "salvaged", "splice": "salvaged", "dup_lines": "sa
 # bf16 (max abs BF16_MESH_ABS and BF16_MAX_STEPS steps per element); K1 launches
 # once and K2 once per layer in each real prefill
 FIDELITY = dict(arch="hymba-1.5b", mesh=(2, 4), B=4, S=2048,
-                per_prefill={"flash_attention": 32, "flash_attention/tensor_core": 32,
-                             "mamba_scan": 32, "mamba_scan/fused": 32})
+                per_prefill={"flash_attention.launches": 32, "flash_attention/tensor_core": 32,
+                             "mamba_scan.launches": 32, "mamba_scan/fused": 32})
 BF16_MESH_ABS = 1e-2
 # the dry-run's cells on the production mesh (arch, shape, multi-pod, layers), full
 # width on fake tensors on the card, full depth but where layers are named: every
@@ -435,22 +436,20 @@ def check(ok, msg):
         raise RuntimeError(f"check failed: {msg}")
 
 
-def zero_counts(counters):
-    """Set every launch count to 0: each kernel module's total and its per-kernel counts."""
-    for mod in counters.values():
-        mod.launches = 0
-        for key in getattr(mod, "kernel_launches", {}):
-            mod.kernel_launches[key] = 0
+def launch_mark():
+    """The kernels' counters now (`kernels.ops.launch_counts`), for `launches_since`."""
+    from repro_torch.kernels.ops import launch_counts
+    return launch_counts()
 
 
-def read_counts(counters):
-    """{module: launches} and {module/kernel: launches} for modules with several kernels."""
-    out = {}
-    for name, mod in counters.items():
-        out[name] = mod.launches
-        for key, n in getattr(mod, "kernel_launches", {}).items():
-            out[f"{name}/{key}"] = n
-    return out
+def launches_since(mark):
+    """The kernels' launches since `mark`: each module's total
+    (`<module>.launches`) and its launches by kernel or entry point
+    (`<module>/<key>`); its other counters (K1's windowed launches, K2's
+    chunks of time) left out."""
+    from repro_torch.kernels.ops import launch_counts
+    return {k: n - mark[k] for k, n in launch_counts().items()
+            if k.endswith(".launches") or "/" in k}
 
 
 def nvidia_smi():
@@ -741,8 +740,8 @@ def fused_scan_case(torch, ms, ref, case, seed, x_dtype="bfloat16"):
                 gflop=flops / 1e9, mbytes=nbytes / 1e6)
 
 
-def train_scan_case(torch, ms, ssm, case, seed):
-    """K2's training pair vs the plain training scan (`ssm.scan_inloop` on x
+def train_scan_case(torch, ms, ref, case, seed):
+    """K2's training pair vs the plain training scan (`ref.scan_inloop` on x
     widened to fp32) on one shape, x in bf16: y, h_S and the gradients of a
     weighted sum of both.  Returns a row for each kernel: the forward (y and
     the chunk-start states) and the backward (its kernel and the sum of its
@@ -765,7 +764,7 @@ def train_scan_case(torch, ms, ssm, case, seed):
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    want = run(lambda d, x, *t: ssm.scan_inloop(d, x.float(), *t, return_state=True))
+    want = run(lambda d, x, *t: ref.scan_inloop(d, x.float(), *t, return_state=True))
     end.record()
     end.synchronize()
     plain_ms = start.elapsed_time(end)
@@ -810,7 +809,7 @@ def train_launches(cfg, steps, names):
     forward (the forward and the remat's recompute) and once backward."""
     n = cfg.num_layers * 2 * steps if cfg.family in ("ssm", "hybrid") else 0
     want = {name: 0 for name in names}
-    want.update({"mamba_scan": 3 * n, "mamba_scan/train_fwd": 2 * n,
+    want.update({"mamba_scan.launches": 3 * n, "mamba_scan/train_fwd": 2 * n,
                  "mamba_scan/train_bwd": n})
     return want
 
@@ -846,7 +845,7 @@ def main_path(rt, cfg, params, B, S, n_decode, attn_impl):
     decode = rt.make_decode_step(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zero_counts(rt.counters)
+    mark = launch_mark()
     prefill_s = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -866,7 +865,7 @@ def main_path(rt, cfg, params, B, S, n_decode, attn_impl):
         if i in (0, n_decode - 1):
             torch.cuda.synchronize()
         decode_s.append(time.perf_counter() - t0)
-    launches = read_counts(rt.counters)
+    launches = launches_since(mark)
     generated = torch.cat(generated, dim=1)
     check(bool(torch.isfinite(prefill_logits).all()) and bool(torch.isfinite(logits).all()),
           f"{cfg.name}: non-finite logits")
@@ -885,7 +884,7 @@ def main_path(rt, cfg, params, B, S, n_decode, attn_impl):
 def run_server(rt, cfg, params):
     """BatchedServer at full width, 4 requests x (8 prompt + 8 new) tokens; it prefills
     through decode steps, as the reference's does, so it launches neither kernel."""
-    zero_counts(rt.counters)
+    mark = launch_mark()
     srv = rt.BatchedServer(cfg, params, max_batch=4, cache_len=64)
     rng = rt.np.random.default_rng(0)
     reqs = [rt.Request(i, rng.integers(0, cfg.vocab_size, 8), 8) for i in range(4)]
@@ -894,7 +893,7 @@ def run_server(rt, cfg, params):
     rt.torch.cuda.synchronize()
     srv_s = time.perf_counter() - t0
     check(all(r.done and len(r.generated) == 8 for r in reqs), "server left requests unfinished")
-    launches = read_counts(rt.counters)
+    launches = launches_since(mark)
     print(f"[server] {cfg.name}: 4 requests x 8 new tokens in {srv_s:.2f}s "
           f"({32 / srv_s:.1f} tok/s), launches {launches}; req 0 -> {reqs[0].generated}")
 
@@ -963,7 +962,7 @@ def serve_model(rt, model):
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     res, batch, prefill, decode, prefill_logits, cache = main_path(
         rt, cfg, params, B, S, N_DECODE, impls[0])
-    want = {name: 2 * per_prefill.get(name, 0) for name in read_counts(rt.counters)}
+    want = {name: 2 * per_prefill.get(name, 0) for name in res["launches"]}
     check(res["launches"] == want, f"{res['launches']} launches on the {cfg.name} main "
                                    f"path, want {want}")
     specs = api.cache_specs(cfg, rt.ShapeSpec("main_path", "decode", S + N_DECODE, B))
@@ -1040,12 +1039,12 @@ def train_model(rt, spec):
     def run_evals(c, params, batch):
         evals, launches = {}, {}
         for impl in ("naive", "flash"):
-            zero_counts(rt.counters)
+            mark = launch_mark()
             t0 = time.perf_counter()
             evals[impl] = float(rt.make_eval_step(c, rt.StepSettings(attn_impl=impl))(
                 params, batch))
             torch.cuda.synchronize()
-            launches[impl] = read_counts(rt.counters)
+            launches[impl] = launches_since(mark)
             print(f"[train] {cfg.name}{' inloop' if c.ssm_inloop else ''} eval {impl}: loss "
                   f"{evals[impl]:.6f} in {(time.perf_counter() - t0) * 1e3:.1f} ms (cold), "
                   f"launches {launches[impl]}")
@@ -1059,7 +1058,7 @@ def train_model(rt, spec):
     params, opt, _ = tr.init_state(0)
     batch = rt.to_device(tr.data.batch_at(0), "cuda")
     evals, eval_launches = run_evals(cfg, params, batch)
-    want = {name: spec.per_eval.get(name, 0) for name in read_counts(rt.counters)}
+    want = {name: spec.per_eval.get(name, 0) for name in eval_launches["flash"]}
     check(eval_launches["flash"] == want, f"{cfg.name} flash eval launches "
                                           f"{eval_launches['flash']}, want {want}")
     eval_rel = abs(evals["flash"] - evals["naive"]) / abs(evals["naive"])
@@ -1095,10 +1094,10 @@ def train_model(rt, spec):
     # is fixed by CUBLAS_WORKSPACE_CONFIG, set in main before cuBLAS starts)
     torch.use_deterministic_algorithms(True)
     try:
-        zero_counts(rt.counters)
+        mark = launch_mark()
         torch.cuda.reset_peak_memory_stats()
         log_a = trainer(spec.steps).run()
-        run_launches = read_counts(rt.counters)
+        run_launches = launches_since(mark)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         trainer(spec.ckpt_at, ckpt_dir=str(ckpt), ckpt_every=spec.ckpt_at).run()
         log_b = trainer(spec.steps, ckpt_dir=str(ckpt), ckpt_every=spec.ckpt_at).run()
@@ -1178,10 +1177,10 @@ def train_inloop(rt, spec, cfg, trainer, run_evals, off, want):
     torch.cuda.empty_cache()
     torch.use_deterministic_algorithms(True)
     try:
-        zero_counts(rt.counters)
+        mark = launch_mark()
         torch.cuda.reset_peak_memory_stats()
         log = trainer(spec.steps, c=icfg).run()
-        run_launches = read_counts(rt.counters)
+        run_launches = launches_since(mark)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
     finally:
         torch.use_deterministic_algorithms(False)
@@ -1254,7 +1253,7 @@ def trace_phase(rt):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3, tr
 
-    zero_counts(rt.counters)
+    mark = launch_mark()
     warm_ms, _ = timed(False)
     runs = {"off": [], "on": []}
     for mode in ("on", "off", "off", "on"):
@@ -1262,7 +1261,7 @@ def trace_phase(rt):
         runs[mode].append(ms)
         if mode == "on":
             tr = out
-    launches = read_counts(rt.counters)
+    launches = launches_since(mark)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(all(n == 0 for n in launches.values()), f"traced steps launched kernels {launches}")
     check(tr.sites > 0, "no collective captured")
@@ -1340,7 +1339,7 @@ def ingest_phase(rt):
     capture, spec, release = rt.kept.pop("trace step")
     shutil.rmtree(INGEST_DIR, ignore_errors=True)
     INGEST_DIR.mkdir(parents=True)
-    zero_counts(rt.counters)
+    mark = launch_mark()
     daemon = WatchDaemon(WatchConfig(root=str(INGEST_DIR), mesh=spec, quiet=True,
                                      settle_s=INGEST["settle_s"]))
     seen, stop = {}, threading.Event()
@@ -1370,7 +1369,7 @@ def ingest_phase(rt):
         stop.set()
         poller.join()
         release()
-    launches = read_counts(rt.counters)
+    launches = launches_since(mark)
     check(all(n == 0 for n in launches.values()), f"captured steps launched kernels {launches}")
     paths = sorted(traces)
     check(sorted(seen) == paths, f"the daemon ingested {sorted(seen)} of {paths}")
@@ -1496,7 +1495,7 @@ def shard_phase(rt):
     settings = rt.StepSettings(accum=2, remat="dots")
     logs = {}
     plain_pick = losses._lse_and_target
-    zero_counts(rt.counters)
+    mark = launch_mark()
     torch.use_deterministic_algorithms(True)
     try:
         for name, c, mesh in (("straight", cfg, None), ("mesh 1x1", cfg, (1, 1)),
@@ -1514,7 +1513,7 @@ def shard_phase(rt):
     finally:
         losses._lse_and_target = plain_pick
         torch.use_deterministic_algorithms(False)
-    launches = read_counts(rt.counters)
+    launches = launches_since(mark)
     check(rt.dist.get_backend() == "nccl" and rt.dist.get_world_size() == 1,
           "the mesh did not run on a one-rank nccl group")
     rt.dist.destroy_process_group()
@@ -1601,7 +1600,7 @@ def moe_phase(rt):
         del params, x, y, aux
         return out
 
-    zero_counts(rt.counters)
+    mark = launch_mark()
     res = {}
     for dispatch in ("sort", "einsum"):
         first_ms = run(dispatch)["ms"]
@@ -1611,7 +1610,7 @@ def moe_phase(rt):
         if dispatch == "sort":
             res[dispatch]["grads"] = {k: g.cpu() for k, g in res[dispatch]["grads"].items()}
         torch.cuda.empty_cache()
-    launches = read_counts(rt.counters)
+    launches = launches_since(mark)
     s, e = res["sort"], res["einsum"]
     y_rel = rel(torch, s["y"], e["y"])
     aux_err = abs(s["aux"] - e["aux"])
@@ -1659,7 +1658,7 @@ def moe_trace_phase(rt):
     placements = {k: sh.placements_for(s, mesh)
                   for k, s in sh.batch_pspecs(cfg, shape, mesh).items()}
     oc = rt.adamw.AdamWConfig()
-    zero_counts(rt.counters)
+    mark = launch_mark()
     out = {}
     for dispatch in ("sort", "einsum"):
         c = cfg.replace(moe_dispatch=dispatch)
@@ -1698,7 +1697,7 @@ def moe_trace_phase(rt):
         out[dispatch] = dict(trace=tr, table=table, ms=ms, peak_gb=peak_gb)
         del params, opt, batch, step
         torch.cuda.empty_cache()
-    launches = read_counts(rt.counters)
+    launches = launches_since(mark)
     rt.dist.destroy_process_group()
     res = {d: dict(sites=v["trace"].sites, model_ms=v["trace"].total_est_time_s() * 1e3,
                    collective_bytes=v["trace"].total_collective_bytes(),
@@ -1845,28 +1844,28 @@ def dryrun_phase(rt):
                                    device=rt.device)
     shape = rt.ShapeSpec("trace", "train", TRACE["S"], TRACE["B"])
     st = rt.StepSettings(accum=2, remat="full")
-    zero_counts(rt.counters)
+    mark = launch_mark()
     fake, _, secs = dr.trace_cell(cfg, shape, st, mesh, spec, fake=True)
     mem = dr.analytic_memory_bytes(cfg, shape, st, mesh, dr.cell_rules(cfg, shape, st, mesh))
     fidelity(rt, f"{cfg.name} train {TRACE['B']} x {TRACE['S']}", real, fake,
-             read_counts(rt.counters), mem["total_with_slack"], secs)
+             launches_since(mark), mem["total_with_slack"], secs)
 
     # (a) the fidelity prefill: real (K1 and K2 on rank 0's shards) and fake
     cfg = rt.get_config(FIDELITY["arch"])
     shape = rt.ShapeSpec("fidelity", "prefill", FIDELITY["S"], FIDELITY["B"])
     st = rt.StepSettings(accum=1, remat="none", attn_impl="flash")
-    zero_counts(rt.counters)
+    mark = launch_mark()
     real, _, real_s = dr.trace_cell(cfg, shape, st, mesh, spec, fake=False)
     torch.cuda.synchronize()
-    launches = read_counts(rt.counters)
+    launches = launches_since(mark)
     torch.cuda.empty_cache()
-    zero_counts(rt.counters)
+    mark = launch_mark()
     fake, _, secs = dr.trace_cell(cfg, shape, st, mesh, spec, fake=True)
     mem = dr.analytic_memory_bytes(cfg, shape, st, mesh, dr.cell_rules(cfg, shape, st, mesh))
     print(f"[dryrun] {cfg.name} prefill {shape.global_batch} x {shape.seq_len}, rank 0 of "
           f"{FIDELITY['mesh']}: real run {real_s:.2f} s, launches {launches}")
     fidelity(rt, f"{cfg.name} prefill {shape.global_batch} x {shape.seq_len}", real, fake,
-             read_counts(rt.counters), mem["total_with_slack"], secs)
+             launches_since(mark), mem["total_with_slack"], secs)
     for kname, n in FIDELITY["per_prefill"].items():
         check(launches[kname] == n, f"fidelity prefill: {kname} {launches[kname]} != {n}")
     rt.dist.destroy_process_group()
@@ -1888,15 +1887,14 @@ def dryrun_phase(rt):
         mbatch = rt.shard_batch({k: v.cpu().numpy() for k, v in batch.items()}, one,
                                 {k: sh.placements_for(p, one)
                                  for k, p in sh.batch_pspecs(c, bshape, one).items()})
-        zero_counts(rt.counters)
+        mark = launch_mark()
         with rt.activation_sharding(one):
             m_logits, m_cache = prefill(params, mbatch)
         torch.cuda.synchronize()
-        got = read_counts(rt.counters)
-        kernel = "flash_attention/" + rt.counters["flash_attention"].kernel_for(
-            getattr(torch, dtype), c.head_dim)
-        per_layer = FIDELITY["per_prefill"]["flash_attention"]
-        check(got["flash_attention"] == got[kernel] == got["mamba_scan"]
+        got = launches_since(mark)
+        kernel = "flash_attention/" + rt.fa.kernel_for(getattr(torch, dtype), c.head_dim)
+        per_layer = FIDELITY["per_prefill"]["flash_attention.launches"]
+        check(got["flash_attention.launches"] == got[kernel] == got["mamba_scan.launches"]
               == got["mamba_scan/fused"] == per_layer,
               f"mesh prefill {dtype}: launches {got}, {kernel} and fused K2 {per_layer} each")
         for kname, n in got.items():
@@ -1953,22 +1951,19 @@ def dryrun_cell(cell, device):
     decode cache's gathers."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs import SHAPES, get_config
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import mamba_scan as ms
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh_spec
     arch, shape, multi_pod, layers = cell
     cfg = get_config(arch)
     over = {"num_layers": layers} if layers else None
-    counters = {"flash_attention": fa, "mamba_scan": ms}
-    zero_counts(counters)
+    mark = launch_mark()
     r = dryrun.lower_cell(arch, shape, multi_pod=multi_pod, device=device, cfg_overrides=over)
     tr = r.pop("trace")
     gathers = dryrun.cache_gathers(tr, cfg.replace(**(over or {})), SHAPES[shape],
                                    make_mesh_spec(multi_pod=multi_pod)) \
         if SHAPES[shape].kind == "decode" else []
     r.update(layers=layers, sites=tr.sites, gb_accessed=tr.hlo_bytes / 1e9,
-             cache_gathers=len(gathers), launches=read_counts(counters))
+             cache_gathers=len(gathers), launches=launches_since(mark))
     return r
 
 
@@ -2014,11 +2009,11 @@ def collectives_phase(rt):
         nbytes = x.numel() * x.element_size()
         for alg in rt.algorithms.ALGORITHMS:
             fn = rt.algorithms.allreduce_fn(alg, mesh, "data")
-            zero_counts(rt.counters)
+            mark = launch_mark()
             tr = core.trace_step(fn, (x,), mesh, spec, label=alg)
             y = fn(x)
             torch.cuda.synchronize()
-            launches = read_counts(rt.counters)
+            launches = launches_since(mark)
             check(all(v == 0 for v in launches.values()), f"{alg} launched kernels {launches}")
             check(bool(torch.isfinite(y).all()), f"{alg}: non-finite output")
             del y
@@ -2078,8 +2073,7 @@ def pipeline_phase(rt):
         return rt.transformer.apply_layers(cfg.replace(num_layers=n), stage_layers, h,
                                            positions, attn_impl="flash")[0]
 
-    kernel = "flash_attention/" + rt.counters["flash_attention"].kernel_for(
-        torch.bfloat16, cfg.head_dim)
+    kernel = "flash_attention/" + rt.fa.kernel_for(torch.bfloat16, cfg.head_dim)
     # (a) P stages over (P,) ("model",); rank 0 holds stage 0's rows only
     mesh, spec = rt.make_host_mesh((P,), ("model",), backend="fake", device=rt.device)
     per = nl // P
@@ -2089,14 +2083,15 @@ def pipeline_phase(rt):
                     dtype=torch.bfloat16)
     run = lambda w, h: pp.pipeline_apply(stage_fn, w, h, mesh, axis="model")
     with torch.inference_mode():
-        zero_counts(rt.counters)
+        mark = launch_mark()
         tr = rt.core.trace_step(run, (stage_params, x), mesh, spec, label="pipeline")
         torch.cuda.synchronize()
-        launches_a = read_counts(rt.counters)
+        launches_a = launches_since(mark)
         ticks = M + P - 1
-        check(launches_a[kernel] == per * ticks == launches_a["flash_attention"],
+        check(launches_a[kernel] == per * ticks == launches_a["flash_attention.launches"],
               f"pipeline (a): {launches_a} != {per} layers x {ticks} ticks of {kernel}")
-        check(launches_a["mamba_scan"] == 0, f"pipeline (a) launched K2: {launches_a}")
+        check(launches_a["mamba_scan.launches"] == 0,
+              f"pipeline (a) launched K2: {launches_a}")
         y = run(stage_params, x)
         check(bool(torch.isfinite(y).all()) and tuple(y.shape) == tuple(x.shape),
               f"pipeline (a): output {tuple(y.shape)} not finite or not {tuple(x.shape)}")
@@ -2136,15 +2131,15 @@ def pipeline_phase(rt):
                     dtype=torch.bfloat16)
     whole = _stacked_stages(rt, layers, 1)
     with torch.inference_mode():
-        zero_counts(rt.counters)
+        mark = launch_mark()
         y = pp.pipeline_apply(stage_fn, whole, x, one, axis="model")
         torch.cuda.synchronize()
-        launches_b = read_counts(rt.counters)
+        launches_b = launches_since(mark)
         straight = torch.stack([rt.transformer.apply_layers(cfg, layers, x[i], positions,
                                                             attn_impl="flash")[0]
                                 for i in range(M1)])
     check(rt.dist.get_backend() == "nccl", "pipeline (b) did not run on an nccl group")
-    check(launches_b[kernel] == nl * M1 == launches_b["flash_attention"],
+    check(launches_b[kernel] == nl * M1 == launches_b["flash_attention.launches"],
           f"pipeline (b): {launches_b} != {nl} layers x {M1} micro-batches")
     same = bool(torch.equal(y, straight))
     print("[pipeline] (b) " + json.dumps(dict(arch=cfg.name, layers=nl, M=M1, bitwise=same,
@@ -2223,7 +2218,7 @@ def kernels_line(main_launches, variant_path, scan_variants):
               fp32["hymba-1.5b fp32 mesh prefill, global"], variant="tensor_core_fp32",
               kernel="flash_fwd_tf32x3_kernel", at=at(fp32)),
         entry("mamba_scan", "src/repro_torch/csrc/mamba_scan.cu",
-              "src/repro/kernels/mamba_scan.py:24", main_launches["mamba_scan"],
+              "src/repro/kernels/mamba_scan.py:24", main_launches["mamba_scan.launches"],
               scan_variants["fused"]["falcon-mamba-7b prefill, 3444 tokens"], variant="fused",
               kernel="mamba_scan_fused_kernel",
               variants={v: dict(launches=main_launches[f"mamba_scan/{v}"], at=at(shapes))
@@ -2274,7 +2269,7 @@ def main(argv=None) -> int:
     from repro_torch.launch.steps import (make_decode_step, make_eval_step, make_prefill_step,
                                           make_train_step)
     from repro_torch.launch.train import Trainer
-    from repro_torch.models import api, losses, moe, ssm, transformer
+    from repro_torch.models import api, losses, moe, transformer
     from repro_torch.models.meta import leaves, materialize, tree_map_meta
     from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
     from torch.utils._pytree import tree_leaves, tree_map
@@ -2283,12 +2278,11 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    counters = {"flash_attention": fa, "mamba_scan": ms}
     rt = SimpleNamespace(torch=torch, np=np, api=api, get_config=get_config, kept={},
                          device="cuda",
                          make_prefill_step=make_prefill_step,
                          make_decode_step=make_decode_step, StepSettings=StepSettings,
-                         BatchedServer=BatchedServer, Request=Request, counters=counters,
+                         BatchedServer=BatchedServer, Request=Request, fa=fa,
                          ShapeSpec=ShapeSpec, transformer=transformer, Trainer=Trainer,
                          make_eval_step=make_eval_step, make_train_step=make_train_step,
                          to_device=to_device, checkpoint=checkpoint, leaves=leaves,
@@ -2313,8 +2307,8 @@ def main(argv=None) -> int:
 
     # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
-    sources = {kname: mod.SOURCE for kname, mod in counters.items()}
-    sources["mamba_scan_train"] = ms.TRAIN_SOURCE
+    sources = {"flash_attention": fa.SOURCE, "mamba_scan": ms.SOURCE,
+               "mamba_scan_train": ms.TRAIN_SOURCE}
     built = build_all(build, sources)
     print(f"[build] {len(built)} kernels in {time.perf_counter() - t0:.1f}s")
     for kname, (secs, report) in built.items():
@@ -2397,7 +2391,7 @@ def main(argv=None) -> int:
                      "unfused": {w: unfused_at[c] for w, c in scan_where.items()}}
     # K2's training pair at the train micro-batch shapes, each kernel a variant
     trains = [row for i, case in enumerate(SCAN_TRAIN_SHAPES)
-              for row in train_scan_case(torch, ms, ssm, case, seed=240 + i)]
+              for row in train_scan_case(torch, ms, ref, case, seed=240 + i)]
     for r in trains:
         print("[kernel] mamba_scan_train " + json.dumps(r))
     train_at = {(tuple(r["case"]), r["kind"]): r for r in trains}
@@ -2421,7 +2415,7 @@ def main(argv=None) -> int:
 
     lap("build and kernels")
     # 4-11. the models at full width, one at a time
-    main_launches = {kname: 0 for kname in read_counts(counters)}
+    main_launches = launches_since(launch_mark())       # every launch count, at 0
     for model in MODELS:
         for kname, n in serve_model(rt, model).items():
             main_launches[kname] += n

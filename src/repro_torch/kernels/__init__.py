@@ -13,10 +13,14 @@ mamba_scan.py       — binding and wrappers of csrc/mamba_scan.cu (replaces
                       and of csrc/mamba_scan_train.cu, the fused scan's
                       differentiable twin for training (a forward that saves
                       chunk-start states and a backward kernel)
-ops.py              — model-layout wrappers
-ref.py              — plain PyTorch versions (the CPU path and the oracle)
+ops.py              — model-layout wrappers, and `launch_counts`, the
+                      kernel modules' launch counters under one naming rule
+ref.py              — plain PyTorch versions (the CPU path and the oracle),
+                      and the plain differentiable training scans
+                      (`scan_chunked`, `scan_inloop`)
 
 K1 and K2's prefill entry points are forward only, as the reference's are;
 their wrappers raise inside autograd.  Training runs K2's training pair on
-the card and the plain scan on the CPU.
+the card and the plain scan of `ref.py` on the CPU.  No module here imports
+the models.
 """

@@ -34,9 +34,9 @@ Training has its own entry point and source, `csrc/mamba_scan_train.cu`
   with its inputs is all it keeps for backward; the backward op
   (`repro_torch::mamba_scan_train_bwd`) recomputes each chunk's states
   from there and walks it in reverse.  A CPU tensor takes the plain
-  training scan (`models.ssm.scan_inloop`, whose values and gradients it
-  gives bit for bit); `ref.mamba_scan_train_bwd_ref` is the backward's
-  plain model.
+  training scan (`ref.scan_inloop`, whose values and gradients it gives
+  bit for bit); `ref.mamba_scan_train_bwd_ref` is the backward's plain
+  model.
 
 Each custom op's CUDA implementation is the launch, and its fake
 implementation gives its outputs' shapes, so that a step on fake tensors
@@ -48,11 +48,9 @@ counts its plain version (the readout's products, 2·B·S·Di·N, and their
 gradients, 4·B·S·Di·N; the recurrence and the discretisation are
 elementwise).  `launches` counts the calls that launched any kernel,
 `kernel_launches` each entry point's ("unfused", "fused", "train_fwd",
-"train_bwd"), `backward_launches` the training backward's alone, `chunks`
-the chunks of time over the fused entry point's calls (one a call that
-takes one pass: more chunks than calls is the chunked-time branch),
-`gated_launches` the calls that took the mixer's dt prologue and gated
-output (every fused call).
+"train_bwd"), `chunks` the chunks of time over the fused entry point's
+calls (one a call that takes one pass: more chunks than calls is the
+chunked-time branch); `ops.launch_counts` reads them.
 """
 from __future__ import annotations
 
@@ -63,7 +61,8 @@ from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build as _build
-from repro_torch.kernels.ref import mamba_scan_fused_ref, mamba_scan_ref, train_chunk
+from repro_torch.kernels.ref import (mamba_scan_fused_ref, mamba_scan_ref, scan_inloop,
+                                     train_chunk)
 
 SOURCE = _build.PACKAGE / "csrc" / "mamba_scan.cu"
 TRAIN_SOURCE = _build.PACKAGE / "csrc" / "mamba_scan_train.cu"
@@ -75,9 +74,7 @@ CHANNELS_PER_BLOCK, MIN_CHUNK = 128, 128
 launches = 0   # kernel launches; a run zeroes it to count one path's launches
 # the same launches, by entry point
 kernel_launches = {"unfused": 0, "fused": 0, "train_fwd": 0, "train_bwd": 0}
-backward_launches = 0   # the training backward's launches
 chunks = 0     # chunks of time over the fused entry point's launches
-gated_launches = 0   # the fused entry point's launches with its prologue and epilogue
 
 
 @functools.cache
@@ -133,7 +130,7 @@ def mamba_scan(a_bar, bx, c, *, return_state=False):
     _check(a_bar, bx, c)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (a_bar, bx, c)):
         raise RuntimeError("mamba_scan has no backward: its output would carry no gradient; "
-                           "train with apply_ssm(scan_impl='plain')")
+                           "train through the training entry point, mamba_scan_train")
     if a_bar.device.type == "cpu" and not isinstance(a_bar, FakeTensor):
         return mamba_scan_ref(a_bar, bx, c, return_state=return_state)
     if a_bar.device.type not in ("cpu", "cuda"):
@@ -229,7 +226,8 @@ def mamba_scan_fused(dt, x, a, b, c, delta_bias, d_skip, z, *, return_state=Fals
     ts = (dt, x, a, b, c, delta_bias, d_skip, z)
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise RuntimeError("mamba_scan_fused has no backward: its output would carry no "
-                           "gradient; train with apply_ssm(scan_impl='plain')")
+                           "gradient; train through the training entry point, "
+                           "mamba_scan_train")
     if dt.device.type == "cpu" and not isinstance(dt, FakeTensor):
         return mamba_scan_fused_ref(*ts, return_state=return_state)
     if dt.device.type not in ("cpu", "cuda"):
@@ -243,7 +241,7 @@ def _launch_fused(dt, x, a, b, c, delta_bias, d_skip, z, return_state):
     """The launch(es) on the current stream: one pass, or two where time is
     chunked (`scan_chunks`).  Returns (y, h_S), h_S empty [0] when
     `return_state` is False."""
-    global launches, chunks, gated_launches
+    global launches, chunks
     B, S, Di = dt.shape
     N = a.shape[1]
     dt, x, a, b, c, delta_bias, d_skip = (t.contiguous()
@@ -271,7 +269,6 @@ def _launch_fused(dt, x, a, b, c, delta_bias, d_skip, z, return_state):
         raise RuntimeError(f"fused mamba scan kernel launch failed: cudaError {err}")
     launches += 1
     chunks += parts
-    gated_launches += 1
     kernel_launches["fused"] += 1
     return y, h
 
@@ -319,11 +316,10 @@ def mamba_scan_train(delta, x, a, b, c, *, return_state=False):
     """`mamba_scan_fused`'s scan, on delta after its softplus and without the
     gate (y fp32), differentiable: the training entry point.  On the card the
     custom op `repro_torch::mamba_scan_train` (its backward a kernel too); on
-    CPU tensors the plain training scan, `models.ssm.scan_inloop` on x
-    widened to fp32, whose values and gradients it is."""
+    CPU tensors the plain training scan, `ref.scan_inloop` on x widened to
+    fp32, whose values and gradients it is."""
     _check_scan(delta, x, a, b, c)
     if delta.device.type == "cpu" and not isinstance(delta, FakeTensor):
-        from repro_torch.models.ssm import scan_inloop
         return scan_inloop(delta, x.float(), a, b, c, return_state=return_state)
     if delta.device.type not in ("cpu", "cuda"):
         raise ValueError(f"mamba_scan_train runs on cpu or cuda, not {delta.device}")
@@ -385,7 +381,7 @@ def _mamba_scan_train_bwd(delta: torch.Tensor, x: torch.Tensor, a: torch.Tensor,
     """The backward launches on the current stream: the kernel, then the fixed-
     order sum of its partials.  `dh` is h_S's gradient, or empty [0] where
     h_S has none.  Returns (ddelta, dx in x's dtype, dA, dB, dC)."""
-    global launches, backward_launches
+    global launches
     B, S, Di = delta.shape
     N = a.shape[1]
     delta, x, a, b, c, states, dy = (t.contiguous() for t in (delta, x, a, b, c, states, dy))
@@ -411,7 +407,6 @@ def _mamba_scan_train_bwd(delta: torch.Tensor, x: torch.Tensor, a: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"mamba scan training backward launch failed: cudaError {err}")
     launches += 1
-    backward_launches += 1
     kernel_launches["train_bwd"] += 1
     return ddelta, dx, da, db, dc
 

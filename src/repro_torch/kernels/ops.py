@@ -17,11 +17,8 @@ never made.
 `mamba_scan_train` casts as it does and is differentiable: the model's
 training scan on the card.
 
-Each launch counter (`flash_attention.launches`, `mamba_scan.launches`) is
-incremented where its kernel launches; `flash_attention.kernel_launches`
-splits K1's by the kernel that ran, `flash_attention.window_launches` counts
-K1's launches with a window, `mamba_scan.kernel_launches` K2's by the entry
-point.
+Each kernel module keeps its own counters, incremented where its kernels
+launch; `launch_counts` reads them all.
 """
 from __future__ import annotations
 
@@ -29,6 +26,22 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mamba_scan as ms
+
+
+def launch_counts() -> dict[str, int]:
+    """The kernel modules' counters, flat, under one naming rule:
+    `<module>.<counter>` for a module's int counters and `<module>/<key>` for
+    each key of its `kernel_launches` (its launches by kernel or entry
+    point), module `flash_attention` or `mamba_scan`.  The int counters are
+    `launches` (all of the module's), K1's `window_launches` (those with a
+    window) and K2's `chunks` (chunks of time over its fused launches).  A
+    step record keeps the change of each."""
+    out = {"flash_attention.launches": fa.launches,
+           "flash_attention.window_launches": fa.window_launches,
+           "mamba_scan.launches": ms.launches, "mamba_scan.chunks": ms.chunks}
+    for name, mod in (("flash_attention", fa), ("mamba_scan", ms)):
+        out.update((f"{name}/{key}", n) for key, n in mod.kernel_launches.items())
+    return out
 
 
 def flash_attention(cfg, q, k, v, *, causal=True, window=0, q_offset=0):

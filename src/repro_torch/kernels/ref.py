@@ -1,9 +1,12 @@
 """Plain PyTorch versions of the kernels (the CPU path and the allclose oracle),
-and the plain model of the training scan's forward and backward kernels."""
+the plain model of the training scan's forward and backward kernels, and the
+plain differentiable scans (`scan_chunked`, `scan_inloop`): the training
+entry point's CPU path and the model's training scan on CPU tensors."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, q_offset=0, scale=None):
@@ -138,3 +141,94 @@ def mamba_scan_train_bwd_ref(delta, x, a, b, c, states, dy, dh=None):
             dx[:, t] = delta[:, t] * sgb
             g = gt * ab
     return ddelta, dx.to(x.dtype), da, db, dc
+
+
+def _discretise(delta, x, a, b):
+    """a_bar = exp(delta * A) and bx = (delta * x) * B, [B,S,di,N] fp32, from
+    delta and x [B,S,di] (x fp32), A [di,N] and B [B,S,N]."""
+    a_bar = (delta[..., None] * a).exp_()
+    bx = (delta * x)[..., None] * b[..., None, :]
+    return a_bar, bx
+
+
+SCAN_CHUNK = 256          # the reference's `apply_ssm(chunk=256)`
+
+
+def _combine(a1, b1, a2, b2):
+    """The recurrence's associative combine, (a1, b1) . (a2, b2) = (a1 a2, a2 b1 + b2)."""
+    return a1 * a2, a2 * b1 + b2
+
+
+def _interleave(even, odd):
+    """even[:, 0], odd[:, 0], even[:, 1], ... along dim 1 (even as long as odd
+    or one longer)."""
+    n = odd.shape[1]
+    out = torch.stack([even[:, :n], odd], dim=2).flatten(1, 2)
+    return out if even.shape[1] == n else torch.cat([out, even[:, n:]], dim=1)
+
+
+def _assoc_scan(a, b):
+    """The inclusive scan of `_combine` along dim 1, as `jax.lax.associative_scan`
+    computes it (the reference's): adjacent pairs combined, their scan taken
+    recursively, the even positions filled in from it.  O(C) work in log2(C)
+    levels, against C log2(C) for doubling."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    odd_a, odd_b = _assoc_scan(*_combine(a[:, 0:-1:2], b[:, 0:-1:2], a[:, 1::2], b[:, 1::2]))
+    k = odd_a.shape[1] - (n % 2 == 0)
+    even_a, even_b = _combine(odd_a[:, :k], odd_b[:, :k], a[:, 2::2], b[:, 2::2])
+    return (_interleave(torch.cat([a[:, :1], even_a], dim=1), odd_a),
+            _interleave(torch.cat([b[:, :1], even_b], dim=1), odd_b))
+
+
+def _chunk_scan(a, bx, c, h0):
+    """One chunk, as the reference's `_chunk_scan`: the associative combine
+    scanned along the chunk (`_assoc_scan`), the carried state h0 (None before
+    the first chunk) applied, then the readout.  Returns (y, the chunk's last
+    state, apart from the chunk's storage)."""
+    a, bx = _assoc_scan(a, bx)
+    h = bx if h0 is None else a * h0[:, None] + bx
+    return torch.einsum("bsdn,bsn->bsd", h, c), h[:, -1].clone()
+
+
+def _carried(chunk_fn, per_step, fixed, return_state, chunk):
+    """`chunk_fn(*per_step chunks, *fixed, h)` over chunks of `chunk` steps
+    (halved until it divides S), the state carried from chunk to chunk, each
+    chunk under `torch.utils.checkpoint`; the chunks' y concatenated."""
+    S = per_step[0].shape[1]
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk //= 2
+    h, ys = None, []
+    for s0 in range(0, S, chunk):
+        part = slice(s0, s0 + chunk)
+        y, h = checkpoint(chunk_fn, *(t[:, part] for t in per_step), *fixed, h,
+                          use_reentrant=False, preserve_rng_state=False)
+        ys.append(y)
+    y = torch.cat(ys, dim=1)
+    return (y, h) if return_state else y
+
+
+def scan_chunked(a_bar, bx, c, *, return_state=False, chunk=SCAN_CHUNK):
+    """The scan of `mamba_scan_ref` (same arguments and results,
+    S >= 1), differentiable, chunked as the reference's `apply_ssm`: chunks of
+    `chunk` steps (halved until it divides S), each an associative scan, the
+    state carried between them.  Each chunk runs under
+    `torch.utils.checkpoint`, so autograd keeps its inputs and carried state
+    and backward recomputes its scan, one chunk at a time: about the memory
+    of the sequential loop, not the scan's levels over the whole sequence."""
+    return _carried(_chunk_scan, (a_bar, bx, c), (), return_state, chunk)
+
+
+def _discretised_chunk(delta, x, b, c, a, h0):
+    return _chunk_scan(*_discretise(delta, x, a, b), c, h0)
+
+
+def scan_inloop(delta, x, a, b, c, *, return_state=False, chunk=SCAN_CHUNK):
+    """`scan_chunked` of `_discretise(delta, x, a, b)` and c, each chunk's a_bar
+    and bx made inside its checkpoint (the reference's `ssm_inloop`): autograd
+    keeps delta, x [B,S,di], b, c [B,S,N], A and the carried states, and
+    backward makes one chunk's [B, C, di, N] terms at a time.  The same
+    function as the whole-sequence discretisation, element by element."""
+    return _carried(_discretised_chunk, (delta, x, b, c), (a,), return_state, chunk)

@@ -19,9 +19,9 @@ step's end.
 
 Each step a factory returns opens a step record (`repro_torch.scope.step`:
 `prefill_step`, `decode_step`, `train_step`) with its rows and length, and
-keeps the kernel counters' change over the call (`launch_counts`); the train
-step's `forward` and `backward` spans wrap each micro-batch's loss and
-gradient.
+keeps the kernel counters' change over the call (`kernels.ops.launch_counts`);
+the train step's `forward` and `backward` spans wrap each micro-batch's loss
+and gradient.
 """
 from __future__ import annotations
 
@@ -31,27 +31,12 @@ from typing import Dict, List
 import torch
 from torch.distributed.tensor import DTensor
 
-from repro_torch.kernels import flash_attention, mamba_scan
+from repro_torch.kernels.ops import launch_counts
 from repro_torch.launch.presets import StepSettings
 from repro_torch.models import api as model_api
 from repro_torch.models.meta import leaves, tree_map
 from repro_torch.optim import adamw
 from repro_torch.scope import scope, span, step as step_record
-
-
-def launch_counts() -> Dict[str, int]:
-    """The kernel counters a step record keeps the change of: K1's and K2's
-    launches, K1's launches with a window (one per sliding-window layer of a
-    prefill), K2's chunks of time (chunks per launch > 1: the chunked-time
-    branch), its training backward's launches (one per SSM layer and
-    micro-batch of a train step on the card) and its gated launches (one per
-    SSM layer of a prefill on the card)."""
-    return {"flash_attention.launches": flash_attention.launches,
-            "flash_attention.window_launches": flash_attention.window_launches,
-            "mamba_scan.launches": mamba_scan.launches,
-            "mamba_scan.chunks": mamba_scan.chunks,
-            "mamba_scan.backward_launches": mamba_scan.backward_launches,
-            "mamba_scan.gated_launches": mamba_scan.gated_launches}
 
 
 def _step(kind, tokens, length=None):

@@ -80,14 +80,13 @@ def forward(cfg, params, batch, *, attn_impl="auto"):
     return _family(cfg).forward(cfg, params, batch, attn_impl=attn_impl)
 
 
-def loss_fn(cfg, params, batch, *, attn_impl="auto", remat="none", scan_impl="kernel"):
+def loss_fn(cfg, params, batch, *, attn_impl="auto", remat="none"):
     """Training loss: the LM head fused with the cross-entropy on the final hidden
-    states, chunk by chunk (no [B,S,V] logits).  With scan_impl="kernel"
-    (the train step's) an SSM layer's scan is K2's training entry point on
-    the card and the plain scan on the CPU (`ssm.apply_ssm`); "plain" takes
-    the plain scan everywhere."""
+    states, chunk by chunk (no [B,S,V] logits).  Under autograd an SSM
+    layer's scan is K2's training entry point on the card and the plain scan
+    on the CPU (`ssm.apply_ssm`)."""
     hidden, aux = _family(cfg).forward_hidden(cfg, params, batch, attn_impl=attn_impl,
-                                              remat=remat, scan_impl=scan_impl)
+                                              remat=remat)
     return fused_next_token_loss(cfg, params["embed"], hidden, batch, aux)
 
 

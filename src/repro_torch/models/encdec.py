@@ -107,10 +107,10 @@ def _decoder(cfg, params, tokens, memory, *, remat="none", collect_cache=False):
 # forward, prefill, decode
 # --------------------------------------------------------------------------
 
-def forward_hidden(cfg, params, batch, *, attn_impl="auto", remat="none", scan_impl="kernel"):
+def forward_hidden(cfg, params, batch, *, attn_impl="auto", remat="none"):
     """Teacher-forced forward to the decoder's final-norm hidden states [B,S,D].
     Returns (hidden, aux = 0).  `attn_impl` is ignored (every attention here is
-    `auto`, as in the reference) and so is `scan_impl` (no SSM)."""
+    `auto`, as in the reference)."""
     memory = encode(cfg, params, batch["frame_embeds"], remat=remat)
     x, _ = _decoder(cfg, params, batch["tokens"], memory, remat=remat)
     return (transformer._final_norm(cfg, params, x),

@@ -15,13 +15,13 @@ records the scan (the train step) it is the training entry point
 (`kernels.ops.mamba_scan_train`, a forward and backward pair of kernels on
 the card).
 
-The plain scan (`scan_impl="plain"`, and training on real CPU tensors) is
+The plain scan (training on real CPU tensors, `kernels.ref`) is
 differentiable PyTorch on a_bar and bx, chunked as the reference's
-(`scan_chunked`: an associative scan within chunks of 256 steps, the state
+(`ref.scan_chunked`: an associative scan within chunks of 256 steps, the state
 carried from chunk to chunk, each chunk recomputed in backward), not the
 kernel's sequential plain version, whose S Python steps a step on a mesh
 would dispatch one by one.  With `cfg.ssm_inloop` it discretises inside
-each chunk instead, as the reference's in-loop scan does (`scan_inloop`):
+each chunk instead, as the reference's in-loop scan does (`ref.scan_inloop`):
 autograd then keeps delta, x, B and C ([B, S, di] and [B, S, N]) and the
 carried states, and no [B, S, di, N] tensor or gradient outlives one chunk.
 The kernel path is already that form, whatever the flag.
@@ -46,11 +46,10 @@ import torch.nn.functional as F
 from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.autoshard import (constrain_or_whole, constrain_to, current_mesh,
                                                role_placements)
-from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ops as kops, ref
 from repro_torch.models.meta import ParamMeta
 from repro_torch.scope import scope, span
 
@@ -110,14 +109,6 @@ def _ssm_params(cfg, p, xc):
     return _delta(p, dt), a, b, c
 
 
-def _discretise(delta, x, a, b):
-    """a_bar = exp(delta * A) and bx = (delta * x) * B, [B,S,di,N] fp32, from
-    delta and x [B,S,di] (x fp32), A [di,N] and B [B,S,N]."""
-    a_bar = (delta[..., None] * a).exp_()
-    bx = (delta * x)[..., None] * b[..., None, :]
-    return a_bar, bx
-
-
 def _ssm_inputs(cfg, p, xc):
     """Common pre-scan computation. xc [B, S, di] (post-conv, post-silu).
 
@@ -125,7 +116,7 @@ def _ssm_inputs(cfg, p, xc):
       a_bar [B,S,di,N] = exp(delta * A), bx [B,S,di,N], c [B,S,N].
     """
     delta, a, b, c = _ssm_params(cfg, p, xc)
-    return (*_discretise(delta, xc.float(), a, b), c)
+    return (*ref._discretise(delta, xc.float(), a, b), c)
 
 
 def _conv1d_causal(cfg, p, x, conv_state=None):
@@ -142,89 +133,6 @@ def _conv1d_causal(cfg, p, x, conv_state=None):
     w = p["conv_w"].to(x.dtype)                                  # [dc, di]
     out = sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(dc))
     return out + p["conv_b"].to(x.dtype)
-
-
-SCAN_CHUNK = 256          # the reference's `apply_ssm(chunk=256)`
-
-
-def _combine(a1, b1, a2, b2):
-    """The recurrence's associative combine, (a1, b1) . (a2, b2) = (a1 a2, a2 b1 + b2)."""
-    return a1 * a2, a2 * b1 + b2
-
-
-def _interleave(even, odd):
-    """even[:, 0], odd[:, 0], even[:, 1], ... along dim 1 (even as long as odd
-    or one longer)."""
-    n = odd.shape[1]
-    out = torch.stack([even[:, :n], odd], dim=2).flatten(1, 2)
-    return out if even.shape[1] == n else torch.cat([out, even[:, n:]], dim=1)
-
-
-def _assoc_scan(a, b):
-    """The inclusive scan of `_combine` along dim 1, as `jax.lax.associative_scan`
-    computes it (the reference's): adjacent pairs combined, their scan taken
-    recursively, the even positions filled in from it.  O(C) work in log2(C)
-    levels, against C log2(C) for doubling."""
-    n = a.shape[1]
-    if n < 2:
-        return a, b
-    odd_a, odd_b = _assoc_scan(*_combine(a[:, 0:-1:2], b[:, 0:-1:2], a[:, 1::2], b[:, 1::2]))
-    k = odd_a.shape[1] - (n % 2 == 0)
-    even_a, even_b = _combine(odd_a[:, :k], odd_b[:, :k], a[:, 2::2], b[:, 2::2])
-    return (_interleave(torch.cat([a[:, :1], even_a], dim=1), odd_a),
-            _interleave(torch.cat([b[:, :1], even_b], dim=1), odd_b))
-
-
-def _chunk_scan(a, bx, c, h0):
-    """One chunk, as the reference's `_chunk_scan`: the associative combine
-    scanned along the chunk (`_assoc_scan`), the carried state h0 (None before
-    the first chunk) applied, then the readout.  Returns (y, the chunk's last
-    state, apart from the chunk's storage)."""
-    a, bx = _assoc_scan(a, bx)
-    h = bx if h0 is None else a * h0[:, None] + bx
-    return torch.einsum("bsdn,bsn->bsd", h, c), h[:, -1].clone()
-
-
-def _carried(chunk_fn, per_step, fixed, return_state, chunk):
-    """`chunk_fn(*per_step chunks, *fixed, h)` over chunks of `chunk` steps
-    (halved until it divides S), the state carried from chunk to chunk, each
-    chunk under `torch.utils.checkpoint`; the chunks' y concatenated."""
-    S = per_step[0].shape[1]
-    chunk = min(chunk, S)
-    while S % chunk:
-        chunk //= 2
-    h, ys = None, []
-    for s0 in range(0, S, chunk):
-        part = slice(s0, s0 + chunk)
-        y, h = checkpoint(chunk_fn, *(t[:, part] for t in per_step), *fixed, h,
-                          use_reentrant=False, preserve_rng_state=False)
-        ys.append(y)
-    y = torch.cat(ys, dim=1)
-    return (y, h) if return_state else y
-
-
-def scan_chunked(a_bar, bx, c, *, return_state=False, chunk=SCAN_CHUNK):
-    """The scan of `kernels.ref.mamba_scan_ref` (same arguments and results,
-    S >= 1), differentiable, chunked as the reference's `apply_ssm`: chunks of
-    `chunk` steps (halved until it divides S), each an associative scan, the
-    state carried between them.  Each chunk runs under
-    `torch.utils.checkpoint`, so autograd keeps its inputs and carried state
-    and backward recomputes its scan, one chunk at a time: about the memory
-    of the sequential loop, not the scan's levels over the whole sequence."""
-    return _carried(_chunk_scan, (a_bar, bx, c), (), return_state, chunk)
-
-
-def _discretised_chunk(delta, x, b, c, a, h0):
-    return _chunk_scan(*_discretise(delta, x, a, b), c, h0)
-
-
-def scan_inloop(delta, x, a, b, c, *, return_state=False, chunk=SCAN_CHUNK):
-    """`scan_chunked` of `_discretise(delta, x, a, b)` and c, each chunk's a_bar
-    and bx made inside its checkpoint (the reference's `ssm_inloop`): autograd
-    keeps delta, x [B,S,di], b, c [B,S,N], A and the carried states, and
-    backward makes one chunk's [B, C, di, N] terms at a time.  The same
-    function as the whole-sequence discretisation, element by element."""
-    return _carried(_discretised_chunk, (delta, x, b, c), (a,), return_state, chunk)
 
 
 def _scan_local(scan_fn, a_bar, bx, c, return_state):
@@ -301,28 +209,26 @@ def _on_host(t) -> bool:
     return local.device.type == "cpu" and not isinstance(local, FakeTensor)
 
 
-def apply_ssm(cfg, p, x, *, return_state=False, scan_impl="kernel"):
+def apply_ssm(cfg, p, x, *, return_state=False):
     """Full-sequence selective SSM. x [B,S,D] -> [B,S,D].
 
-    `scan_impl`: "kernel" runs K2: its fused entry point
-    (`kernels.ops.mamba_scan_fused`, forward only), or where autograd records
-    the scan (grad mode on and an input that requires grad) its training
-    entry point (`kernels.ops.mamba_scan_train`, differentiable), which the
-    train step takes on the card; on real CPU tensors training takes the
-    "plain" path instead, as the reference trains through its associative
-    scan.  "plain" runs `scan_chunked` on a_bar and bx, differentiable; with
-    `cfg.ssm_inloop`, `scan_inloop` on delta, x, A, B and C.  The flag leaves
-    "kernel" as it is: the kernels make each step's a_bar and bx in
-    registers, which is the in-loop form already.  The fused entry point
-    takes the raw dt projection, dt_bias, d_skip and the gate z and makes
-    delta's softplus and the gated output itself, so `out_proj` is the
-    matmul alone.  With `return_state`,
-    returns (out, {"conv", "ssm"}): the last d_conv-1 inputs of the conv in
-    fp32 (zeros before the sequence's start) and the scan's final state,
-    from the same scan as `out`.
+    The scan is chosen once, from grad mode and the tensors.  Where no input
+    records autograd it is K2's fused entry point
+    (`kernels.ops.mamba_scan_fused`, forward only), which takes the raw dt
+    projection, dt_bias, d_skip and the gate z and makes delta's softplus
+    and the gated output itself, so `out_proj` is the matmul alone.  Where
+    autograd records the scan (grad mode on and an input that requires
+    grad) on the card or on fake tensors it is K2's training entry point
+    (`kernels.ops.mamba_scan_train`, differentiable); on real CPU tensors
+    the plain scan, as the reference trains through its associative scan:
+    `ref.scan_inloop` on delta, x, A, B and C with `cfg.ssm_inloop`, else
+    `ref.scan_chunked` on a_bar and bx.  The kernels need no flag: they
+    make each step's a_bar and bx in registers, the in-loop form already.
+    DTensor inputs take each through its per-rank adapter.  With
+    `return_state`, returns (out, {"conv", "ssm"}): the last d_conv-1
+    inputs of the conv in fp32 (zeros before the sequence's start) and the
+    scan's final state, from the same scan as `out`.
     """
-    if scan_impl not in ("kernel", "plain"):
-        raise ValueError(f"scan_impl {scan_impl!r} not in kernel|plain")
     with scope("ssm"):
         dt = x.dtype
         with span("conv"):
@@ -332,14 +238,13 @@ def apply_ssm(cfg, p, x, *, return_state=False, scan_impl="kernel"):
             dt_proj, a, b, c = _ssm_proj(cfg, p, xc)
             train = torch.is_grad_enabled() and any(
                 t.requires_grad for t in (dt_proj, p["dt_bias"], p["d_skip"], xc, a, b, c))
-            plain = scan_impl == "plain" or (train and _on_host(dt_proj))
-            fused = not (plain or train)
-            if not fused:
+            plain = train and _on_host(dt_proj)
+            if train:
                 delta = _delta(p, dt_proj)
             if plain and not cfg.ssm_inloop:
-                a_bar, bx = _discretise(delta, xc.float(), a, b)
+                a_bar, bx = ref._discretise(delta, xc.float(), a, b)
         with span("scan"):
-            if fused:
+            if not train:
                 gate = (p["dt_bias"], p["d_skip"], z)
                 if isinstance(dt_proj, DTensor):
                     scan = _params_local(kops.mamba_scan_fused, dt_proj, xc, a, b, c,
@@ -355,19 +260,19 @@ def apply_ssm(cfg, p, x, *, return_state=False, scan_impl="kernel"):
                     scan = kops.mamba_scan_train(delta, xc, a, b, c, return_state=return_state)
             elif cfg.ssm_inloop:
                 if isinstance(delta, DTensor):
-                    scan = _params_local(scan_inloop, delta, xc.float(), a, b, c, return_state,
-                                         grads=True)
+                    scan = _params_local(ref.scan_inloop, delta, xc.float(), a, b, c,
+                                         return_state, grads=True)
                 else:
-                    scan = scan_inloop(delta, xc.float(), a, b, c, return_state=return_state)
+                    scan = ref.scan_inloop(delta, xc.float(), a, b, c, return_state=return_state)
             else:
                 if isinstance(a_bar, DTensor):
-                    scan = _scan_local(scan_chunked, a_bar, bx, c, return_state)
+                    scan = _scan_local(ref.scan_chunked, a_bar, bx, c, return_state)
                 else:
-                    scan = scan_chunked(a_bar, bx, c, return_state=return_state)
+                    scan = ref.scan_chunked(a_bar, bx, c, return_state=return_state)
                 del a_bar, bx              # 2 x [B,S,di,N] fp32: free before the rest
         y, h_last = scan if return_state else (scan, None)
         with span("out_proj"):
-            if not fused:
+            if train:
                 y = (y + xc.float() * p["d_skip"].float()).to(dt) * F.silu(z)
             out = y @ p["out_proj"].to(dt)
     if not return_state:

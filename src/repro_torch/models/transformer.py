@@ -39,7 +39,7 @@ FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")   # encdec: models/encdec.py
 
 def check_supported(cfg) -> None:
     """Raise for a family this module does not assemble.  Every option of the
-    families it does is ported (`ssm_inloop`: `ssm.scan_inloop`)."""
+    families it does is ported (`ssm_inloop`: `ref.scan_inloop` on the CPU)."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"{cfg.name}: family {cfg.family!r} is not one of {FAMILIES}")
 
@@ -106,23 +106,23 @@ def model_meta(cfg) -> Dict[str, Any]:
 # full forward (prefill)
 # --------------------------------------------------------------------------
 
-def _ssm(cfg, p, h, cache, scan_impl):
+def _ssm(cfg, p, h, cache):
     """The layer's SSM; with a `cache` dict, also put its final state there."""
     if cache is None:
-        return ssm_mod.apply_ssm(cfg, p, h, scan_impl=scan_impl)
-    y, state = ssm_mod.apply_ssm(cfg, p, h, return_state=True, scan_impl=scan_impl)
+        return ssm_mod.apply_ssm(cfg, p, h)
+    y, state = ssm_mod.apply_ssm(cfg, p, h, return_state=True)
     cache.update(state)
     return y
 
 
 def apply_block(cfg, p, x, positions, window: int, *, attn_impl="auto",
-                scan_impl="kernel", collect_cache=False):
+                collect_cache=False):
     """One layer. Returns (x, aux, cache_entry_or_None); aux is the MoE's
     load-balancing loss, None for the other families."""
     cache = {} if collect_cache else None
     h = L.apply_norm(cfg, p["norm1"], x)
     if cfg.family == "ssm":
-        return x + _ssm(cfg, p["ssm"], h, cache, scan_impl), None, cache
+        return x + _ssm(cfg, p["ssm"], h, cache), None, cache
     q, k, v = attn_mod.project_qkv(cfg, p["attn"], h, h, positions, positions)
     with scope("attn"):
         out = attn_mod.attend(cfg, q, k, v, causal=True, window=window,
@@ -133,7 +133,7 @@ def apply_block(cfg, p, x, positions, window: int, *, attn_impl="auto",
         cache.update(k=k, v=v)
     if cfg.family == "hybrid":
         # parallel attention and Mamba heads on the same normed input, mean-fused
-        attn_out = 0.5 * (attn_out + _ssm(cfg, p["ssm"], h, cache, scan_impl))
+        attn_out = 0.5 * (attn_out + _ssm(cfg, p["ssm"], h, cache))
     x = _residual(cfg, p, "post_norm1", x, attn_out)
     ff, aux = _ffn(cfg, p, L.apply_norm(cfg, p["norm2"], x))
     return _residual(cfg, p, "post_norm2", x, ff), aux, cache
@@ -161,8 +161,8 @@ def _layer(cfg, p, x, *args, **kw):
         return constrain_residual(x), aux, cache
 
 
-def apply_layers(cfg, layers, x, positions, *, attn_impl="auto", scan_impl="kernel",
-                 remat="none", collect_cache=False):
+def apply_layers(cfg, layers, x, positions, *, attn_impl="auto", remat="none",
+                 collect_cache=False):
     """Loop over layers, each under the `remat` policy. Returns (x, aux summed over
     layers, stacked cache or None): {k, v: [L,B,S,K,Dh]} and/or {conv:
     [L,B,d_conv-1,Di], ssm: [L,B,Di,N]}."""
@@ -171,7 +171,7 @@ def apply_layers(cfg, layers, x, positions, *, attn_impl="auto", scan_impl="kern
     block = remat_fn(_layer, remat)
     for p, window in zip(layers, cfg.layer_windows()):
         x, a, entry = block(cfg, p, x, positions, window, attn_impl=attn_impl,
-                            scan_impl=scan_impl, collect_cache=collect_cache)
+                            collect_cache=collect_cache)
         if a is not None:
             aux = aux + a
         entries.append(entry)
@@ -198,15 +198,14 @@ def embed_inputs(cfg, params, batch):
     return L.embed_tokens(cfg, params["embed"], tokens, positions=positions), positions
 
 
-def forward_hidden(cfg, params, batch, *, attn_impl="auto", remat="none", scan_impl="kernel"):
+def forward_hidden(cfg, params, batch, *, attn_impl="auto", remat="none"):
     """Forward to the final norm's hidden states. Returns (hidden [B,S,D], aux):
     the sum of the MoE layers' load-balancing losses, 0 for the other families.
-    `scan_impl`: "kernel" (K2: the fused forward, or under autograd on the card
-    its training pair) or "plain" (differentiable PyTorch)."""
+    An SSM layer's scan is chosen by `ssm.apply_ssm`."""
     check_supported(cfg)
     x, positions = embed_inputs(cfg, params, batch)
     x, aux, _ = apply_layers(cfg, params["layers"], x, positions, attn_impl=attn_impl,
-                             scan_impl=scan_impl, remat=remat)
+                             remat=remat)
     return _final_norm(cfg, params, x), aux
 
 

@@ -121,3 +121,43 @@ def step_at(batch, i):
     t = i - n_patches(batch)
     kw = {"positions": batch["positions"][:, :, i:i + 1]} if "positions" in batch else {}
     return batch["tokens"][:, t:t + 1], kw
+
+
+def assert_cpu_training_takes_the_plain_scan(cfg, p, batch, monkeypatch, **loss_kw):
+    """A loss under autograd on real CPU tensors calls neither K2 entry point
+    (both made to raise) and counts no launch; its loss and gradients equal
+    bit for bit those of the same loss with the mixer's scan taken explicitly
+    through the plain scan: `ref.scan_inloop` under `cfg.ssm_inloop`, else
+    `ref.scan_chunked` on the discretised inputs."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import api, ssm
+    from repro_torch.models.meta import leaves, tree_map
+
+    def loss_and_grads():
+        live = tree_map(lambda t: t.detach().requires_grad_(), p)
+        loss = api.loss_fn(cfg, live, batch, **loss_kw)
+        return loss, torch.autograd.grad(loss, list(leaves(live)), allow_unused=True)
+
+    def plain(d, x, a, b, c, *, return_state=False):
+        if cfg.ssm_inloop:
+            return ref.scan_inloop(d, x.float(), a, b, c, return_state=return_state)
+        return ref.scan_chunked(*ref._discretise(d, x.float(), a, b), c,
+                                return_state=return_state)
+
+    def refuse(*a, **k):
+        raise AssertionError("a CPU loss under autograd called a K2 entry point")
+    before = fa.launches, ms.launches, dict(ms.kernel_launches)
+    with monkeypatch.context() as m:
+        m.setattr(ops, "mamba_scan_train", refuse)
+        m.setattr(ops, "mamba_scan_fused", refuse)
+        loss, grads = loss_and_grads()
+    assert (fa.launches, ms.launches, ms.kernel_launches) == before
+    with monkeypatch.context() as m:          # the scan taken explicitly
+        m.setattr(ssm, "_on_host", lambda t: False)
+        m.setattr(ops, "mamba_scan_train", plain)
+        loss0, grads0 = loss_and_grads()
+    assert torch.equal(loss, loss0)
+    for g, g0 in zip(grads, grads0):
+        assert (g is None and g0 is None) or torch.equal(g, g0)

@@ -13,9 +13,9 @@ from _torch_parity import FLASH_CASES, MAMBA_CASES, max_abs_err, qkv, scan_input
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mamba_scan as ms
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ref import flash_attention_ref, mamba_scan_ref
-from repro_torch.models import api, ssm
+from repro_torch.models import api
 from repro_torch.models.attention import attend_naive
 
 
@@ -196,13 +196,11 @@ def test_model_prefill_launches_the_scan_once_per_layer_on_card(arch):
     p = api.init_params(cfg, 0)
     batch = api.demo_batch(cfg, 2, 40)
     before, fused = (ms.launches, fa.launches), ms.kernel_launches["fused"]
-    gated = ms.gated_launches
     lg, cache = api.prefill(cfg, p, {"tokens": batch["tokens"][:, :-1]}, attn_impl="flash",
                             cache_len=48)
     n_attn = cfg.num_layers if cfg.family == "hybrid" else 0
     assert (ms.launches, fa.launches) == (before[0] + cfg.num_layers, before[1] + n_attn)
     assert ms.kernel_launches["fused"] == fused + cfg.num_layers    # the fused entry point
-    assert ms.gated_launches == gated + cfg.num_layers              # each with the gate
     full, _ = api.forward(cfg, p, batch, attn_impl="naive")
     dec, _ = api.decode_step(cfg, p, cache, batch["tokens"][:, -1:], 39)
     scale = float(full[:, -1].abs().max())
@@ -244,15 +242,15 @@ def test_fused_scan_kernel_matches_plain_version(B, S, Di, N, chunked, x_dtype):
     branch on an H100's 132 SMs (small B x Di: several chunks, S not a multiple
     of the chunk) and shapes that do not, N not a power of two, an empty
     sequence.  y in x's dtype: fp32 within 1e-4 scaled by the gate, bf16 within
-    two bf16 steps; h_S within 1e-4; each call one launch, counted gated."""
+    two bf16 steps; h_S within 1e-4; each call one launch of the fused entry point."""
     assert (ms.scan_chunks(B, S, Di, N, 132) > 1) == chunked
     _need_card()
     ins = _gated_inputs(S + Di + N, B, S, Di, N, x_dtype)
-    before = ms.kernel_launches["fused"], ms.gated_launches
+    before = ms.launches, ms.kernel_launches["fused"]
     y, h = ms.mamba_scan_fused(*ins, return_state=True)
     y_only = ms.mamba_scan_fused(*ins)
     torch.cuda.synchronize()
-    assert (ms.kernel_launches["fused"], ms.gated_launches) == (before[0] + 2, before[1] + 2)
+    assert (ms.launches, ms.kernel_launches["fused"]) == (before[0] + 2, before[1] + 2)
     ref_y, ref_h = ms.mamba_scan_fused_ref(*ins, return_state=True)
     assert y.shape == (B, S, Di) and h.shape == (B, Di, N)
     assert y.dtype == ins[1].dtype == ref_y.dtype
@@ -271,10 +269,10 @@ def test_fused_scan_fake_implementation_matches_the_kernel_s_outputs():
     _need_card()
     ins = _gated_inputs(0, 2, 64, 32, 8, "bfloat16")
     real = ms.mamba_scan_fused(*ins, return_state=True)
-    count = ms.launches, ms.gated_launches
+    count = ms.launches, ms.kernel_launches["fused"]
     with FakeTensorMode(allow_non_fake_inputs=True) as mode:
         fake = ms.mamba_scan_fused(*(mode.from_tensor(t) for t in ins), return_state=True)
-    assert (ms.launches, ms.gated_launches) == count
+    assert (ms.launches, ms.kernel_launches["fused"]) == count
     for r, f in zip(real, fake):
         assert (f.shape, f.dtype, f.stride(), f.device) == (r.shape, r.dtype, r.stride(), r.device)
 
@@ -314,7 +312,7 @@ def test_prefill_step_record_carries_the_kernel_launches(arch):
     assert rec.counters["flash_attention.launches"] == k1
     assert rec.counters["mamba_scan.launches"] == k2
     assert rec.counters["mamba_scan.chunks"] >= k2
-    assert rec.counters["mamba_scan.gated_launches"] == k2
+    assert rec.counters["mamba_scan/fused"] == k2
     assert rec.spans["layer"][0] == cfg.num_layers
 
 
@@ -546,14 +544,14 @@ def test_train_scan_pair_matches_the_inloop_scan_on_card(B, S, Di, N, x_dtype):
     g = torch.Generator(device="cuda").manual_seed(S)
     dy = torch.randn((B, S, Di), generator=g, device="cuda")
     dh = torch.randn((B, Di, N), generator=g, device="cuda")
-    before = ms.launches, dict(ms.kernel_launches), ms.backward_launches
+    before = ms.launches, dict(ms.kernel_launches)
     got = _grads(lambda *t: ms.mamba_scan_train(*t, return_state=True), ins, dy, dh)
     again = _grads(lambda *t: ms.mamba_scan_train(*t, return_state=True), ins, dy, dh)
     torch.cuda.synchronize()
-    assert ms.launches == before[0] + 4 and ms.backward_launches == before[2] + 2
+    assert ms.launches == before[0] + 4
     assert ms.kernel_launches == dict(before[1], train_fwd=before[1]["train_fwd"] + 2,
                                       train_bwd=before[1]["train_bwd"] + 2)
-    want = _grads(lambda d, x, *t: ssm.scan_inloop(d, x.float(), *t, return_state=True), ins,
+    want = _grads(lambda d, x, *t: ref.scan_inloop(d, x.float(), *t, return_state=True), ins,
                   dy, dh)
     names = ("y", "h", "ddelta", "dx", "dA", "dB", "dC")
     for name, a, b, c in zip(names, got, again, want):
@@ -565,10 +563,11 @@ def test_train_scan_pair_matches_the_inloop_scan_on_card(B, S, Di, N, x_dtype):
 
 
 @pytest.mark.cuda
-def test_four_layer_falcon_mamba_train_step_meets_the_cell_limits_on_card():
+def test_four_layer_falcon_mamba_train_step_meets_the_cell_limits_on_card(monkeypatch):
     """4 of falcon-mamba-7b's layers at full width, one 2 x 2048 micro-batch, remat
     "dots", fp32 master weights: the loss and each leaf's gradient through K2's
-    training pair against the plain scan's, by the train cell's gaps and
+    training pair against the plain scan's (`ref.scan_inloop` on x widened to
+    fp32 in the training entry point's place), by the train cell's gaps and
     limits (`perfbench/limits/falcon-mamba-7b-l4.train.json`: a leaf's gap is
     the norm of the difference over the larger of its norm and the median
     leaf's); two runs give equal gradients, bit for bit."""
@@ -583,16 +582,18 @@ def test_four_layer_falcon_mamba_train_step_meets_the_cell_limits_on_card():
     g = torch.Generator(device="cuda").manual_seed(3)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 2048), generator=g, device="cuda")}
 
-    def loss_and_grads(impl):
+    def loss_and_grads():
         live = tree_map(lambda t: t.detach().requires_grad_(), params)
-        loss = api.loss_fn(cfg, live, batch, remat="dots", scan_impl=impl)
+        loss = api.loss_fn(cfg, live, batch, remat="dots")
         return float(loss), torch.autograd.grad(loss, list(leaves(live)))
-    before = ms.backward_launches
-    loss, grads = loss_and_grads("kernel")
-    loss2, grads2 = loss_and_grads("kernel")
-    assert ms.backward_launches == before + 2 * cfg.num_layers
+    before = ms.kernel_launches["train_bwd"]
+    loss, grads = loss_and_grads()
+    loss2, grads2 = loss_and_grads()
+    assert ms.kernel_launches["train_bwd"] == before + 2 * cfg.num_layers
     assert loss == loss2 and all(torch.equal(a, b) for a, b in zip(grads, grads2))
-    loss0, grads0 = loss_and_grads("plain")
+    monkeypatch.setattr(ops, "mamba_scan_train", lambda d, x, *t, **k: ref.scan_inloop(
+        d, x.float(), *t, **k))
+    loss0, grads0 = loss_and_grads()
     assert abs(loss - loss0) / abs(loss0) <= limits["loss_gap"]
     norms = sorted(float(t.norm()) for t in grads0)
     median = norms[len(norms) // 2]
@@ -605,7 +606,7 @@ def test_train_step_record_counts_the_training_pair_on_card():
     """A 4-layer falcon-mamba-7b make_train_step(accum=2, remat="dots") (smoke
     widths): its step record carries 16 forward launches of K2's training
     pair (4 layers x 2 micro-batches, again in the remat's recompute) and 8
-    backward ones (`mamba_scan.backward_launches`), no fused or K1 launch."""
+    backward ones (`mamba_scan/train_bwd`), no fused or K1 launch."""
     from repro_torch import scope
     from repro_torch.launch.presets import StepSettings
     from repro_torch.launch.steps import make_train_step
@@ -621,8 +622,10 @@ def test_train_step_record_counts_the_training_pair_on_card():
     assert rec.kind == "train"
     assert rec.counters == {"flash_attention.launches": 0,
                             "flash_attention.window_launches": 0, "mamba_scan.launches": 24,
-                            "mamba_scan.chunks": 0, "mamba_scan.backward_launches": 8,
-                            "mamba_scan.gated_launches": 0}
+                            "mamba_scan.chunks": 0, "flash_attention/tensor_core": 0,
+                            "flash_attention/tensor_core_fp32": 0, "mamba_scan/unfused": 0,
+                            "mamba_scan/fused": 0, "mamba_scan/train_fwd": 16,
+                            "mamba_scan/train_bwd": 8}
 
 
 def _param_leaves(tree):
@@ -880,14 +883,14 @@ def test_eager_launch_equals_the_custom_op_on_card():
     q, k, v = q.cuda(), k.cuda(), v.cuda()
     ins = _gated_inputs(5, 2, 300, 64, 16, "bfloat16")    # z strided
     assert build.eager(q)
-    counts = (fa.launches, ms.launches, ms.gated_launches)
+    counts = (fa.launches, ms.launches, ms.kernel_launches["fused"])
     got = fa.flash_attention(q, k, v, window=48)
     got_y, got_h = ms.mamba_scan_fused(*ins, return_state=True)
-    assert (fa.launches, ms.launches, ms.gated_launches) == (counts[0] + 1, counts[1] + 1,
-                                                             counts[2] + 1)
+    assert (fa.launches, ms.launches, ms.kernel_launches["fused"]) == (
+        counts[0] + 1, counts[1] + 1, counts[2] + 1)
     want = torch.ops.repro_torch.flash_attention_fwd(q, k, v, True, 48, 0, 64 ** -0.5)
     want_y, want_h = torch.ops.repro_torch.mamba_scan_fused(*ins, True)
-    assert (ms.launches, ms.gated_launches) == (counts[1] + 2, counts[2] + 2)
+    assert (ms.launches, ms.kernel_launches["fused"]) == (counts[1] + 2, counts[2] + 2)
     assert torch.equal(got, want) and got.stride() == want.stride()
     assert torch.equal(got_y, want_y) and torch.equal(got_h, want_h)
     with FlopCounterMode(display=False) as flops:

@@ -94,3 +94,23 @@ def test_chip_smoke_refuses_without_a_card_or_a_checkout(tmp_path):
     for res in runs:
         assert res.returncode != 0
         assert '"ok"' not in res.stdout
+
+
+MODELS_IMPORT = re.compile(
+    r"^\s*(from\s+repro_torch\.models[\s.]|import\s+repro_torch\.models|"
+    r"from\s+repro_torch\s+import\s+[^\n]*\bmodels\b)", re.M)
+
+
+def test_kernels_import_nothing_of_the_models():
+    """Every import points down: the kernels package (its modules and `ref`'s
+    plain scans) imports nothing of `repro_torch.models`."""
+    files = sorted((PKG / "kernels").glob("*.py"))
+    assert {f.name for f in files} >= {"ops.py", "ref.py", "mamba_scan.py", "flash_attention.py"}
+    offenders = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
+                 for f in files for m in MODELS_IMPORT.finditer(f.read_text())]
+    assert offenders == []
+    for line in ("from repro_torch.models.ssm import scan_inloop",
+                 "        from repro_torch.models import ssm", "import repro_torch.models.api",
+                 "from repro_torch import kernels, models"):
+        assert MODELS_IMPORT.search(line), line                  # the pattern bites
+    assert not MODELS_IMPORT.search("from repro_torch.kernels import ops")

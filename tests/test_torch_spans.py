@@ -8,6 +8,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import scope
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.kernels import ops
 from repro_torch.launch.presets import StepSettings
 from repro_torch.launch.steps import make_decode_step, make_prefill_step, make_train_step
 from repro_torch.models import api
@@ -101,10 +102,7 @@ def test_prefill_makes_one_record_per_call(arch):
         assert abs(sum(s for _, _, s in rec.spans.values()) - duration) <= 0.02 * duration
         for count, inclusive, own in rec.spans.values():
             assert count >= 1 and 0 <= own <= inclusive <= duration
-        assert rec.counters == {"flash_attention.launches": 0,
-                                "flash_attention.window_launches": 0, "mamba_scan.launches": 0,
-                                "mamba_scan.chunks": 0, "mamba_scan.backward_launches": 0,
-                                "mamba_scan.gated_launches": 0}
+        assert rec.counters == dict.fromkeys(ops.launch_counts(), 0)
         assert rec.unix_end_ns - rec.unix_start_ns == duration
 
 
@@ -119,6 +117,27 @@ def test_train_step_records_forward_and_backward_per_micro_batch():
     assert rec.spans["optimizer"][0] == 1 and rec.spans["train_step"][0] == 1
     parts = sum(rec.spans[n][1] for n in ("forward", "backward", "optimizer"))
     assert parts <= rec.spans["train_step"][1]
+
+
+def test_launch_counts_are_the_kernels_counters_under_the_documented_names():
+    """`kernels.ops.launch_counts` names each kernel module's int counters
+    `<module>.<counter>` and each key of its `kernel_launches` `<module>/<key>`,
+    exactly these names (the benchmark reads `flash_attention.launches`,
+    `mamba_scan.launches` and `flash_attention.window_launches`), each with
+    its module counter's value."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    counts = ops.launch_counts()
+    assert list(counts) == [
+        "flash_attention.launches", "flash_attention.window_launches", "mamba_scan.launches",
+        "mamba_scan.chunks", "flash_attention/tensor_core", "flash_attention/tensor_core_fp32",
+        "mamba_scan/unfused", "mamba_scan/fused", "mamba_scan/train_fwd", "mamba_scan/train_bwd"]
+    want = {"flash_attention.launches": fa.launches,
+            "flash_attention.window_launches": fa.window_launches,
+            "mamba_scan.launches": ms.launches, "mamba_scan.chunks": ms.chunks}
+    want.update((f"flash_attention/{k}", n) for k, n in fa.kernel_launches.items())
+    want.update((f"mamba_scan/{k}", n) for k, n in ms.kernel_launches.items())
+    assert counts == want
 
 
 def test_decode_step_records_the_positions_attended():

@@ -21,8 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (MAMBA_CASES, batch_pair, max_abs_err, model_pair, rel_err,
-                           scan_inputs, to_np)
+from _torch_parity import (MAMBA_CASES, assert_cpu_training_takes_the_plain_scan, batch_pair,
+                           max_abs_err, model_pair, rel_err, scan_inputs, to_np)
 from repro.configs import ARCHS
 from repro.configs import smoke_config as jax_smoke
 from repro.kernels.mamba_scan import mamba_scan as ms_kernel
@@ -34,7 +34,7 @@ from repro_torch.configs import get_config, smoke_config
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mamba_scan as ms
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ref import mamba_scan_ref
 from repro_torch.launch.presets import StepSettings
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
@@ -127,7 +127,7 @@ def test_scan_wrapper_rejects_what_the_kernel_does_not_take():
 
 @pytest.mark.parametrize("S,chunk", [(96, 32), (100, 32), (256, 256), (40, 64)])
 def test_chunked_scan_matches_the_reference_and_the_sequential_gradients(S, chunk):
-    """`ssm.scan_chunked`, the training path's differentiable scan, in chunks
+    """`ref.scan_chunked`, the training path's differentiable scan, in chunks
     of `chunk` (halved until it divides S: 100 runs chunks of 4): y and the
     final state against the reference's oracle and sequential scan (max abs
     1e-4, the scan tolerance), and the gradients of a weighted sum of both
@@ -135,7 +135,7 @@ def test_chunked_scan_matches_the_reference_and_the_sequential_gradients(S, chun
     a, bx, c = scan_inputs(S + chunk, 2, S, 16, 4)
     w = torch.from_numpy(np.random.default_rng(S).standard_normal((2, S, 16)).astype(np.float32))
     got = []
-    for fn in (lambda *t: ssm.scan_chunked(*t, return_state=True, chunk=chunk),
+    for fn in (lambda *t: ref.scan_chunked(*t, return_state=True, chunk=chunk),
                lambda *t: mamba_scan_ref(*t, return_state=True)):
         ins = [torch.from_numpy(t).requires_grad_() for t in (a, bx, c)]
         y, h = fn(*ins)
@@ -145,8 +145,8 @@ def test_chunked_scan_matches_the_reference_and_the_sequential_gradients(S, chun
     ja, jbx, jc = map(jnp.asarray, (a, bx, c))
     assert max_abs_err(to_np(y), jax_scan_ref(ja, jbx, jc)) < 1e-4
     assert max_abs_err(to_np(h), _jax_final_state(ja, jbx)) < 1e-4
-    for g, ref in zip(grads, want):
-        assert rel_err(to_np(g), to_np(ref)) < 2e-5
+    for g, g0 in zip(grads, want):
+        assert rel_err(to_np(g), to_np(g0)) < 2e-5
 
 
 def test_chunked_scan_keeps_about_its_inputs_for_backward():
@@ -162,7 +162,7 @@ def test_chunked_scan_keeps_about_its_inputs_for_backward():
         storages[st.data_ptr()] = st.nbytes()
         return t
     with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-        y = ssm.scan_chunked(a, bx, c)
+        y = ref.scan_chunked(a, bx, c)
     assert sum(storages.values()) < 2.5 * a.numel() * a.element_size()
     y.sum().backward()
     assert a.grad is not None and torch.isfinite(a.grad).all()
@@ -251,7 +251,7 @@ def test_fused_scan_wrapper_takes_cpu_tensors_to_the_plain_version_uncounted():
     dt, x, z = t(2, 33, 16), t(2, 33, 16), t(2, 33, 16)
     a = -torch.from_numpy(rng.random((16, 5)).astype(np.float32))
     b, c, bias, d_skip = t(2, 33, 5), t(2, 33, 5), t(16), t(16)
-    before = ms.launches, ms.gated_launches, dict(ms.kernel_launches)
+    before = ms.launches, dict(ms.kernel_launches)
     y, h = ops.mamba_scan_fused(dt, x.bfloat16(), a, b, c, bias, d_skip, z, return_state=True)
     xb, zb = x.bfloat16(), z.bfloat16()
     delta = F.softplus(dt.bfloat16().float() + bias)
@@ -260,7 +260,7 @@ def test_fused_scan_wrapper_takes_cpu_tensors_to_the_plain_version_uncounted():
     ref_y, ref_h = mamba_scan_ref(a_bar, bx, c, return_state=True)
     want = (ref_y + xb.float() * d_skip).bfloat16() * F.silu(zb)
     assert torch.equal(y, want) and torch.equal(h, ref_h)
-    assert (ms.launches, ms.gated_launches, ms.kernel_launches) == before
+    assert (ms.launches, ms.kernel_launches) == before
     with pytest.raises(TypeError, match="float32"):
         ms.mamba_scan_fused(dt.double(), x, a, b, c, bias, d_skip, z)
     with pytest.raises(ValueError, match="bad shapes"):
@@ -315,10 +315,10 @@ def test_gated_plain_version_is_the_mixer_s_op_sequence_bit_for_bit(dtype, retur
     scan's.  The wrapper's CPU path is that plain version and counts nothing."""
     from repro_torch.kernels.ref import mamba_scan_fused_ref
     dt, x, a, b, c, bias, d_skip, z = ins = _gated_inputs(3, 2, 40, 24, 16, getattr(torch, dtype))
-    before = ms.launches, ms.gated_launches, dict(ms.kernel_launches)
+    before = ms.launches, dict(ms.kernel_launches)
     got = ops.mamba_scan_fused(*ins, return_state=return_state)
     plain = mamba_scan_fused_ref(*ins, return_state=return_state)
-    assert (ms.launches, ms.gated_launches, ms.kernel_launches) == before
+    assert (ms.launches, ms.kernel_launches) == before
     delta = torch.nn.functional.softplus(dt.float() + bias.float())
     y, h = mamba_scan_ref((delta[..., None] * a).exp(),
                           (delta * x.float())[..., None] * b[..., None, :], c, return_state=True)
@@ -356,7 +356,7 @@ def test_gated_fake_implementation_gives_the_gated_output(dtype, return_state):
     implementation: y [B,S,Di] in x's dtype, h_S [B,Di,N] (or [0]) fp32; no
     launch is counted."""
     from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
-    before = ms.launches, ms.gated_launches
+    before = ms.launches, ms.kernel_launches["fused"]
     with FakeTensorMode() as mode:
         ins = [mode.from_tensor(t) for t in _gated_inputs(5, 2, 24, 16, 8, getattr(torch, dtype))]
         y, h = torch.ops.repro_torch.mamba_scan_fused(*ins, return_state)
@@ -366,7 +366,7 @@ def test_gated_fake_implementation_gives_the_gated_output(dtype, return_state):
         out = ms.mamba_scan_fused(*ins, return_state=return_state)
         out_y = out[0] if return_state else out
         assert out_y.shape == y.shape and out_y.dtype == y.dtype
-    assert (ms.launches, ms.gated_launches) == before
+    assert (ms.launches, ms.kernel_launches["fused"]) == before
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -400,7 +400,7 @@ def test_apply_ssm_kernel_path_gives_the_ungated_output_and_state(arch, dtype, m
 @pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_prefill_takes_the_gated_call_per_layer_and_training_none(arch, monkeypatch):
     """A prefill makes one fused call per SSM layer; its step record keeps
-    `mamba_scan.gated_launches`, 0 here since the CPU runs the plain version (on
+    `mamba_scan/fused`, 0 here since the CPU runs the plain version (on
     the card it counts the same calls: `tests/test_torch_cuda.py`).  A train
     step, which autograd records, makes none and counts 0."""
     from repro_torch import scope
@@ -411,26 +411,26 @@ def test_prefill_takes_the_gated_call_per_layer_and_training_none(arch, monkeypa
     batch = api.demo_batch(cfg, 2, 12, device="cpu")
     make_prefill_step(cfg, StepSettings(attn_impl="flash"), cache_len=16)(p, batch)
     assert calls == [True] * cfg.num_layers
-    assert scope.steps[-1].counters["mamba_scan.gated_launches"] == 0
+    assert scope.steps[-1].counters["mamba_scan/fused"] == 0
     calls.clear()
     opt_cfg = adamw.AdamWConfig()
     params = tree_map(lambda t: t.float(), p)
     make_train_step(cfg, opt_cfg, StepSettings(accum=2, remat="dots"))(
         params, adamw.init(opt_cfg, params), api.demo_batch(cfg, 4, 16, device="cpu"))
     rec = scope.steps[-1]
-    assert rec.kind == "train" and rec.counters["mamba_scan.gated_launches"] == 0
+    assert rec.kind == "train" and rec.counters["mamba_scan/fused"] == 0
     assert calls == []
 
 
 def test_fake_prefill_takes_the_gated_op_and_counts_nothing(monkeypatch):
     """A falcon-mamba-7b prefill at full width and 2 layers (2 x 64) on fake
     tensors: every layer's scan is a fused call through the custom op's fake
-    implementation, no launch is counted and the record's gated launches are 0."""
+    implementation, no launch is counted and the record's fused launches are 0."""
     from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
     from repro_torch import scope
     cfg = get_config("falcon-mamba-7b").replace(num_layers=2)
     calls = _record_fused_calls(monkeypatch)
-    before = ms.launches, ms.gated_launches
+    before = ms.launches, ms.kernel_launches["fused"]
     batch = api.demo_batch(cfg, 2, 64, device="cpu")
     with FakeTensorMode(allow_non_fake_inputs=True):
         params = tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype),
@@ -439,8 +439,8 @@ def test_fake_prefill_takes_the_gated_op_and_counts_nothing(monkeypatch):
             params, batch)
         assert isinstance(lg, FakeTensor)
     assert calls == [True] * cfg.num_layers
-    assert (ms.launches, ms.gated_launches) == before
-    assert scope.steps[-1].counters["mamba_scan.gated_launches"] == 0
+    assert (ms.launches, ms.kernel_launches["fused"]) == before
+    assert scope.steps[-1].counters["mamba_scan/fused"] == 0
 
 
 _MESH_PREFILL = """
@@ -452,7 +452,7 @@ calls = []
 real = ms.mamba_scan_fused
 ms.mamba_scan_fused = lambda *a, **k: calls.append(len(a) == 8) or real(*a, **k)
 lower_cell("falcon-mamba-7b", "prefill_32k", device="cpu", cfg_overrides={"num_layers": 2})
-print("FUSED" + json.dumps([calls, scope.steps[-1].counters["mamba_scan.gated_launches"]]))
+print("FUSED" + json.dumps([calls, scope.steps[-1].counters["mamba_scan/fused"]]))
 """
 
 
@@ -523,7 +523,7 @@ def _inloop_inputs(seed, B, S, Di, N):
 
 @pytest.mark.parametrize("S,chunk", [(96, 32), (100, 32), (40, 64)])
 def test_inloop_scan_is_the_chunked_scan_of_the_discretised_inputs(S, chunk):
-    """`ssm.scan_inloop` against `scan_chunked` on `_discretise`'s a_bar and bx:
+    """`ref.scan_inloop` against `scan_chunked` on `_discretise`'s a_bar and bx:
     y and the final state equal bit for bit (the discretisation is elementwise),
     and the gradients of delta, x, A, B and C within 2e-5 (A's sums its
     chunks' parts in another order)."""
@@ -533,17 +533,17 @@ def test_inloop_scan_is_the_chunked_scan_of_the_discretised_inputs(S, chunk):
     for inloop in (True, False):
         live = [t.clone().requires_grad_() for t in ins]
         if inloop:
-            y, h = ssm.scan_inloop(*live, return_state=True, chunk=chunk)
+            y, h = ref.scan_inloop(*live, return_state=True, chunk=chunk)
         else:
             delta, x, a, b, c = live
-            y, h = ssm.scan_chunked(*ssm._discretise(delta, x, a, b), c, return_state=True,
+            y, h = ref.scan_chunked(*ref._discretise(delta, x, a, b), c, return_state=True,
                                     chunk=chunk)
         ((y * w).sum() + h.sum()).backward()
         got.append((y, h, [t.grad for t in live]))
     (y, h, grads), (y0, h0, want) = got
     assert torch.equal(y, y0) and torch.equal(h, h0)
-    for g, ref in zip(grads, want):
-        assert rel_err(to_np(g), to_np(ref)) < 2e-5
+    for g, g0 in zip(grads, want):
+        assert rel_err(to_np(g), to_np(g0)) < 2e-5
 
 
 def _saved_bytes(fn):
@@ -572,8 +572,7 @@ def test_inloop_ssm_keeps_less_than_one_discretised_tensor_for_backward():
     grads = {}
     for flag in (True, False):
         live = {k: v.detach().requires_grad_() for k, v in p.items()}
-        out, saved = _saved_bytes(lambda: ssm.apply_ssm(cfg.replace(ssm_inloop=flag), live, x,
-                                                        scan_impl="plain"))
+        out, saved = _saved_bytes(lambda: ssm.apply_ssm(cfg.replace(ssm_inloop=flag), live, x))
         assert (saved < one) if flag else (saved >= one), (flag, saved, one)
         out.square().mean().backward()
         grads[flag] = {k: v.grad for k, v in live.items()}
@@ -584,9 +583,9 @@ def test_inloop_ssm_keeps_less_than_one_discretised_tensor_for_backward():
 @pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_inloop_forward_loss_and_gradients_match_reference(arch):
     """With `ssm_inloop` in both packages, fp32, 2 x 320 (5 chunks of 64):
-    logits, the training loss and every parameter's gradient through
-    `scan_impl="plain"` against the reference's forward, loss_fn and
-    jax.grad, within 2e-5."""
+    logits, the training loss and every parameter's gradient through the
+    CPU's plain scan against the reference's forward, loss_fn and jax.grad,
+    within 2e-5."""
     cfg, jcfg, jp, _ = model_pair(arch, "float32", ssm_inloop=True)
     p = params_from_jax(jax.tree.map(np.array, jp), cfg, device="cpu", dtype=torch.float32)
     batch, jbatch = batch_pair(cfg, 2, 320)
@@ -595,7 +594,7 @@ def test_inloop_forward_loss_and_gradients_match_reference(arch):
     jlg, _ = jax_api.forward(jcfg, jp, jbatch, attn_impl="naive")
     assert rel_err(to_np(lg), jlg) < TOL["float32"]
     live = tree_map(lambda t: t.detach().requires_grad_(), p)
-    loss = api.loss_fn(cfg, live, batch, scan_impl="plain", remat="dots")
+    loss = api.loss_fn(cfg, live, batch, remat="dots")
     grads = torch.autograd.grad(loss, list(leaves(live)))
     jloss, jgrads = jax.value_and_grad(lambda q: jax_api.loss_fn(jcfg, q, jbatch))(jp)
     np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=TOL["float32"])
@@ -807,7 +806,7 @@ def test_train_scan_plain_models_match_autograd_through_the_inloop_scan(S, N, re
     dy = torch.from_numpy(rng.standard_normal((B, S, Di)))
     dh = torch.from_numpy(rng.standard_normal((B, Di, N))) if return_state else None
     live = [t.clone().requires_grad_() for t in ins]
-    y, h = ssm.scan_inloop(*live, return_state=True)
+    y, h = ref.scan_inloop(*live, return_state=True)
     loss = (y * dy).sum() + ((h * dh).sum() if return_state else 0)
     want = torch.autograd.grad(loss, live, materialize_grads=True)
     y2, h2, states = ref.mamba_scan_train_ref(*ins)
@@ -841,10 +840,10 @@ def test_train_entry_on_cpu_is_the_inloop_scan_bit_for_bit(x_dtype):
     delta, x, a, b, c = _inloop_inputs(3, 2, 100, 16, 16)
     x = x.to(getattr(torch, x_dtype))
     w = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 100, 16)).astype(np.float32))
-    before = ms.launches, dict(ms.kernel_launches), ms.backward_launches
+    before = ms.launches, dict(ms.kernel_launches)
     got = []
     for fn in (lambda *t: ops.mamba_scan_train(*t, return_state=True),
-               lambda d, xx, *t: ssm.scan_inloop(d, xx.float(), *t, return_state=True)):
+               lambda d, xx, *t: ref.scan_inloop(d, xx.float(), *t, return_state=True)):
         live = [t.clone().requires_grad_() for t in (delta, x, a, b, c)]
         y, h = fn(*live)
         got.append((y, h, torch.autograd.grad((y * w).sum() + h.sum(), live)))
@@ -853,7 +852,7 @@ def test_train_entry_on_cpu_is_the_inloop_scan_bit_for_bit(x_dtype):
     assert grads[1].dtype == x.dtype
     for g, g0 in zip(grads, want):
         assert torch.equal(g, g0)
-    assert (ms.launches, ms.kernel_launches, ms.backward_launches) == before
+    assert (ms.launches, ms.kernel_launches) == before
 
 
 @pytest.mark.parametrize("return_state", [True, False])
@@ -864,9 +863,8 @@ def test_train_ops_fake_implementations_give_the_kernels_shapes(x_dtype, return_
     (or [0]) fp32, the saved states [B, ceil(S / chunk), Di, N] fp32, and
     gradients in their inputs' shapes and dtypes (x's in x's); no launch."""
     from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
-    from repro_torch.kernels import ref
     B, S, Di, N = 2, 40, 24, 16
-    before = ms.launches, dict(ms.kernel_launches), ms.backward_launches
+    before = ms.launches, dict(ms.kernel_launches)
     with FakeTensorMode():
         delta, a = torch.rand(B, S, Di), -torch.rand(Di, N)
         x = torch.randn(B, S, Di, dtype=getattr(torch, x_dtype))
@@ -882,7 +880,7 @@ def test_train_ops_fake_implementations_give_the_kernels_shapes(x_dtype, return_
         grads = torch.autograd.grad(y.sum(), live)
         for g, t in zip(grads, live):
             assert isinstance(g, FakeTensor) and g.shape == t.shape and g.dtype == t.dtype
-    assert (ms.launches, ms.kernel_launches, ms.backward_launches) == before
+    assert (ms.launches, ms.kernel_launches) == before
 
 
 def test_fake_train_step_runs_through_the_training_op(monkeypatch):
@@ -897,7 +895,7 @@ def test_fake_train_step_runs_through_the_training_op(monkeypatch):
     calls = []
     real = ms.mamba_scan_train
     monkeypatch.setattr(ms, "mamba_scan_train", lambda *a, **k: calls.append(1) or real(*a, **k))
-    before = ms.launches, dict(ms.kernel_launches), ms.backward_launches
+    before = ms.launches, dict(ms.kernel_launches)
     batch = api.demo_batch(cfg, 2, 64, device="cpu")
     opt_cfg = adamw.AdamWConfig()
     with FakeTensorMode(allow_non_fake_inputs=True):
@@ -908,22 +906,18 @@ def test_fake_train_step_runs_through_the_training_op(monkeypatch):
         params, opt, metrics = step(params, opt, batch)
         assert isinstance(metrics["loss"], FakeTensor)
     assert len(calls) == cfg.num_layers * 2 * 2
-    assert (ms.launches, ms.kernel_launches, ms.backward_launches) == before
+    assert (ms.launches, ms.kernel_launches) == before
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
-def test_cpu_training_through_the_kernel_path_is_the_plain_path(arch):
-    """On real CPU tensors a loss under autograd with `scan_impl="kernel"` (the
-    train step's) takes the plain scan: the loss and every gradient equal
-    `scan_impl="plain"`'s bit for bit (remat "dots", fp32)."""
+def test_cpu_training_through_the_kernel_path_is_the_plain_path(arch, monkeypatch):
+    """On real CPU tensors a loss under autograd (the train step's) takes the
+    plain scan, flag off and on: it calls neither K2 entry point, counts no
+    launch, and its loss and every gradient equal bit for bit those with the
+    mixer's scan taken explicitly through `ref.scan_chunked`, or
+    `ref.scan_inloop` under `ssm_inloop` (remat "dots", fp32)."""
     cfg, _, _, p = _setup(arch, "float32")
     batch = api.demo_batch(cfg, 2, 24, device="cpu")
-    got = []
-    for impl in ("kernel", "plain"):
-        live = tree_map(lambda t: t.detach().requires_grad_(), p)
-        loss = api.loss_fn(cfg, live, batch, scan_impl=impl, remat="dots")
-        got.append((loss, torch.autograd.grad(loss, list(leaves(live)))))
-    (loss, grads), (loss0, grads0) = got
-    assert torch.equal(loss, loss0)
-    for g, g0 in zip(grads, grads0):
-        assert torch.equal(g, g0)
+    for inloop in (False, True):
+        assert_cpu_training_takes_the_plain_scan(cfg.replace(ssm_inloop=inloop), p, batch,
+                                                 monkeypatch, remat="dots")

@@ -25,7 +25,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from _hypothesis_compat import given, settings, strategies as st
-from _torch_parity import batch_pair, model_pair, to_np
+from _torch_parity import (assert_cpu_training_takes_the_plain_scan, batch_pair, model_pair,
+                           to_np)
 from repro.configs import ARCHS as JAX_ARCHS
 from repro.configs import smoke_config as jax_smoke
 from repro.data import DataConfig as JDataConfig
@@ -57,7 +58,7 @@ def fp32_pair(arch, **change):
 
 def grads_of(cfg, p, batch, **kw):
     live = tree_map(lambda t: t.detach().requires_grad_(), p)
-    loss = api.loss_fn(cfg, live, batch, scan_impl="plain", **kw)
+    loss = api.loss_fn(cfg, live, batch, **kw)
     grads = torch.autograd.grad(loss, list(leaves(live)))
     it = iter(grads)
     return loss.detach(), tree_map(lambda _: next(it), p)
@@ -161,7 +162,7 @@ def test_remat_policies_give_the_same_gradients_and_recompute_as_named():
     grads, backward_ops = {}, {}
     for remat in ("none", "dots", "full"):
         live = tree_map(lambda t: t.detach().requires_grad_(), p)
-        loss = api.loss_fn(cfg, live, batch, scan_impl="plain", remat=remat)
+        loss = api.loss_fn(cfg, live, batch, remat=remat)
         with _CountOps() as count:
             grads[remat] = torch.autograd.grad(loss, list(leaves(live)))
         backward_ops[remat] = count.ops
@@ -273,24 +274,25 @@ def test_synthetic_tokens_are_bitwise_the_reference_stream(arch):
 # the kernels inside autograd
 # --------------------------------------------------------------------------
 
-def test_kernel_wrappers_raise_under_autograd():
+def test_kernel_wrappers_raise_under_autograd(monkeypatch):
     """K1 and K2's prefill entry points have no backward: with grad mode on and
     an input that requires grad, each wrapper raises instead of returning an
     output without a gradient (on the CPU, where it would run the plain
-    version, too); under no_grad, or with no input requiring grad, it runs.
-    A loss with flash attention raises; one with `scan_impl="kernel"` takes
-    K2's differentiable training entry point, which on the CPU is the plain
-    scan: the same loss and gradients as `scan_impl="plain"`, bit for bit."""
+    version, too), K2's naming the training entry point; under no_grad, or
+    with no input requiring grad, it runs.  A loss with flash attention
+    raises; the training loss on the CPU takes the plain scan, calling no K2
+    entry point: the same loss and gradients as with the scan taken
+    explicitly through `ref.scan_chunked`, bit for bit."""
     q = torch.randn(1, 2, 8, 16)
     k, v = torch.randn(1, 2, 8, 16), torch.randn(1, 2, 8, 16)
     a, bx, c = torch.rand(1, 8, 4, 2), torch.randn(1, 8, 4, 2), torch.randn(1, 8, 2)
     qr, ar = q.clone().requires_grad_(), a.clone().requires_grad_()
     with pytest.raises(RuntimeError, match="no backward"):
         fa.flash_attention(qr, k, v)
-    with pytest.raises(RuntimeError, match="no backward"):
+    with pytest.raises(RuntimeError, match="no backward.*mamba_scan_train"):
         ms.mamba_scan(ar, bx, c)
     delta, x = torch.rand(1, 8, 4), torch.randn(1, 8, 4)
-    with pytest.raises(RuntimeError, match="no backward"):
+    with pytest.raises(RuntimeError, match="no backward.*mamba_scan_train"):
         ms.mamba_scan_fused(delta.clone().requires_grad_(), x, -torch.rand(4, 2),
                             torch.randn(1, 8, 2), c, torch.randn(4), torch.randn(4),
                             torch.randn(1, 8, 4))
@@ -301,15 +303,8 @@ def test_kernel_wrappers_raise_under_autograd():
     batch, _ = batch_pair(cfg, 2, 16)
     live = tree_map(lambda t: t.detach().requires_grad_(), p)
     with pytest.raises(RuntimeError, match="no backward"):
-        api.loss_fn(cfg, live, batch, attn_impl="flash", scan_impl="plain")
-    got = []
-    for impl in ("kernel", "plain"):
-        loss = api.loss_fn(cfg, live, batch, scan_impl=impl)
-        got.append((loss, torch.autograd.grad(loss, list(leaves(live)), allow_unused=True)))
-    (loss, grads), (loss0, grads0) = got
-    assert torch.equal(loss, loss0)
-    for g, g0 in zip(grads, grads0):
-        assert (g is None and g0 is None) or torch.equal(g, g0)
+        api.loss_fn(cfg, live, batch, attn_impl="flash")
+    assert_cpu_training_takes_the_plain_scan(cfg, p, batch, monkeypatch)
 
 
 def test_vocab_parallel_pick_takes_plain_tensors():
